@@ -6,18 +6,28 @@
 Phases, each of which fails the run (non-zero exit, no result line) if it fails:
 
 1. the card's name and power limit, and the matmul precision flags;
-2. build every CUDA source of m3l_tpu_torch/csrc (one nvcc each);
-3. each kernel against its plain PyTorch version on the card, at the serving shapes and a few
-   more, then timed beside its plain version, its byte/FLOP bound and one PyTorch library call
-   that computes the same function (timed as a yardstick only; the port never calls it);
+2. build every CUDA source of m3l_tpu_torch/csrc (one nvcc each, all started together);
+3. each kernel against its plain PyTorch version on the card, element by element within its
+   stated tolerance, at the serving and training shapes and a few more; then each timed beside
+   its plain version, its byte/FLOP bound and one PyTorch library call that computes the same
+   function (timed as a yardstick only; the port never calls it);
 4. the serving slice: the full-width PPO+MAE policy (dim 256, 4 encoder layers + 1 post layer,
    bf16 compute, random weights from a seed) serves 8 requests of batch 8 and one of batch 512
    through PolicyServer; every forward must launch the attention kernel 5 times, and the
    batch-8 actions and values, in bf16 and in f32 on the card, must match the same weights
-   run in f32 on the CPU.
+   run in f32 on the CPU;
+5. the training slice at full width (dim 256, 4 encoder layers, 192 tokens, 10 kept at mask
+   ratio 0.95, decoder depth 3, 4 heads): (a) one joint PPO+MAE minibatch update in f32 on
+   the card against the same weights, batch and mask in f32 on the CPU, at minibatch 64 so the
+   CPU side takes seconds; (b) PPOMAE in bf16 on FakeInsertion (8 envs, frame stack 4,
+   rollout 1024, minibatch 512, 2 epochs) learns for two iterations; every train() must
+   launch the forward kernel 12 times per update plus 5 (last_values) and the backward kernel
+   12 times per update. Cut from the reference workload to fit the time limit: the rollout
+   (1024 of 32768 samples) and the epochs (2 of 10); widths, depth, tokens and the minibatch
+   are full.
 
-The last lines are a {"kernels": [...]} JSON line, a {"slice": ...} JSON line, the card line as
-nvidia-smi prints it, and {"ok": true, "device": {...}}.
+The last lines are a {"kernels": [...]} JSON line, a {"slice": ...} and a {"train": ...} JSON
+line, the card line as nvidia-smi prints it, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -31,22 +41,31 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from m3l_tpu_torch.envs import SyncVecEnv, make_env
 from m3l_tpu_torch.kernels import LAUNCHES, reset_launches
 from m3l_tpu_torch.kernels.build import build_all
+from m3l_tpu_torch.nn import flash_attention as fa
 from m3l_tpu_torch.nn.flash_attention import (
+    BWD_KERNEL,
     KERNEL,
     flash_attention_qkv,
+    flash_attention_qkv_bwd_reference,
+    flash_attention_qkv_bwd_tolerance,
     flash_attention_qkv_reference,
     flash_attention_qkv_tolerance,
 )
+from m3l_tpu_torch.profile_paths import random_minibatch
+from m3l_tpu_torch.rl import PPOMAE
 from m3l_tpu_torch.serve import PolicyServer, build_policy, random_obs
 
 # H100 SXM data sheet: HBM rate and dense peak rates per compute type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
-# The kernel against its plain version: the elementwise bound of flash_attention_qkv_tolerance
-# (f32 1e-5; bf16 one ulp of the output plus one ulp of each probability times |v|).
+# The kernels against their plain versions: the elementwise bounds of
+# flash_attention_qkv_tolerance (f32 1e-5; bf16 one ulp of the output plus one ulp of each
+# probability times |v|) and flash_attention_qkv_bwd_tolerance (f32 2e-5; bf16 one ulp of dqkv
+# plus the worst-case f32 summation term).
 # The policy on the card against the same weights in f32 on the CPU, absolute on actions and
 # values; the compared magnitudes are printed beside it (|action| max ~9e-2, median ~3e-2;
 # |value| ~1.1e-2 on the H100). bf16: about 3x the largest error these seeds gave on the H100
@@ -58,10 +77,21 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # attention exceeds this bound.
 SLICE_TOL = 5e-3
 SLICE_F32_TOL = 1e-6
+# One f32 minibatch update on the card against the CPU (TF32 off): each loss relative to its
+# magnitude, the flat pre-clip gradient relative to its norm, and the updated parameters
+# relative to the learning rate. About 10x the largest values these seeds gave on the H100
+# (1.936e-7, 1.522e-7, 2.980e-4: the same f32 arithmetic in another summation order; Adam's
+# first step is ~lr * sign(g), so a parameter differs only where its gradient is near zero).
+# tests/test_torch_train_phase.py shows that one key dropped from every attention layer
+# exceeds all three.
+TRAIN_F32_TOL = dict(loss_rel=2e-6, grad_rel=2e-6, param_per_lr=3e-3)
 
 FRAME_STACK = 4
 ACTION_DIM = 3
 SERVE_B, SERVE_N, SERVE_H, SERVE_DH = 512, 192, 4, 64  # attention at the batch-512 forward
+TRAIN_N_KEPT = 10  # the MAE encoder's tokens at mask ratio 0.95
+TRAIN_ENVS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_EPOCHS, CHECK_BATCH = 8, 128, 512, 2, 64
+TRAIN_TIMED_UPDATES = 5
 
 
 def fail(msg: str) -> None:
@@ -83,55 +113,88 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def packed_qkv(b, n, h, dh, dtype, masked, seed):
+    """qkv (B, N, 3HDh), a cotangent g (B, N, HDh) and an optional key mask, from a seed."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     qkv = torch.randn(b, n, 3 * h * dh, generator=g, device="cuda").to(dtype)
+    cot = torch.randn(b, n, h * dh, generator=g, device="cuda").to(dtype)
     mask = None
     if masked:
         mask = torch.rand(b, n, generator=g, device="cuda") > 0.3
         mask[:, 0] = True
-    return qkv, mask
+    return qkv, cot, mask
 
 
-def check_attention() -> float:
-    """Kernel against plain at every listed shape, each element within its bound; returns the max
-    abs error at the serving shape."""
-    cases = [(b, n, 4, 64, dt, m) for b in (8, 512) for n in (10, 192) for dt in (torch.bfloat16, torch.float32) for m in (False, True)]
-    cases += [(64, 196, 16, 64, torch.bfloat16, True), (64, 196, 16, 64, torch.float32, False)]
-    serve_err = None
-    for i, (b, n, h, dh, dtype, masked) in enumerate(cases):
-        qkv, mask = packed_qkv(b, n, h, dh, dtype, masked, seed=i)
-        out = flash_attention_qkv(qkv, h, key_mask=mask)
-        ref = flash_attention_qkv_reference(qkv, h, key_mask=mask)
-        torch.cuda.synchronize()
-        if out.shape != ref.shape or out.dtype != dtype or not torch.isfinite(out).all():
-            fail(f"attention output malformed at {(b, n, h, dh, dtype)}")
-        diff = (out.float() - ref.float()).abs()
-        tol = flash_attention_qkv_tolerance(qkv, h, ref, key_mask=mask)
-        err, ratio = diff.max().item(), (diff / tol).max().item()
-        ref_max = ref.float().abs().max().item()
-        ok = ratio <= 1.0
-        print(f"  attention B={b} N={n} H={h} Dh={dh} {str(dtype)[6:]} mask={masked}: max_abs_err={err:.3e} "
-              f"max|ref|={ref_max:.3e} rel_err={err / ref_max:.3e} tol in [{tol.min().item():.3e}, {tol.max().item():.3e}] "
-              f"max err/tol={ratio:.3f} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"attention kernel disagrees with its plain version at {(b, n, h, dh, dtype, masked)}")
-        if (b, n, h, dh, dtype, masked) == (SERVE_B, SERVE_N, SERVE_H, SERVE_DH, torch.bfloat16, False):
-            serve_err = err
-    return serve_err
+def report(kind, b, n, h, dh, dtype, masked, out, ref, tol) -> float:
+    """Print one kernel-vs-plain case; fail if an element is outside its bound. Returns max err."""
+    if out.shape != ref.shape or out.dtype != dtype or not torch.isfinite(out).all():
+        fail(f"{kind} output malformed at {(b, n, h, dh, dtype)}")
+    diff = (out.float() - ref.float()).abs()
+    err, ratio = diff.max().item(), (diff / tol).max().item()
+    ref_max = ref.float().abs().max().item()
+    ok = ratio <= 1.0
+    print(f"  {kind} B={b} N={n} H={h} Dh={dh} {str(dtype)[6:]} mask={masked}: max_abs_err={err:.3e} "
+          f"max|ref|={ref_max:.3e} rel_err={err / ref_max:.3e} tol in [{tol.min().item():.3e}, {tol.max().item():.3e}] "
+          f"max err/tol={ratio:.3f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{kind} kernel disagrees with its plain version at {(b, n, h, dh, dtype, masked)}")
+    return err
+
+
+def check_attention() -> dict:
+    """Both kernels against their plain versions at every listed shape; returns the max abs
+    errors at the training shape (B=512, N=192, bf16, no mask) keyed by kernel."""
+    fwd = [(b, n, 4, 64) for b in (8, 512) for n in (10, 192)] + [(64, 196, 16, 64)]
+    bwd = [(512, 192, 4, 64), (512, TRAIN_N_KEPT, 4, 64), (8, 192, 4, 64), (64, 196, 16, 64)]
+    errs = {}
+    for kind, shapes in (("forward", fwd), ("backward", bwd)):
+        cases = [(s, dt, m) for s in shapes for dt in (torch.bfloat16, torch.float32) for m in (False, True)]
+        for i, ((b, n, h, dh), dtype, masked) in enumerate(cases):
+            qkv, cot, mask = packed_qkv(b, n, h, dh, dtype, masked, seed=i)
+            if kind == "forward":
+                out = flash_attention_qkv(qkv, h, key_mask=mask)
+                ref = flash_attention_qkv_reference(qkv, h, key_mask=mask)
+                tol = flash_attention_qkv_tolerance(qkv, h, ref, key_mask=mask)
+            else:
+                out = fa._launch_bwd(qkv, cot, h, None if mask is None else fa._key_bias(mask), dh**-0.5)
+                ref = flash_attention_qkv_bwd_reference(qkv, cot, h, key_mask=mask)
+                tol = flash_attention_qkv_bwd_tolerance(qkv, cot, h, ref, key_mask=mask)
+            torch.cuda.synchronize()
+            err = report(kind, b, n, h, dh, dtype, masked, out, ref, tol)
+            if (b, n, h, dh, dtype, masked) == (SERVE_B, SERVE_N, SERVE_H, SERVE_DH, torch.bfloat16, False):
+                errs[kind] = err
+    return errs
+
+
+def bound(nbytes: int, flops: int, dtype) -> dict:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=nbytes, flops=flops)
 
 
 def time_attention(b, n, h, dh, dtype) -> dict:
-    qkv, _ = packed_qkv(b, n, h, dh, dtype, False, seed=100)
+    qkv, _, _ = packed_qkv(b, n, h, dh, dtype, False, seed=100)
     q, k, v = (t.contiguous() for t in qkv.view(b, n, 3, h, dh).permute(2, 0, 3, 1, 4))
     ms = cuda_ms(lambda: flash_attention_qkv(qkv, h))
     plain_ms = cuda_ms(lambda: flash_attention_qkv_reference(qkv, h))
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
     elem = qkv.element_size()
-    nbytes = qkv.numel() * elem + b * n * h * dh * elem  # qkv read once, output written once
-    flops = 4 * b * h * n * n * dh  # QK^T and AV
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=nbytes, flops=flops)
+    # qkv read once, output written once; QK^T and AV
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound(qkv.numel() * elem + b * n * h * dh * elem, 4 * b * h * n * n * dh, dtype))
+
+
+def time_attention_bwd(b, n, h, dh, dtype) -> dict:
+    qkv, cot, _ = packed_qkv(b, n, h, dh, dtype, False, seed=101)
+    scale = dh**-0.5
+    ms = cuda_ms(lambda: fa._launch_bwd(qkv, cot, h, None, scale))
+    plain_ms = cuda_ms(lambda: flash_attention_qkv_bwd_reference(qkv, cot, h))
+    # the library yardstick: SDPA's backward through autograd, on the same q, k, v and cotangent
+    q, k, v = (t.contiguous().requires_grad_(True) for t in qkv.view(b, n, 3, h, dh).permute(2, 0, 3, 1, 4))
+    out = F.scaled_dot_product_attention(q, k, v)
+    g = cot.view(b, n, h, dh).permute(0, 2, 1, 3).contiguous()
+    library_ms = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True))
+    elem = qkv.element_size()
+    # qkv and g read once, dqkv written once; S, dV, dA, dQ, dK
+    nbytes = (2 * qkv.numel() + cot.numel()) * elem
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound(nbytes, 10 * b * h * n * n * dh, dtype))
 
 
 def serve_slice() -> dict:
@@ -160,8 +223,8 @@ def serve_slice() -> dict:
     t_large = time.perf_counter() - t0
     forwards += 1
     launches = LAUNCHES[KERNEL]
-    if launches != 5 * forwards:
-        fail(f"attention kernel launched {launches} times in {forwards} forwards, expected 5 per forward")
+    if launches != 5 * forwards or LAUNCHES[BWD_KERNEL]:
+        fail(f"serving launched the attention kernels {dict(LAUNCHES)} in {forwards} forwards, expected 5 forward launches per forward")
 
     if large_actions.shape != (512, ACTION_DIM) or not np.isfinite(large_actions).all():
         fail("batch-512 actions malformed")
@@ -207,6 +270,102 @@ def outputs(server: PolicyServer, batches: list) -> tuple[np.ndarray, np.ndarray
     return np.concatenate(acts), np.concatenate(vals)
 
 
+def train_env() -> SyncVecEnv:
+    return SyncVecEnv([make_env("FakeInsertion", i, seed=0, frame_stack=FRAME_STACK) for i in range(TRAIN_ENVS)])
+
+
+def update_once(model: PPOMAE, mb: dict, mask) -> tuple[dict, torch.Tensor]:
+    """One minibatch update on the whole of ``mb``; returns its metrics and the flat pre-clip
+    gradient."""
+    n = mb["advantages"].shape[0]
+    idx = torch.arange(n, device=model.device)
+    mask = type(mask)(*(t.to(model.device) for t in mask))
+    metrics = model.minibatch_update(mb["data"], idx, mb["advantages"], mb["returns"], mask)
+    return {k: float(v) for k, v in metrics.items()}, model.optimizer.flat_grad()
+
+
+def update_errors(a: PPOMAE, b: PPOMAE, batch: int, seed: int = 0) -> dict:
+    """One minibatch update of ``a`` and ``b`` (same weights, same batch and mask): the largest
+    loss difference relative to the loss, the gradient difference relative to the gradient's
+    norm, and the largest parameter difference after the step relative to the learning rate."""
+    mask = b.policy.features.mae.sample_mask(torch.Generator().manual_seed(seed), batch)
+    results = [update_once(m, random_minibatch(np.random.default_rng(seed), batch, m.device), mask) for m in (a, b)]
+    (ma, ga), (mb_, gb) = results
+    loss_rel = max(abs(ma[k] - mb_[k]) / max(abs(mb_[k]), 1e-30) for k in ma)
+    grad_rel = ((ga.cpu() - gb.cpu()).norm() / gb.cpu().norm()).item()
+    pa, pb = (torch.cat([p.detach().cpu().reshape(-1) for p in m.policy.parameters()]) for m in (a, b))
+    return dict(loss_rel=loss_rel, grad_rel=grad_rel, param_per_lr=((pa - pb).abs().max() / a.optimizer.learning_rate).item(),
+                losses=mb_, grad_norm=gb.norm().item())
+
+
+def train_slice() -> dict:
+    lr = 1e-4
+    # (a) one f32 update at full width, card vs CPU
+    torch.manual_seed(1)
+    policy = build_policy(dtype=torch.float32, device="cuda")
+    twin = build_policy(dtype=torch.float32, device="cpu")
+    twin.load_state_dict(policy.state_dict())
+    kw = dict(learning_rate=lr, n_steps=CHECK_BATCH // TRAIN_ENVS, batch_size=CHECK_BATCH, frame_stack=FRAME_STACK)
+    t0 = time.perf_counter()
+    errs = update_errors(PPOMAE(policy, train_env(), device="cuda", **kw), PPOMAE(twin, train_env(), device="cpu", **kw), CHECK_BATCH)
+    print(f"  train: one f32 update at minibatch {CHECK_BATCH}, card vs CPU ({time.perf_counter() - t0:.1f} s): "
+          f"loss rel err {errs['loss_rel']:.3e}, grad err/|grad| {errs['grad_rel']:.3e} (|grad| {errs['grad_norm']:.3e}), "
+          f"param err/lr {errs['param_per_lr']:.3e}; tol {TRAIN_F32_TOL}; losses {errs['losses']}")
+    if any(errs[k] > TRAIN_F32_TOL[k] for k in TRAIN_F32_TOL):
+        fail("the f32 minibatch update on the card disagrees with the CPU")
+
+    # (b) two learn iterations in bf16 on FakeInsertion
+    torch.manual_seed(2)
+    policy = build_policy(dtype=torch.bfloat16, device="cuda")
+    before = [p.detach().clone() for p in policy.parameters()]
+    model = PPOMAE(policy, train_env(), learning_rate=lr, n_steps=TRAIN_STEPS, batch_size=TRAIN_BATCH,
+                   n_epochs=TRAIN_EPOCHS, frame_stack=FRAME_STACK, seed=0, device="cuda", verbose=1)
+    updates = TRAIN_EPOCHS * model.n_minibatches
+    per_train = []
+    train = model.train
+
+    def counted_train():
+        start = dict(LAUNCHES)
+        metrics = train()
+        per_train.append({k: LAUNCHES[k] - start.get(k, 0) for k in (KERNEL, BWD_KERNEL)})
+        return metrics
+
+    model.train = counted_train
+    reset_launches()
+    model.learn(total_timesteps=2 * TRAIN_STEPS * TRAIN_ENVS)
+    torch.cuda.synchronize()
+    launches = {k: LAUNCHES[k] for k in (KERNEL, BWD_KERNEL)}
+    for i, counts in enumerate(per_train):
+        if counts != {KERNEL: 12 * updates + 5, BWD_KERNEL: 12 * updates}:
+            fail(f"train() {i} launched {counts}, expected {12 * updates + 5} forward and {12 * updates} backward")
+    metrics = model.last_metrics
+    if model.iteration != 2 or not all(np.isfinite(metrics[k]) for k in metrics if k != "explained_variance"):
+        fail(f"bf16 learn did not finish two iterations with finite losses: {metrics}")
+    moved = max((p.detach() - b).abs().max().item() for p, b in zip(policy.parameters(), before))
+    if not moved > 0 or not all(torch.isfinite(p).all() for p in policy.parameters()):
+        fail("bf16 learn left the parameters unmoved or not finite")
+
+    # milliseconds per minibatch update, synchronised, after one warm-up update
+    mb = random_minibatch(np.random.default_rng(3), TRAIN_BATCH, model.device)
+    idx = torch.arange(TRAIN_BATCH, device=model.device)
+    gen = torch.Generator(device=model.device).manual_seed(3)
+    masks = [model.policy.features.mae.sample_mask(gen, TRAIN_BATCH) for _ in range(TRAIN_TIMED_UPDATES + 1)]
+    model.minibatch_update(mb["data"], idx, mb["advantages"], mb["returns"], masks[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for m in masks[1:]:
+        model.minibatch_update(mb["data"], idx, mb["advantages"], mb["returns"], m)
+    torch.cuda.synchronize()
+    update_s = (time.perf_counter() - t0) / TRAIN_TIMED_UPDATES
+    return dict(
+        f32_check=dict(errs, tol=TRAIN_F32_TOL, minibatch=CHECK_BATCH),
+        iterations=[dict(collect_s=s["collect"], train_s=s["train"]) for s in model.iteration_seconds],
+        updates_per_train=updates, launches=launches, launches_per_train=per_train,
+        update_ms=update_s * 1e3, update_obs_frames_per_s=TRAIN_BATCH * FRAME_STACK / update_s,
+        last_metrics=metrics, max_param_move=moved,
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -226,30 +385,47 @@ def main() -> int:
     print(f"[2] built {sorted(secs)} in {time.perf_counter() - t0:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())})")
 
     print("[3] kernels against their plain versions")
-    serve_err = check_attention()
+    errs = check_attention()
     timed = {}
-    for b in (8, SERVE_B):
-        timed[b] = time_attention(b, SERVE_N, SERVE_H, SERVE_DH, torch.bfloat16)
-        t = timed[b]
-        print(f"  attention B={b} N={SERVE_N} H={SERVE_H} Dh={SERVE_DH} bf16: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-              f"sdpa {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bytes']} B, {t['flops']} FLOP)")
+    for kind, fn, shapes in (("forward", time_attention, ((8, SERVE_N), (SERVE_B, SERVE_N), (SERVE_B, TRAIN_N_KEPT))),
+                             ("backward", time_attention_bwd, ((SERVE_B, SERVE_N), (SERVE_B, TRAIN_N_KEPT)))):
+        for b, n in shapes:
+            t = timed[kind, b, n] = fn(b, n, SERVE_H, SERVE_DH, torch.bfloat16)
+            print(f"  {kind} B={b} N={n} H={SERVE_H} Dh={SERVE_DH} bf16: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                  f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bytes']} B, {t['flops']} FLOP)")
 
     print("[4] serving slice")
     sl = serve_slice()
     print(f"  batch 8: p50 {sl['batch8_latency_ms_p50']:.3f} ms per request; batch 512: {sl['batch512_ms']:.3f} ms, "
           f"{sl['batch512_obs_frames_per_s']:.1f} obs-frames/s; {sl['attention_launches']} attention launches in {sl['forwards']} forwards")
 
-    t = timed[SERVE_B]
-    kernels = [dict(
-        name=KERNEL, route="cuda", source="m3l_tpu_torch/csrc/flash_attention_qkv_fwd.cu",
-        replaces="m3l_tpu/nn/flash_attention.py:263", launches=sl["attention_launches"],
-        max_abs_err=serve_err, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-        library_ms=t["library_ms"], shape=dict(B=SERVE_B, N=SERVE_N, H=SERVE_H, Dh=SERVE_DH, dtype="bfloat16"),
-        batch8_ms=timed[8]["ms"], batch8_plain_ms=timed[8]["plain_ms"], batch8_library_ms=timed[8]["library_ms"],
-        batch8_bound_ms=timed[8]["bound_ms"],
-    )]
+    print("[5] training slice")
+    tr = train_slice()
+    its = "; ".join(f"collect {i['collect_s']:.2f} s, train {i['train_s']:.2f} s" for i in tr["iterations"])
+    print(f"  learn: {its}; {tr['updates_per_train']} updates per train(), launches per train() {tr['launches_per_train']}")
+    print(f"  minibatch update {tr['update_ms']:.3f} ms ({TRAIN_BATCH} samples), {tr['update_obs_frames_per_s']:.1f} update obs-frames/s")
+
+    def row(name, source, replaces, kind, launches, err):
+        t, t10 = timed[kind, SERVE_B, SERVE_N], timed[kind, SERVE_B, TRAIN_N_KEPT]
+        return dict(
+            name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+            launches_by_path=dict(serve=sl["attention_launches"] if kind == "forward" else 0, train=launches),
+            max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"], shape=dict(B=SERVE_B, N=SERVE_N, H=SERVE_H, Dh=SERVE_DH, dtype="bfloat16"),
+            n10_ms=t10["ms"], n10_plain_ms=t10["plain_ms"], n10_library_ms=t10["library_ms"], n10_bound_ms=t10["bound_ms"],
+        )
+
+    kernels = [
+        dict(row(KERNEL, "m3l_tpu_torch/csrc/flash_attention_qkv_fwd.cu", "m3l_tpu/nn/flash_attention.py:263", "forward",
+                 tr["launches"][KERNEL], errs["forward"]),
+             batch8_ms=timed["forward", 8, SERVE_N]["ms"], batch8_plain_ms=timed["forward", 8, SERVE_N]["plain_ms"],
+             batch8_library_ms=timed["forward", 8, SERVE_N]["library_ms"], batch8_bound_ms=timed["forward", 8, SERVE_N]["bound_ms"]),
+        row(BWD_KERNEL, "m3l_tpu_torch/csrc/flash_attention_qkv_bwd.cu", "m3l_tpu/nn/flash_attention.py:280", "backward",
+            tr["launches"][BWD_KERNEL], errs["backward"]),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"slice": sl}))
+    print(json.dumps({"train": tr}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

@@ -1,8 +1,9 @@
 """Builds the CUDA sources of ``m3l_tpu_torch/csrc`` at first use and loads them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with ``nvcc`` for Hopper
-(``sm_90a``) into ``_build/<name>-<hash>.so`` beside this file. The hash covers the source and the
-compiler flags, so an edited source builds anew and an unchanged one loads from the cache. Nothing
+(``sm_90a``) into ``_build/<name>-<hash>.so`` beside this file. The hash covers the source, the
+shared headers ``csrc/*.cuh`` and the compiler flags, so an edited source or header builds anew
+and an unchanged one loads from the cache. Nothing
 is built when the package is imported: the first wrapper that needs a library calls
 :func:`load_library`, which keeps the one loaded copy of each library. Without ``nvcc`` the build
 raises; there is no fallback.
@@ -15,6 +16,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -37,7 +39,8 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
@@ -57,14 +60,17 @@ def build(name: str) -> Path:
     return out
 
 
+def _timed_build(name: str) -> float:
+    t0 = time.perf_counter()
+    build(name)
+    return time.perf_counter() - t0
+
+
 def build_all() -> dict[str, float]:
-    """Build every source, one nvcc each; returns seconds per source."""
-    secs = {}
-    for name in sorted(p.stem for p in CSRC_DIR.glob("*.cu")):
-        t0 = time.perf_counter()
-        build(name)
-        secs[name] = time.perf_counter() - t0
-    return secs
+    """Build every source, one nvcc each, all started together; returns seconds per source."""
+    names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(_timed_build, names)))
 
 
 def load_library(name: str, signatures: dict[str, tuple[list, object]]) -> ctypes.CDLL:

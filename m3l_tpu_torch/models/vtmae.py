@@ -1,9 +1,11 @@
 """VTMAE — multimodal masked autoencoder over a VTT encoder (counterpart of ``m3l_tpu/models/vtmae.py``).
 
 The constructor builds every submodule and parameter of the JAX module (EarlyCNN towers,
-decoder, mask token, pixel/tactile heads, embeddings), so JAX weights carry over whole. This
-serving slice implements the unmasked path: :meth:`get_embeddings` and the token pipeline it
-uses. The masked loss, the decode path and ``reconstruct`` come with the training slice.
+decoder, mask token, pixel/tactile heads, embeddings), so JAX weights carry over whole. Ported:
+the unmasked path (:meth:`get_embeddings`) and the masked-reconstruction loss. The JAX
+``__call__`` draws its mask inside the loss; here :meth:`forward` draws it with
+:meth:`sample_mask` from a ``torch.Generator`` and hands it to :meth:`masked_loss`, which tests
+call with an injected :class:`ModalMask`. ``reconstruct`` is a later slice.
 
 The sin/cos tables are buffers recomputed from the config, not parameters. Mixed dtypes follow
 JAX's promotion: image tokens plus the f32 modality embedding become f32, tactile tokens stay
@@ -17,6 +19,7 @@ from torch import nn
 from ..nn.early_cnn import EarlyCNN
 from ..nn.layers import Linear
 from ..nn.transformer import Transformer
+from ..ops.masking import ModalMask, gather_tokens, random_modal_masking, restore_tokens
 from ..ops.posenc import sincos_2d
 from .vtt import VTT
 
@@ -126,9 +129,113 @@ class VTMAE(nn.Module):
             tokens = tokens + self.encoder.pos_embedding[:, 1 : n + 1].to(tokens.dtype)
         return tokens
 
+    def _mask_counts(self, use_vision: bool, use_tactile: bool):
+        """Reference mask-count split: ``int(ratio * N)`` masked tokens, the image gets
+        ``int(masked * N_img / N)`` and each tactile sensor an equal share of the rest."""
+        c = self.config
+        n_img = c.num_image_patches if use_vision else 0
+        n_tac_single = c.num_tactile_patches_per_sensor if (c.num_tactiles > 0 and use_tactile) else 0
+        n_tac = n_tac_single * c.num_tactiles if n_tac_single else 0
+        n = n_img + n_tac
+        num_masked = int(self.masking_ratio * n)
+        m_img = int(num_masked * (n_img / n)) if n else 0
+        m_tac = (num_masked - m_img) // c.num_tactiles if n_tac else 0
+        sizes = ([n_img] if n_img else []) + [n_tac_single] * (c.num_tactiles if n_tac else 0)
+        masked = ([m_img] if n_img else []) + [m_tac] * (c.num_tactiles if n_tac else 0)
+        return sizes, masked, n_img, n_tac
+
+    def _decoder_modpos(self, tokens: torch.Tensor, use_vision: bool, use_tactile: bool) -> torch.Tensor:
+        """Add the decoder modality + sin/cos positional embeddings (restored order), in the
+        tokens' dtype."""
+        c = self.config
+        if not self.use_sincosmod_encodings:
+            return tokens
+        dt = tokens.dtype
+        mod_emb = self.decoder_modality_embedding.weight
+        n_img = c.num_image_patches if use_vision else 0
+        parts = []
+        if use_vision:
+            img = tokens[:, :n_img] + mod_emb[0].to(dt)
+            parts.append(img + self.img_pos_dec.to(dt))
+        if c.num_tactiles > 0 and use_tactile:
+            mod = mod_emb[1 : 1 + c.num_tactiles].repeat_interleave(c.num_tactile_patches_per_sensor, dim=0)
+            tac = tokens[:, n_img:] + mod[None].to(dt)
+            parts.append(tac + self.tac_pos_dec.to(dt))
+        return torch.cat(parts, dim=1)
+
+    def _decode(self, x: dict, mask: ModalMask, use_vision: bool, use_tactile: bool, precomputed=None):
+        """Masked encode -> decode. Returns (decoded, image_patches, tactile_patches).
+
+        ``precomputed=(tokens, image_patches, tactile_patches)`` shares one token pipeline
+        between the policy features and this loss."""
+        if precomputed is None:
+            image_patches, tactile_patches = self._raw_patches(x, use_vision, use_tactile)
+            tokens = self._tokens(x, use_vision, use_tactile, image_patches, tactile_patches)
+        else:
+            tokens, image_patches, tactile_patches = precomputed
+        batch = tokens.shape[0]
+        encoded = self.encoder.transformer(gather_tokens(tokens, mask.unmasked_idx))
+        dec_tok = self.enc_to_dec(encoded) if self.enc_to_dec is not None else encoded
+        mask_token = self.mask_token.to(dec_tok.dtype)
+
+        if not self.use_sincosmod_encodings:
+            combined_idx = torch.cat([mask.unmasked_idx, mask.masked_idx], dim=1)
+            pos = self.decoder_pos_emb(combined_idx).to(dec_tok.dtype)
+            k = dec_tok.shape[1]
+            mask_block = mask_token.expand(batch, mask.masked_idx.shape[1], self.decoder_dim)
+            combined = torch.cat([dec_tok + pos[:, :k], mask_block + pos[:, k:]], dim=1)
+            full = gather_tokens(combined, mask.restore_idx)
+        else:
+            full = restore_tokens(dec_tok, mask_token, mask)
+
+        decoded = self.decoder(self._decoder_modpos(full, use_vision, use_tactile))
+        return decoded, image_patches, tactile_patches
+
     # ------------------------------------------------------------------ #
     # public API
     # ------------------------------------------------------------------ #
+
+    def sample_mask(self, generator: torch.Generator, batch: int, use_vision: bool = True, use_tactile: bool = True) -> ModalMask:
+        """A random mask for ``batch`` samples with the reference counts, drawn with ``generator``
+        on its device."""
+        sizes, masked, _, _ = self._mask_counts(use_vision, use_tactile)
+        return random_modal_masking(generator, batch, sizes, masked)
+
+    def masked_loss(self, x: dict, mask: ModalMask, use_vision: bool = True, use_tactile: bool = True, precomputed=None) -> torch.Tensor:
+        """Masked-reconstruction loss (f32 scalar) for the given mask: tactile x10; under early
+        conv over all patches, else over the masked patches only."""
+        if "image" not in x:
+            use_vision = False
+        _, masked, n_img, _ = self._mask_counts(use_vision, use_tactile)
+        m_img = masked[0] if use_vision else 0
+        decoded, image_patches, tactile_patches = self._decode(x, mask, use_vision, use_tactile, precomputed)
+        with_tactile = self.config.num_tactiles > 0 and use_tactile
+
+        def mse(pred, target):
+            return ((pred.float() - target.float()) ** 2).mean()
+
+        loss = torch.zeros((), dtype=torch.float32, device=decoded.device)
+        if self.early_conv_masking:
+            if with_tactile:
+                loss = loss + 10.0 * mse(self.to_tactiles(decoded[:, n_img:]), tactile_patches)
+            if use_vision:
+                loss = loss + mse(self.to_pixels(decoded[:, :n_img]), image_patches)
+        else:
+            if with_tactile:
+                idx = mask.masked_idx[:, m_img:]
+                pred = self.to_tactiles(gather_tokens(decoded, idx))
+                loss = loss + 10.0 * mse(pred, gather_tokens(tactile_patches, idx - n_img))
+            if use_vision:
+                idx = mask.masked_idx[:, :m_img]
+                loss = loss + mse(self.to_pixels(gather_tokens(decoded, idx)), gather_tokens(image_patches, idx))
+        return loss
+
+    def forward(self, x: dict, generator: torch.Generator, use_vision: bool = True, use_tactile: bool = True) -> torch.Tensor:
+        """Masked-reconstruction loss with a mask drawn from ``generator`` (on the batch's device)."""
+        if "image" not in x:
+            use_vision = False
+        mask = self.sample_mask(generator, next(iter(x.values())).shape[0], use_vision, use_tactile)
+        return self.masked_loss(x, mask, use_vision, use_tactile)
 
     def get_embeddings(self, x: dict, use_vision: bool = True, use_tactile: bool = True) -> torch.Tensor:
         """Unmasked full-sequence encoder features (B, N, dim)."""

@@ -1,11 +1,12 @@
-"""Fused attention on the packed qkv projection: the CUDA kernel and its plain version.
+"""Fused attention on the packed qkv projection: the CUDA kernels and their plain versions.
 
-Counterpart of ``m3l_tpu/nn/flash_attention.py`` ``flash_attention_qkv`` (the Pallas kernel
-``_fwd_qkv_kernel``). The kernel is ``csrc/flash_attention_qkv_fwd.cu``; its source note gives
-the design and the bound on the H100. On a CUDA tensor the wrapper launches the kernel or
-raises; on a CPU tensor it runs :func:`flash_attention_qkv_reference`, the same arithmetic in
-plain PyTorch. Forward only: the backward kernel and the ``autograd.Function`` come with
-training, so CUDA inputs that require grad are refused.
+Counterpart of ``m3l_tpu/nn/flash_attention.py`` ``flash_attention_qkv`` (the Pallas kernels
+``_fwd_qkv_kernel`` and ``_bwd_qkv_kernel`` behind the custom VJP ``_flash_qkv``). The kernels are
+``csrc/flash_attention_qkv_fwd.cu`` and ``csrc/flash_attention_qkv_bwd.cu``; their source notes
+give the designs and the bounds on the H100. ``flash_attention_qkv`` routes through one
+``torch.autograd.Function`` on every device: on a CUDA tensor it launches the kernels or raises;
+on a CPU tensor it runs :func:`flash_attention_qkv_reference` and
+:func:`flash_attention_qkv_bwd_reference`, the same arithmetic in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -17,13 +18,71 @@ from ..kernels import LAUNCHES
 from ..kernels.build import load_library
 
 KERNEL = "flash_attention_qkv_fwd"
+BWD_KERNEL = "flash_attention_qkv_bwd"
 MAX_HEAD_DIM = 128
+BWD_F32_TOL = 2e-5  # see flash_attention_qkv_bwd_tolerance
 
 
 def _key_bias(key_mask: torch.Tensor) -> torch.Tensor:
     """(B, N) bool, True = attend -> f32 additive key bias, 0 or -1e30."""
     zero = torch.zeros((), dtype=torch.float32, device=key_mask.device)
     return torch.where(key_mask, zero, torch.full_like(zero, -1e30))
+
+
+def _split_heads(x: torch.Tensor, num_heads: int, parts: int) -> torch.Tensor:
+    """(B, N, parts*H*Dh) -> (parts, B, H, N, Dh) in f32."""
+    b, n, w = x.shape
+    return x.reshape(b, n, parts, num_heads, w // (parts * num_heads)).permute(2, 0, 3, 1, 4).float()
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, N, Dh) -> (B, N, H*Dh)."""
+    b, h, n, dh = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b, n, h * dh)
+
+
+def _probabilities(q: torch.Tensor, k: torch.Tensor, bias: torch.Tensor | None, scale: float) -> torch.Tensor:
+    """Unrounded f32 softmax(Q K^T * scale + bias) over keys, as e / sum(e)."""
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias[:, None, None, :]
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def _fwd_plain(qkv: torch.Tensor, num_heads: int, bias: torch.Tensor | None, scale: float) -> torch.Tensor:
+    q, k, v = _split_heads(qkv, num_heads, 3)
+    a = _probabilities(q, k, bias, scale).to(qkv.dtype).float()
+    return _merge_heads(torch.matmul(a, v)).to(qkv.dtype)
+
+
+def _bwd_plain(
+    qkv: torch.Tensor, g: torch.Tensor, num_heads: int, bias: torch.Tensor | None, scale: float, magnitude: bool = False
+) -> torch.Tensor:
+    """The TPU kernel's backward in f32, result in the input dtype. With ``magnitude`` it returns,
+    in f32, the same sums taken over the absolute values of their terms (|q|, |k|, |v|, |g|, and
+    A (|dA| + D) in place of A (dA - D)): the scale of the terms each output sums."""
+    q, k, v = _split_heads(qkv, num_heads, 3)
+    go = _split_heads(g, num_heads, 1)[0]
+    a = _probabilities(q, k, bias, scale)
+    if magnitude:
+        q, k, v, go = q.abs(), k.abs(), v.abs(), go.abs()
+    dv = torch.matmul(a.transpose(-1, -2), go)
+    da = torch.matmul(go, v.transpose(-1, -2))
+    d = (da * a).sum(dim=-1, keepdim=True)
+    ds = a * (da + d if magnitude else da - d) * scale
+    dq = torch.matmul(ds, k)
+    dk = torch.matmul(ds.transpose(-1, -2), q)
+    out = torch.cat([_merge_heads(dq), _merge_heads(dk), _merge_heads(dv)], dim=-1)
+    return out if magnitude else out.to(qkv.dtype)
+
+
+def _default_scale(qkv: torch.Tensor, num_heads: int, scale: float | None) -> float:
+    return (qkv.shape[-1] // (3 * num_heads)) ** -0.5 if scale is None else scale
+
+
+def _mask_bias(key_mask: torch.Tensor | None) -> torch.Tensor | None:
+    return None if key_mask is None else _key_bias(key_mask)
 
 
 def flash_attention_qkv_reference(
@@ -33,20 +92,20 @@ def flash_attention_qkv_reference(
 
     Scores, max, exp and sum in f32; the probabilities rounded to the input dtype before A.V,
     which sums in f32; the result rounded to the input dtype."""
-    b, n, thd = qkv.shape
-    hd = thd // 3
-    dh = hd // num_heads
-    if scale is None:
-        scale = dh**-0.5
-    x = qkv.reshape(b, n, 3, num_heads, dh).permute(2, 0, 3, 1, 4).float()  # (3, B, H, N, Dh)
-    q, k, v = x[0], x[1], x[2]
-    s = torch.matmul(q, k.transpose(-1, -2)) * scale
-    if key_mask is not None:
-        s = s + _key_bias(key_mask)[:, None, None, :]
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    a = (e / e.sum(dim=-1, keepdim=True)).to(qkv.dtype).float()
-    o = torch.matmul(a, v)  # (B, H, N, Dh)
-    return o.permute(0, 2, 1, 3).reshape(b, n, hd).to(qkv.dtype)
+    return _fwd_plain(qkv, num_heads, _mask_bias(key_mask), _default_scale(qkv, num_heads, scale))
+
+
+def flash_attention_qkv_bwd_reference(
+    qkv: torch.Tensor, g: torch.Tensor, num_heads: int, *, key_mask: torch.Tensor | None = None, scale: float | None = None
+) -> torch.Tensor:
+    """Plain backward: the packed dqkv (B, N, 3*H*Dh) = [dq | dk | dv] for the cotangent ``g``
+    (B, N, H*Dh), as ``_bwd_qkv_kernel`` computes it.
+
+    This is not autograd of :func:`flash_attention_qkv_reference`: the forward rounds A to the
+    input type before A.V, while the backward recomputes A in f32 and uses it unrounded for
+    dV = A^T g and dS = A o (dA - rowsum(dA o A)) * scale. Every product is in f32; dq, dk and dv
+    are each rounded once to the input type. A fully masked row has a uniform A."""
+    return _bwd_plain(qkv, g, num_heads, _mask_bias(key_mask), _default_scale(qkv, num_heads, scale))
 
 
 def flash_attention_qkv_tolerance(
@@ -66,8 +125,38 @@ def flash_attention_qkv_tolerance(
     hd = qkv.shape[-1] // 3
     abs_v = torch.cat([qkv[..., : 2 * hd], qkv[..., 2 * hd :].abs()], dim=-1)
     pv = flash_attention_qkv_reference(abs_v, num_heads, key_mask=key_mask, scale=scale).float()
+    return _ulp(ref, eps) + eps * pv + 1e-6
+
+
+def flash_attention_qkv_bwd_tolerance(
+    qkv: torch.Tensor, g: torch.Tensor, num_heads: int, ref: torch.Tensor, *,
+    key_mask: torch.Tensor | None = None, scale: float | None = None,
+) -> torch.Tensor:
+    """Elementwise bound on |kernel - plain| for the backward, given the plain dqkv ``ref``.
+
+    Both compute the same f32 products, exp and division and differ in summation order only.
+    An f32 sum of m terms is within m * eps32/2 * sum|terms| of the exact sum, and each output
+    here sums at most N + Dh + a few terms along its chain (N for the sums over keys or queries,
+    Dh for the scores and dA that feed them), so two such implementations differ by at most
+    (N + Dh + 8) * eps32 * M, where M is the same sums over |terms| (``_bwd_plain`` with
+    ``magnitude``). That worst case is loose: against float64 at the checked shapes the plain
+    f32 backward errs by at most ~1.5e-6 (``tests/test_torch_flash_attention.py`` holds it
+    under ``BWD_F32_TOL / 8``), so float32 gets the absolute ``BWD_F32_TOL`` = 2e-5. Lower
+    precision: one ulp of |ref|, for the final rounding that can land the two on adjacent
+    values, plus the worst-case f32 term. That term matters near zero: dS = A o (dA - D)
+    cancels, so an output can be far smaller than the terms it sums, and a pure ulp-of-output
+    bound would fail there."""
+    if qkv.dtype == torch.float32:
+        return torch.full(ref.shape, BWD_F32_TOL, device=ref.device)
+    n, dh = qkv.shape[1], qkv.shape[-1] // (3 * num_heads)
+    mag = _bwd_plain(qkv, g, num_heads, _mask_bias(key_mask), _default_scale(qkv, num_heads, scale), magnitude=True)
+    return _ulp(ref, torch.finfo(qkv.dtype).eps) + (n + dh + 8) * torch.finfo(torch.float32).eps * mag
+
+
+def _ulp(ref: torch.Tensor, eps: float) -> torch.Tensor:
+    """One ulp of |ref| in a type with machine epsilon ``eps``."""
     mag = ref.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
-    return torch.exp2(torch.floor(torch.log2(mag))) * eps + eps * pv + 1e-6
+    return torch.exp2(torch.floor(torch.log2(mag))) * eps
 
 
 _SIGNATURES = {
@@ -77,14 +166,20 @@ _SIGNATURES = {
         ctypes.c_int,
     ),
 }
+_BWD_SIGNATURES = {
+    "m3l_flash_qkv_bwd_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_size_t),
+    "m3l_flash_qkv_bwd": (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+}
 
 
-def _launch(qkv: torch.Tensor, num_heads: int, key_mask: torch.Tensor | None, scale: float) -> torch.Tensor:
+def _check(qkv: torch.Tensor, num_heads: int) -> int:
+    """Shape, dtype and layout checks both kernels share; returns head_dim."""
     b, n, thd = qkv.shape
     if qkv.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash_attention_qkv: dtype {qkv.dtype} not supported (bfloat16 or float32)")
-    if qkv.requires_grad:
-        raise NotImplementedError("flash_attention_qkv: no backward kernel yet; run under torch.inference_mode()")
     if thd % (3 * num_heads):
         raise ValueError(f"flash_attention_qkv: last dim {thd} is not 3 * heads({num_heads}) * head_dim")
     dh = thd // (3 * num_heads)
@@ -94,16 +189,21 @@ def _launch(qkv: torch.Tensor, num_heads: int, key_mask: torch.Tensor | None, sc
         raise ValueError("flash_attention_qkv: qkv must be contiguous and 16-byte aligned")
     if b > 65535 or num_heads > 65535:
         raise ValueError(f"flash_attention_qkv: batch {b} and heads {num_heads} must each be at most 65535")
-    lib = load_library(KERNEL, _SIGNATURES)
-    smem = lib.m3l_flash_qkv_fwd_smem_bytes(n, dh, qkv.element_size())
+    return dh
+
+
+def _check_smem(smem: int, qkv: torch.Tensor, dh: int) -> None:
     limit = torch.cuda.get_device_properties(qkv.device).shared_memory_per_block_optin
     if smem > limit:
-        raise ValueError(f"flash_attention_qkv: N={n}, head_dim={dh} needs {smem} B of shared memory, the card has {limit}")
-    bias = None
-    if key_mask is not None:
-        if key_mask.shape != (b, n) or key_mask.dtype != torch.bool or key_mask.device != qkv.device:
-            raise ValueError(f"flash_attention_qkv: key_mask must be bool ({b}, {n}) on {qkv.device}")
-        bias = _key_bias(key_mask).contiguous()
+        raise ValueError(f"flash_attention_qkv: N={qkv.shape[1]}, head_dim={dh} needs {smem} B of shared memory, the card has {limit}")
+
+
+def _launch(qkv: torch.Tensor, num_heads: int, bias: torch.Tensor | None, scale: float) -> torch.Tensor:
+    """The forward kernel on ``qkv``; ``bias`` is the contiguous f32 (B, N) key bias or None."""
+    b, n, thd = qkv.shape
+    dh = _check(qkv, num_heads)
+    lib = load_library(KERNEL, _SIGNATURES)
+    _check_smem(lib.m3l_flash_qkv_fwd_smem_bytes(n, dh, qkv.element_size()), qkv, dh)
     out = torch.empty((b, n, thd // 3), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -117,16 +217,66 @@ def _launch(qkv: torch.Tensor, num_heads: int, key_mask: torch.Tensor | None, sc
     return out
 
 
+def _launch_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, bias: torch.Tensor | None, scale: float) -> torch.Tensor:
+    """The backward kernel (both passes): packed dqkv for the cotangent ``g``."""
+    b, n, thd = qkv.shape
+    dh = _check(qkv, num_heads)
+    if g.shape != (b, n, thd // 3) or g.dtype != qkv.dtype or g.device != qkv.device:
+        raise ValueError(f"flash_attention_qkv backward: cotangent must be {qkv.dtype} ({b}, {n}, {thd // 3}) on {qkv.device}")
+    g = g.contiguous()  # an expanded or strided cotangent is copied, not refused
+    if g.data_ptr() % 16:
+        raise ValueError("flash_attention_qkv backward: cotangent must be 16-byte aligned")
+    lib = load_library(BWD_KERNEL, _BWD_SIGNATURES)
+    _check_smem(lib.m3l_flash_qkv_bwd_smem_bytes(n, dh, qkv.element_size()), qkv, dh)
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((b, num_heads, n, 3), dtype=torch.float32, device=qkv.device)  # row max, sum, D
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.m3l_flash_qkv_bwd(
+            qkv.data_ptr(), None if bias is None else bias.data_ptr(), g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+            b, n, num_heads, dh, float(scale), qkv.element_size(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_qkv backward: kernel launch failed with CUDA error {err}")
+    LAUNCHES[BWD_KERNEL] += 1
+    return dqkv
+
+
+class _FlashQKV(torch.autograd.Function):
+    """Forward and backward of the packed attention; saves ``qkv`` and the key bias, as the
+    TPU custom VJP ``_flash_qkv_fwd`` does. The bias gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, num_heads, scale):
+        ctx.save_for_backward(qkv, bias)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        if qkv.device.type == "cuda":
+            return _launch(qkv, num_heads, bias, scale)
+        return _fwd_plain(qkv, num_heads, bias, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, bias = ctx.saved_tensors
+        if qkv.device.type == "cuda":
+            dqkv = _launch_bwd(qkv, g, ctx.num_heads, bias, ctx.scale)
+        else:
+            dqkv = _bwd_plain(qkv, g, ctx.num_heads, bias, ctx.scale)
+        return dqkv, None, None, None
+
+
 def flash_attention_qkv(
     qkv: torch.Tensor, num_heads: int, *, key_mask: torch.Tensor | None = None, scale: float | None = None
 ) -> torch.Tensor:
-    """Fused attention on the packed qkv tensor (B, N, 3*H*Dh) -> (B, N, H*Dh)."""
+    """Fused attention on the packed qkv tensor (B, N, 3*H*Dh) -> (B, N, H*Dh), differentiable
+    with respect to ``qkv``."""
     if qkv.dim() != 3:
         raise ValueError(f"flash_attention_qkv: qkv must be (B, N, 3*H*Dh), got {tuple(qkv.shape)}")
-    if scale is None:
-        scale = (qkv.shape[-1] // (3 * num_heads)) ** -0.5
-    if qkv.device.type == "cuda":
-        return _launch(qkv, num_heads, key_mask, scale)
-    if qkv.device.type == "cpu":
-        return flash_attention_qkv_reference(qkv, num_heads, key_mask=key_mask, scale=scale)
-    raise ValueError(f"flash_attention_qkv: no kernel for device {qkv.device}")
+    if qkv.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash_attention_qkv: no kernel for device {qkv.device}")
+    bias = None
+    if key_mask is not None:
+        b, n = qkv.shape[:2]
+        if key_mask.shape != (b, n) or key_mask.dtype != torch.bool or key_mask.device != qkv.device:
+            raise ValueError(f"flash_attention_qkv: key_mask must be bool ({b}, {n}) on {qkv.device}")
+        bias = _key_bias(key_mask).contiguous()
+    return _FlashQKV.apply(qkv, bias, num_heads, float(_default_scale(qkv, num_heads, scale)))

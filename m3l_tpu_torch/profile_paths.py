@@ -1,0 +1,116 @@
+"""Where the time goes on the card: the full-width policy's serving requests and training
+minibatch updates under ``torch.profiler``.
+
+    python -m m3l_tpu_torch.profile_paths
+
+Serving, for batch 8 (the CLI's default env count) and batch 512 (the PPO minibatch): the host
+time per request (``PolicyServer.__call__``, raw numpy obs in, numpy actions out). Training:
+one joint PPO+MAE minibatch update (``PPOMAE.minibatch_update``, batch 512, bf16, a rollout
+minibatch already on the device), ending in a synchronise. For each: the host time per call
+untraced and traced, the device time per call summed over the kernels and copies the profiler
+saw, the device's idle share of the untraced call (1 - device / host), and the top kernels by
+device time. Weights and inputs are random from seed 0; timing does not depend on them. The
+profiled calls follow one warm-up call. Prints one JSON line per profile.
+"""
+from __future__ import annotations
+
+import json
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from .envs import SyncVecEnv, make_env
+from .rl import PPOMAE
+from .serve import PolicyServer, build_policy, random_obs
+
+FRAME_STACK = 4
+ACTION_DIM = 3
+BATCHES = (8, 512)
+REQUESTS = 5
+TRAIN_BATCH = 512
+UPDATES = 3
+TOP = 12
+
+
+def random_minibatch(rng: np.random.Generator, batch: int, device) -> dict:
+    """A rollout minibatch drawn from ``rng`` on ``device``: raw obs (uint8 image), actions, old
+    values and log-probs, advantages and returns. For timing and checks."""
+    put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    normal = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
+    return dict(
+        data={"obs": {k: put(v) for k, v in random_obs(rng, batch, FRAME_STACK).items()},
+              "actions": put(normal(batch, ACTION_DIM)), "values": put(normal(batch)), "log_probs": put(normal(batch) - 3.0)},
+        advantages=put(normal(batch)), returns=put(normal(batch)),
+    )
+
+
+def profiled(fn, calls: int, label: str) -> dict:
+    """Time ``calls`` calls of ``fn`` untraced, then traced; summarize the trace."""
+    fn()  # warm-up
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_s = time.perf_counter() - t0  # untraced
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        traced_s = time.perf_counter() - t0
+    per_kernel: dict[str, float] = defaultdict(float)
+    n_device = 0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            per_kernel[evt.name] += evt.time_range.elapsed_us()
+            n_device += 1
+    device_us = sum(per_kernel.values())
+    host_ms = host_s * 1e3 / calls
+    device_ms = device_us / 1e3 / calls
+    ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:TOP]
+    return dict(
+        path=label, calls=calls, host_ms_per_call=host_ms, traced_host_ms_per_call=traced_s * 1e3 / calls,
+        device_ms_per_call=device_ms, device_idle_share=1.0 - device_ms / host_ms, device_ops_per_call=n_device / calls,
+        top_kernels=[dict(name=k[:120], ms_per_call=v / 1e3 / calls, share_of_device=v / device_us) for k, v in ranked],
+    )
+
+
+def profile_serving(server: PolicyServer, batch: int, rng: np.random.Generator) -> dict:
+    obs = iter([random_obs(rng, batch, FRAME_STACK) for _ in range(2 * REQUESTS + 1)])
+    return profiled(lambda: server(next(obs)), REQUESTS, f"serve batch {batch}")
+
+
+def profile_training(rng: np.random.Generator) -> dict:
+    policy = build_policy(dtype=torch.bfloat16, device="cuda")
+    env = SyncVecEnv([make_env("FakeInsertion", i, frame_stack=FRAME_STACK) for i in range(8)])
+    model = PPOMAE(policy, env, n_steps=TRAIN_BATCH // 8, batch_size=TRAIN_BATCH, frame_stack=FRAME_STACK, device="cuda")
+    mb = random_minibatch(rng, TRAIN_BATCH, model.device)
+    idx = torch.arange(TRAIN_BATCH, device=model.device)
+    gen = torch.Generator(device=model.device).manual_seed(0)
+    masks = iter([policy.features.mae.sample_mask(gen, TRAIN_BATCH) for _ in range(2 * UPDATES + 1)])
+
+    def update():
+        model.minibatch_update(mb["data"], idx, mb["advantages"], mb["returns"], next(masks))
+        torch.cuda.synchronize()
+
+    return profiled(update, UPDATES, f"train update batch {TRAIN_BATCH}")
+
+
+def main() -> None:
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.manual_seed(0)
+    server = PolicyServer(build_policy(dtype=torch.bfloat16, device="cuda"))
+    rng = np.random.default_rng(0)
+    print(f"device: {torch.cuda.get_device_name(0)}")
+    results = [profile_serving(server, batch, rng) for batch in BATCHES] + [profile_training(rng)]
+    for r in results:
+        print(f"{r['path']}: host {r['host_ms_per_call']:.3f} ms/call ({r['traced_host_ms_per_call']:.3f} traced), device "
+              f"{r['device_ms_per_call']:.3f} ms/call, idle share {r['device_idle_share']:.3f}, {r['device_ops_per_call']:.0f} device ops/call")
+        for k in r["top_kernels"]:
+            print(f"  {k['ms_per_call']:9.4f} ms  {k['share_of_device']:6.1%}  {k['name']}")
+        print(json.dumps(r))
+
+
+if __name__ == "__main__":
+    main()

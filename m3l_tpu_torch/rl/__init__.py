@@ -1,1 +1,5 @@
+from .buffer import RolloutBuffer  # noqa: F401
+from .gae import compute_gae  # noqa: F401
 from .policy import MLP, ActorCritic, MAEFeatures  # noqa: F401
+from .ppo_mae import PPOMAE  # noqa: F401
+from .vecnorm import RewardNormalizer, RunningMeanStd  # noqa: F401

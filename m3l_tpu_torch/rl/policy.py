@@ -4,10 +4,9 @@
   -> token mean pool;
 * separate pi/vf tanh MLP towers, a linear action mean with a state-independent ``log_std``,
   and a linear value head;
-* diagonal Gaussian: sampling draws from an explicit ``torch.Generator``.
-
-The serving slice carries the forward path; the MAE loss and ``evaluate_actions*`` come with
-the training slice.
+* diagonal Gaussian: sampling draws from an explicit ``torch.Generator``;
+* the joint PPO+MAE update's ``evaluate_actions_packed_with_mae``: the policy features and the
+  MAE loss share one token pipeline, for a mask the caller draws and hands in.
 """
 from __future__ import annotations
 
@@ -20,6 +19,7 @@ from torch import nn
 from ..models.vtmae import VTMAE
 from ..nn.layers import Linear
 from ..nn.transformer import Transformer
+from ..ops.masking import ModalMask
 from ..utils.obs import vt_load
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -54,6 +54,24 @@ class MAEFeatures(nn.Module):
         """Features from an already vt_load-packed batch."""
         emb = self.mae.get_embeddings(x, use_tactile=not self.vision_only_control)
         return self.post(emb).mean(dim=1)
+
+    def mae_loss(self, x: dict, mask: ModalMask) -> torch.Tensor:
+        """Representation loss on a packed batch for the given mask."""
+        return self.mae.masked_loss(x, mask)
+
+    def features_and_mae_loss(self, x: dict, mask: ModalMask):
+        """Policy features and the MAE loss with one shared token pipeline (EarlyCNN or patch
+        embedding + modality/positional encodings). In ``vision_only_control`` mode the
+        policy's token set differs from the MAE's, so the two run separate pipelines."""
+        if self.vision_only_control:
+            return self.from_packed(x), self.mae_loss(x, mask)
+        use_vision = "image" in x
+        mae = self.mae
+        image_patches, tactile_patches = mae._raw_patches(x, use_vision, True)
+        tokens = mae._tokens(x, use_vision, True, image_patches, tactile_patches)
+        feats = self.post(mae.encoder.transformer(tokens)).mean(dim=1)
+        loss = mae.masked_loss(x, mask, use_vision=use_vision, precomputed=(tokens, image_patches, tactile_patches))
+        return feats, loss
 
 
 class ActorCritic(nn.Module):
@@ -91,6 +109,10 @@ class ActorCritic(nn.Module):
         var = torch.exp(2.0 * log_std)
         return (-0.5 * ((actions - mean) ** 2 / var + 2.0 * log_std + _LOG_2PI)).sum(dim=-1)
 
+    @staticmethod
+    def _entropy(log_std: torch.Tensor, batch: int) -> torch.Tensor:
+        return (0.5 + 0.5 * _LOG_2PI + log_std).sum().expand(batch)
+
     # --- public API --- #
     def step(self, obs: dict, generator: torch.Generator | None = None, deterministic: bool = False):
         """Sample actions for rollout: (actions, values, log_prob). ``generator`` lies on the
@@ -104,6 +126,22 @@ class ActorCritic(nn.Module):
             noise = torch.randn(mean.shape, generator=generator, dtype=mean.dtype, device=mean.device)
             actions = mean + torch.exp(log_std) * noise
         return actions, value, self._log_prob(actions, mean, log_std)
+
+    def evaluate_actions(self, obs: dict, actions: torch.Tensor):
+        """(values, log_prob, entropy) for the PPO update."""
+        mean, log_std, value = self._dist_params(obs)
+        return value, self._log_prob(actions, mean, log_std), self._entropy(log_std, mean.shape[0])
+
+    def evaluate_actions_packed(self, x: dict, actions: torch.Tensor):
+        mean, log_std, value = self._heads(self.features.from_packed(x))
+        return value, self._log_prob(actions, mean, log_std), self._entropy(log_std, mean.shape[0])
+
+    def evaluate_actions_packed_with_mae(self, x: dict, actions: torch.Tensor, mask: ModalMask):
+        """(values, log_prob, entropy, mae_loss), the token pipeline shared between the policy
+        features and the MAE loss (the joint PPO+MAE update)."""
+        feats, mae_loss = self.features.features_and_mae_loss(x, mask)
+        mean, log_std, value = self._heads(feats)
+        return value, self._log_prob(actions, mean, log_std), self._entropy(log_std, mean.shape[0]), mae_loss
 
     def predict_values(self, obs: dict) -> torch.Tensor:
         return self._dist_params(obs)[2]

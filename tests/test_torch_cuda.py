@@ -1,22 +1,30 @@
-"""The CUDA kernel against its plain version on the card. Marked ``cuda``: each test skips
+"""The CUDA kernels against their plain versions on the card. Marked ``cuda``: each test skips
 where no card is present, and runs on the H100 with ``python -m pytest tests/test_torch_cuda.py``.
 
-Tolerance: the elementwise bound of ``flash_attention_qkv_tolerance``, whose docstring gives
-the reasons: f32 abs 1e-5; bf16 one ulp of the output plus one ulp of each probability times
-|v|, the two roundings at which an f32 result ~1e-6 apart can land on adjacent bf16 values.
+Tolerances: the elementwise bounds of ``flash_attention_qkv_tolerance`` and
+``flash_attention_qkv_bwd_tolerance``, whose docstrings give the reasons. Forward: f32 abs
+1e-5; bf16 one ulp of the output plus one ulp of each probability times |v|. Backward: f32 abs
+2e-5; bf16 one ulp of dqkv plus the worst-case f32 summation-order term (N + Dh + 8) * eps32
+times the sums over |terms|.
 """
 import pytest
 import torch
 
 from m3l_tpu_torch.kernels import LAUNCHES
+from m3l_tpu_torch.nn import flash_attention as fa
 from m3l_tpu_torch.nn.flash_attention import (
+    BWD_KERNEL,
     KERNEL,
     flash_attention_qkv,
+    flash_attention_qkv_bwd_reference,
+    flash_attention_qkv_bwd_tolerance,
     flash_attention_qkv_reference,
     flash_attention_qkv_tolerance,
 )
 
 pytestmark = pytest.mark.cuda
+
+SHAPES = [(8, 10, 4, 64), (8, 192, 4, 64), (2, 196, 16, 64), (3, 1, 2, 8), (2, 33, 2, 128)]
 
 
 @pytest.fixture
@@ -27,16 +35,22 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,n,h,dh", [(8, 10, 4, 64), (8, 192, 4, 64), (2, 196, 16, 64), (3, 1, 2, 8), (2, 33, 2, 128)])
-@pytest.mark.parametrize("masked", [False, True])
-def test_kernel_matches_plain(card, b, n, h, dh, dtype, masked):
+def _inputs(card, b, n, h, dh, dtype, masked):
     g = torch.Generator(device=card).manual_seed(0)
     qkv = torch.randn(b, n, 3 * h * dh, generator=g, device=card).to(dtype)
+    cot = torch.randn(b, n, h * dh, generator=g, device=card).to(dtype)
     mask = None
     if masked:
         mask = torch.rand(b, n, generator=g, device=card) > 0.3
         mask[:, 0] = True
+    return qkv, cot, mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,h,dh", SHAPES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_kernel_matches_plain(card, b, n, h, dh, dtype, masked):
+    qkv, _, mask = _inputs(card, b, n, h, dh, dtype, masked)
     before = LAUNCHES[KERNEL]
     out = flash_attention_qkv(qkv, h, key_mask=mask)
     torch.cuda.synchronize()
@@ -47,6 +61,47 @@ def test_kernel_matches_plain(card, b, n, h, dh, dtype, masked):
     assert ((out.float() - ref.float()).abs() <= tol).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,h,dh", SHAPES + [(512, 192, 4, 64), (512, 10, 4, 64), (64, 196, 16, 64)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_bwd_kernel_matches_plain(card, b, n, h, dh, dtype, masked):
+    qkv, cot, mask = _inputs(card, b, n, h, dh, dtype, masked)
+    bias = None if mask is None else fa._key_bias(mask)
+    before = LAUNCHES[BWD_KERNEL]
+    out = fa._launch_bwd(qkv, cot, h, bias, dh**-0.5)
+    torch.cuda.synchronize()
+    assert LAUNCHES[BWD_KERNEL] == before + 1
+    ref = flash_attention_qkv_bwd_reference(qkv, cot, h, key_mask=mask)
+    assert out.dtype == dtype and out.shape == qkv.shape and torch.isfinite(out).all()
+    tol = flash_attention_qkv_bwd_tolerance(qkv, cot, h, ref, key_mask=mask)
+    assert ((out.float() - ref.float()).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gradient_through_autograd_function(card, dtype):
+    """backward() through flash_attention_qkv launches each kernel once and gives the plain
+    backward of the cotangent; a fully masked batch row and an expanded cotangent included."""
+    b, n, h, dh = 3, 40, 2, 64
+    qkv, cot, mask = _inputs(card, b, n, h, dh, dtype, True)
+    mask[1] = False
+    x = qkv.clone().requires_grad_(True)
+    f0, b0 = LAUNCHES[KERNEL], LAUNCHES[BWD_KERNEL]
+    out = flash_attention_qkv(x, h, key_mask=mask)
+    (out.float() * cot.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert (LAUNCHES[KERNEL], LAUNCHES[BWD_KERNEL]) == (f0 + 1, b0 + 1)
+    ref = flash_attention_qkv_bwd_reference(qkv, cot, h, key_mask=mask)
+    tol = flash_attention_qkv_bwd_tolerance(qkv, cot, h, ref, key_mask=mask)
+    assert x.grad.dtype == dtype and ((x.grad.float() - ref.float()).abs() <= tol).all()
+    # sum() hands backward an expanded cotangent of ones
+    x.grad = None
+    flash_attention_qkv(x, h).sum().backward()
+    ones = torch.ones(b, n, h * dh, device=card, dtype=dtype)
+    ref = flash_attention_qkv_bwd_reference(qkv, ones, h)
+    tol = flash_attention_qkv_bwd_tolerance(qkv, ones, h, ref)
+    assert ((x.grad.float() - ref.float()).abs() <= tol).all()
+
+
 def test_kernel_refuses_inputs_it_does_not_take(card):
     with pytest.raises(TypeError):
         flash_attention_qkv(torch.zeros(2, 10, 192, device=card, dtype=torch.float16), 1)
@@ -54,5 +109,8 @@ def test_kernel_refuses_inputs_it_does_not_take(card):
         flash_attention_qkv(torch.zeros(2, 10, 3 * 12, device=card), 1)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_qkv(torch.zeros(2, 3 * 64, 10, device=card).transpose(1, 2), 1)
-    with pytest.raises(NotImplementedError):
-        flash_attention_qkv(torch.zeros(2, 10, 192, device=card, requires_grad=True), 1)
+    qkv = torch.zeros(2, 10, 192, device=card)
+    with pytest.raises(ValueError, match="cotangent"):
+        fa._launch_bwd(qkv, torch.zeros(2, 10, 64, device=card, dtype=torch.bfloat16), 1, None, 0.125)
+    with pytest.raises(ValueError, match="cotangent"):
+        fa._launch_bwd(qkv, torch.zeros(2, 10, 32, device=card), 1, None, 0.125)

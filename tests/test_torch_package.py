@@ -1,4 +1,5 @@
-"""Boundaries of the PyTorch port: no JAX, nothing of m3l_tpu, the card by default, no fallback."""
+"""Boundaries of the PyTorch port: no JAX, no gymnasium, nothing of m3l_tpu, the card by default,
+no fallback."""
 import ast
 import pathlib
 import subprocess
@@ -10,12 +11,15 @@ import torch
 import m3l_tpu_torch
 from m3l_tpu_torch.kernels import build
 from m3l_tpu_torch.nn import flash_attention as fa
+from m3l_tpu_torch.envs import SyncVecEnv, make_env
+from m3l_tpu_torch.models import VTTConfig
 from m3l_tpu_torch.nn.flash_attention import flash_attention_qkv
+from m3l_tpu_torch.rl import PPOMAE
 from m3l_tpu_torch.serve import build_policy
 from m3l_tpu_torch.utils.device import resolve_device
 
 PKG = pathlib.Path(m3l_tpu_torch.__file__).parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "m3l_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gymnasium", "m3l_tpu")
 
 
 def _modules():
@@ -43,7 +47,7 @@ def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in {'jax', 'jaxlib', 'flax', 'optax'} or m.startswith('m3l_tpu.') or m == 'm3l_tpu')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in {'jax', 'jaxlib', 'flax', 'optax', 'gymnasium'} or m.startswith('m3l_tpu.') or m == 'm3l_tpu')\n"
         "print(len(sys.modules)); assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent, capture_output=True, text=True, timeout=300)
@@ -58,6 +62,11 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_policy()
     assert resolve_device("cpu") == torch.device("cpu")
+    cfg = VTTConfig(dim=64, depth=1, heads=2, mlp_dim=128)
+    policy = build_policy(cfg, decoder_depth=1, decoder_heads=2, dtype=torch.float32, device="cpu")
+    env = SyncVecEnv([make_env("FakeInsertion", 0)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PPOMAE(policy, env, n_steps=4, batch_size=4)
 
 
 def test_wrapper_has_no_plain_fallback_off_the_cpu():

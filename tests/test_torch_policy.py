@@ -106,14 +106,14 @@ def test_slice_f32_tolerance_sees_a_dropped_key(monkeypatch):
     server = PolicyServer(port_policy(4))
     obs = raw_obs(8, 4, seed=5)
     good = server(obs)
-    plain = fa.flash_attention_qkv_reference
+    plain = fa._fwd_plain
 
-    def drop_last_key(qkv, num_heads, key_mask=None, scale=None):
+    def drop_last_key(qkv, num_heads, bias, scale):
         keep = torch.ones(qkv.shape[:2], dtype=torch.bool)
         keep[:, -1] = False
-        return plain(qkv, num_heads, key_mask=keep, scale=scale)
+        return plain(qkv, num_heads, fa._key_bias(keep), scale)
 
-    monkeypatch.setattr(fa, "flash_attention_qkv_reference", drop_last_key)
+    monkeypatch.setattr(fa, "_fwd_plain", drop_last_key)
     assert np.abs(server(obs) - good).max() > SLICE_F32_TOL
 
 
