@@ -8,7 +8,8 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
 1. the card's name and power limit, and the matmul precision flags;
 2. build every CUDA source of m3l_tpu_torch/csrc (one nvcc each, all started together);
 3. each kernel against its plain PyTorch version on the card, element by element within its
-   stated tolerance, at the serving and training shapes and a few more; then each timed beside
+   stated tolerance, at the serving and training shapes and a few more (the packed qkv pair and
+   the split-head v1 pair, which share one kernel body); then each timed beside
    its plain version, its byte/FLOP bound and one PyTorch library call that computes the same
    function (timed as a yardstick only; the port never calls it);
 4. the serving slice: the full-width PPO+MAE policy (dim 256, 4 encoder layers + 1 post layer,
@@ -26,21 +27,42 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    (1024 of 32768 samples) and the epochs (2 of 10); widths, depth, tokens and the minibatch
    are full.
 
-The last lines are a {"kernels": [...]} JSON line, a {"slice": ...} and a {"train": ...} JSON
-line, the card line as nvidia-smi prints it, and {"ok": true, "device": {...}}.
+6. the attention-layer bench (``m3l_tpu_torch.bench_attention``) at its full shape B=512, N=192,
+   D=256, H=4, bf16: the v1 and v2 layers must give the same loss and gradients, bit for bit
+   (one kernel body), and each timed call of 10 steps must launch only its own kernels, 10
+   forward and 10 backward; the einsum layer none. Every variant is timed;
+7. the training CLI on the card at full width (``cli.train.main``, its defaults: dim 256, depth
+   4, frame stack 4, bf16) on FakeInsertion with 8 envs in process workers (``--subproc True``),
+   rollout 1024 and 2 epochs of minibatch 512: two iterations in joint mode, one with
+   ``--separate_optimizer True``, one with ``--representation False``; then the joint model is
+   saved and a fresh ``main`` resumes from the file: before it learns, its step count,
+   parameters and Adam moments equal the saved ones and lie on the card. Every train() must
+   launch the kernel counts of its mode. Cut from the reference workload as in phase 5: the
+   rollout (1024 of 32768 samples) and the epochs (2 of 10). The checkpoint is written under
+   ``smoke_checkpoints/`` (gitignored) and removed at the end.
+
+Each phase after the kernel checks runs with the launch counts set to 0 just before it and read
+just after. The last lines are a {"kernels": [...]} JSON line, {"slice": ...}, {"train": ...},
+{"bench_attention": ...} and {"cli": ...} JSON lines, the card line as nvidia-smi prints it, and
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from m3l_tpu_torch import bench_attention
+from m3l_tpu_torch.cli import train as train_cli
 from m3l_tpu_torch.envs import SyncVecEnv, make_env
 from m3l_tpu_torch.kernels import LAUNCHES, reset_launches
 from m3l_tpu_torch.kernels.build import build_all
@@ -48,11 +70,18 @@ from m3l_tpu_torch.nn import flash_attention as fa
 from m3l_tpu_torch.nn.flash_attention import (
     BWD_KERNEL,
     KERNEL,
+    V1_BWD_KERNEL,
+    V1_KERNEL,
+    flash_attention,
+    flash_attention_bwd_reference,
+    flash_attention_bwd_tolerance,
     flash_attention_qkv,
     flash_attention_qkv_bwd_reference,
     flash_attention_qkv_bwd_tolerance,
     flash_attention_qkv_reference,
     flash_attention_qkv_tolerance,
+    flash_attention_reference,
+    flash_attention_tolerance,
 )
 from m3l_tpu_torch.profile_paths import random_minibatch
 from m3l_tpu_torch.rl import PPOMAE
@@ -92,6 +121,8 @@ SERVE_B, SERVE_N, SERVE_H, SERVE_DH = 512, 192, 4, 64  # attention at the batch-
 TRAIN_N_KEPT = 10  # the MAE encoder's tokens at mask ratio 0.95
 TRAIN_ENVS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_EPOCHS, CHECK_BATCH = 8, 128, 512, 2, 64
 TRAIN_TIMED_UPDATES = 5
+ALL_KERNELS = (KERNEL, BWD_KERNEL, V1_KERNEL, V1_BWD_KERNEL)
+CKPT_DIR = Path(__file__).resolve().parent / "smoke_checkpoints"
 
 
 def fail(msg: str) -> None:
@@ -140,13 +171,20 @@ def report(kind, b, n, h, dh, dtype, masked, out, ref, tol) -> float:
     return err
 
 
+def split_heads(qkv, cot, h):
+    """Packed qkv (B, N, 3HDh) and cotangent (B, N, HDh) -> contiguous q, k, v and g (B, N, H, Dh)."""
+    b, n, thd = qkv.shape
+    q, k, v = (t.contiguous() for t in qkv.view(b, n, 3, h, thd // (3 * h)).unbind(2))
+    return q, k, v, cot.view(b, n, h, thd // (3 * h))
+
+
 def check_attention() -> dict:
-    """Both kernels against their plain versions at every listed shape; returns the max abs
-    errors at the training shape (B=512, N=192, bf16, no mask) keyed by kernel."""
+    """Every kernel against its plain version at every listed shape; returns the max abs errors
+    at the training shape (B=512, N=192, bf16, no mask) keyed by kernel."""
     fwd = [(b, n, 4, 64) for b in (8, 512) for n in (10, 192)] + [(64, 196, 16, 64)]
     bwd = [(512, 192, 4, 64), (512, TRAIN_N_KEPT, 4, 64), (8, 192, 4, 64), (64, 196, 16, 64)]
     errs = {}
-    for kind, shapes in (("forward", fwd), ("backward", bwd)):
+    for kind, shapes in (("forward", fwd), ("backward", bwd), ("v1 forward", bwd), ("v1 backward", bwd)):
         cases = [(s, dt, m) for s in shapes for dt in (torch.bfloat16, torch.float32) for m in (False, True)]
         for i, ((b, n, h, dh), dtype, masked) in enumerate(cases):
             qkv, cot, mask = packed_qkv(b, n, h, dh, dtype, masked, seed=i)
@@ -154,10 +192,23 @@ def check_attention() -> dict:
                 out = flash_attention_qkv(qkv, h, key_mask=mask)
                 ref = flash_attention_qkv_reference(qkv, h, key_mask=mask)
                 tol = flash_attention_qkv_tolerance(qkv, h, ref, key_mask=mask)
-            else:
+            elif kind == "backward":
                 out = fa._launch_bwd(qkv, cot, h, None if mask is None else fa._key_bias(mask), dh**-0.5)
                 ref = flash_attention_qkv_bwd_reference(qkv, cot, h, key_mask=mask)
                 tol = flash_attention_qkv_bwd_tolerance(qkv, cot, h, ref, key_mask=mask)
+            elif kind == "v1 forward":
+                q, k, v, _ = split_heads(qkv, cot, h)
+                out = flash_attention(q, k, v, key_mask=mask)
+                ref = flash_attention_reference(q, k, v, key_mask=mask)
+                tol = flash_attention_tolerance(q, k, v, ref, key_mask=mask)
+            else:  # the backward kernel on the collapsed operands, as flash_attention's backward calls it
+                q, k, v, g = split_heads(qkv, cot, h)
+                bias = None if mask is None else fa._key_bias(fa._v1_mask(mask, h))
+                grads = fa._launch_v1_bwd(*(fa._collapse(t) for t in (q, k, v, g)), bias, dh**-0.5)
+                out = torch.cat([fa._uncollapse(t, h) for t in grads], dim=-1)
+                refs = flash_attention_bwd_reference(q, k, v, g, key_mask=mask)
+                ref = torch.cat(refs, dim=-1)
+                tol = torch.cat(flash_attention_bwd_tolerance(q, k, v, g, refs, key_mask=mask), dim=-1)
             torch.cuda.synchronize()
             err = report(kind, b, n, h, dh, dtype, masked, out, ref, tol)
             if (b, n, h, dh, dtype, masked) == (SERVE_B, SERVE_N, SERVE_H, SERVE_DH, torch.bfloat16, False):
@@ -170,29 +221,42 @@ def bound(nbytes: int, flops: int, dtype) -> dict:
     return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=nbytes, flops=flops)
 
 
-def time_attention(b, n, h, dh, dtype) -> dict:
+def time_attention(b, n, h, dh, dtype, split=False) -> dict:
+    """The forward kernel, packed (``split`` False) or split-head on the collapsed operands."""
     qkv, _, _ = packed_qkv(b, n, h, dh, dtype, False, seed=100)
-    q, k, v = (t.contiguous() for t in qkv.view(b, n, 3, h, dh).permute(2, 0, 3, 1, 4))
-    ms = cuda_ms(lambda: flash_attention_qkv(qkv, h))
-    plain_ms = cuda_ms(lambda: flash_attention_qkv_reference(qkv, h))
+    q, k, v = (t.contiguous() for t in qkv.view(b, n, 3, h, dh).permute(2, 0, 3, 1, 4))  # (B, H, N, Dh)
+    if split:
+        cq, ck, cv = (t.view(b * h, n, dh) for t in (q, k, v))
+        ms = cuda_ms(lambda: fa._launch_v1(cq, ck, cv, None, dh**-0.5))
+        plain_ms = cuda_ms(lambda: fa._v1_fwd_plain(cq, ck, cv, None, dh**-0.5))
+    else:
+        ms = cuda_ms(lambda: flash_attention_qkv(qkv, h))
+        plain_ms = cuda_ms(lambda: flash_attention_qkv_reference(qkv, h))
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
     elem = qkv.element_size()
-    # qkv read once, output written once; QK^T and AV
+    # q, k, v read once, output written once; QK^T and AV
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound(qkv.numel() * elem + b * n * h * dh * elem, 4 * b * h * n * n * dh, dtype))
 
 
-def time_attention_bwd(b, n, h, dh, dtype) -> dict:
+def time_attention_bwd(b, n, h, dh, dtype, split=False) -> dict:
+    """The backward kernel, packed (``split`` False) or split-head on the collapsed operands."""
     qkv, cot, _ = packed_qkv(b, n, h, dh, dtype, False, seed=101)
     scale = dh**-0.5
-    ms = cuda_ms(lambda: fa._launch_bwd(qkv, cot, h, None, scale))
-    plain_ms = cuda_ms(lambda: flash_attention_qkv_bwd_reference(qkv, cot, h))
+    g = cot.view(b, n, h, dh).permute(0, 2, 1, 3).contiguous()  # (B, H, N, Dh)
+    if split:
+        cq, ck, cv = (t.contiguous().view(b * h, n, dh) for t in qkv.view(b, n, 3, h, dh).permute(2, 0, 3, 1, 4))
+        cg = g.view(b * h, n, dh)
+        ms = cuda_ms(lambda: fa._launch_v1_bwd(cq, ck, cv, cg, None, scale))
+        plain_ms = cuda_ms(lambda: fa._v1_bwd_plain(cq, ck, cv, cg, None, scale))
+    else:
+        ms = cuda_ms(lambda: fa._launch_bwd(qkv, cot, h, None, scale))
+        plain_ms = cuda_ms(lambda: flash_attention_qkv_bwd_reference(qkv, cot, h))
     # the library yardstick: SDPA's backward through autograd, on the same q, k, v and cotangent
     q, k, v = (t.contiguous().requires_grad_(True) for t in qkv.view(b, n, 3, h, dh).permute(2, 0, 3, 1, 4))
     out = F.scaled_dot_product_attention(q, k, v)
-    g = cot.view(b, n, h, dh).permute(0, 2, 1, 3).contiguous()
     library_ms = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True))
     elem = qkv.element_size()
-    # qkv and g read once, dqkv written once; S, dV, dA, dQ, dK
+    # q, k, v and g read once, dq, dk, dv written once; S, dV, dA, dQ, dK
     nbytes = (2 * qkv.numel() + cot.numel()) * elem
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound(nbytes, 10 * b * h * n * n * dh, dtype))
 
@@ -223,7 +287,7 @@ def serve_slice() -> dict:
     t_large = time.perf_counter() - t0
     forwards += 1
     launches = LAUNCHES[KERNEL]
-    if launches != 5 * forwards or LAUNCHES[BWD_KERNEL]:
+    if launches != 5 * forwards or any(LAUNCHES[k] for k in (BWD_KERNEL, V1_KERNEL, V1_BWD_KERNEL)):
         fail(f"serving launched the attention kernels {dict(LAUNCHES)} in {forwards} forwards, expected 5 forward launches per forward")
 
     if large_actions.shape != (512, ACTION_DIM) or not np.isfinite(large_actions).all():
@@ -335,6 +399,8 @@ def train_slice() -> dict:
     model.learn(total_timesteps=2 * TRAIN_STEPS * TRAIN_ENVS)
     torch.cuda.synchronize()
     launches = {k: LAUNCHES[k] for k in (KERNEL, BWD_KERNEL)}
+    if LAUNCHES[V1_KERNEL] or LAUNCHES[V1_BWD_KERNEL]:
+        fail(f"training launched the split-head kernels: {dict(LAUNCHES)}")
     for i, counts in enumerate(per_train):
         if counts != {KERNEL: 12 * updates + 5, BWD_KERNEL: 12 * updates}:
             fail(f"train() {i} launched {counts}, expected {12 * updates + 5} forward and {12 * updates} backward")
@@ -366,6 +432,109 @@ def train_slice() -> dict:
     )
 
 
+def bench_phase() -> dict:
+    """The attention-layer bench at its full shape: v1 and v2 agree bit for bit, each timed call
+    launches only its own kernels (one forward and one backward per step)."""
+    params, x = bench_attention.make_inputs(device="cuda")
+    reset_launches()
+    loss1, grads1 = bench_attention.loss_and_grads("v1", params, x)
+    loss2, grads2 = bench_attention.loss_and_grads("v2", params, x)
+    torch.cuda.synchronize()
+    if not (torch.equal(loss1, loss2) and all(torch.equal(a, b) for a, b in zip(grads1, grads2))):
+        fail(f"the v1 and v2 layers disagree: loss {loss1.item()} vs {loss2.item()}, max grad diff "
+             f"{max((a - b).abs().max().item() for a, b in zip(grads1, grads2))}")
+    print(f"  v1 and v2 layers: loss {loss1.item():.6e} and gradients equal bit for bit")
+    own = {"v2": (KERNEL, BWD_KERNEL), "v1": (V1_KERNEL, V1_BWD_KERNEL), "einsum": ()}
+    out = dict(loss=loss1.item(), v1_equals_v2=True, inner=bench_attention.INNER)
+    for name in bench_attention.VARIANTS:
+        reset_launches()
+        ms, timed = bench_attention.time_variant(name, [p.clone() for p in params], x)
+        path = {k: LAUNCHES[k] for k in ALL_KERNELS if LAUNCHES[k]}
+        want = {k: bench_attention.INNER for k in own[name]}
+        if dict(timed) != want or path != {k: 2 * v for k, v in want.items()}:
+            fail(f"{name} layer launched {dict(timed)} in its timed call and {path} in all, expected {want} per call")
+        print(f"  {name + ' layer fwd+bwd':50s} {ms:8.3f} ms; launches per timed call {dict(timed)}")
+        out[name] = dict(ms=ms, launches_timed_call=dict(timed), launches=path)
+    return out
+
+
+def cli_phase() -> dict:
+    """``cli.train.main`` on the card at full width in each mode, then a resume from a saved
+    model; every train() is held to its mode's launch counts."""
+    base = ["--env", "FakeInsertion", "--n_envs", str(TRAIN_ENVS), "--rollout_length", str(TRAIN_STEPS * TRAIN_ENVS),
+            "--ppo_epochs", str(TRAIN_EPOCHS), "--batch_size", str(TRAIN_BATCH), "--subproc", "True", "--seed", "0"]
+    updates = TRAIN_EPOCHS * TRAIN_STEPS * TRAIN_ENVS // TRAIN_BATCH
+    chunks = TRAIN_BATCH // 32  # the CLI's --mae_batch_size
+    # attention layers per update, forward and backward: joint 12 (4 encoder twice, 3 decoder, 1
+    # post); separate 7 per MAE chunk (4 encoder on the kept tokens, 3 decoder) plus 5 (4 encoder,
+    # 1 post) for PPO; plain PPO 5; train() adds 5 forward for the last values
+    layers = {"joint": 12, "separate": 7 * chunks + 5, "plain": 5}
+    per_train, entries = [], []
+    train, learn = PPOMAE.train, PPOMAE.learn
+
+    def counted_train(self):
+        start = Counter(LAUNCHES)
+        metrics = train(self)
+        per_train.append({k: LAUNCHES[k] - start[k] for k in ALL_KERNELS})
+        return metrics
+
+    def recorded_learn(self, *args, **kwargs):  # the model as main() hands it to learn()
+        entries.append(dict(steps=self.num_timesteps, params=[p.detach().clone() for p in self.policy.parameters()],
+                            mu=self.optimizer.mu.clone(), nu=self.optimizer.nu.clone(), count=self.optimizer.count))
+        return learn(self, *args, **kwargs)
+
+    def run(mode, argv, iterations):
+        per_train.clear()
+        reset_launches()
+        t0 = time.perf_counter()
+        model = train_cli.main(base + argv)
+        seconds = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        u, expect = model.n_epochs * model.n_minibatches, layers[mode]
+        want = {KERNEL: expect * u + 5, BWD_KERNEL: expect * u, V1_KERNEL: 0, V1_BWD_KERNEL: 0}
+        if u != updates or len(per_train) != iterations or any(c != want for c in per_train):
+            fail(f"{mode}: {len(per_train)} train() calls launched {per_train}, expected {iterations} of {want}")
+        m = model.last_metrics
+        before = entries[-1]["params"]
+        moved = max((p.detach() - b).abs().max().item() for p, b in zip(model.policy.parameters(), before))
+        finite = all(np.isfinite(m[k]) for k in m if k != "explained_variance") and all(torch.isfinite(p).all() for p in model.policy.parameters())
+        if model.iteration != iterations or not finite or not moved > 0 or (m["mae_loss"] == 0) != (mode == "plain"):
+            fail(f"{mode}: {model.iteration} iterations, metrics {m}, max parameter move {moved}")
+        its = [dict(collect_s=t["collect"], train_s=t["train"]) for t in model.iteration_seconds]
+        split = "; ".join(f"collect {i['collect_s']:.2f} s, train {i['train_s']:.2f} s" for i in its)
+        print(f"  {mode}: {split}; main() {seconds:.1f} s; launches per train() {per_train[0]}")
+        return model, dict(iterations=its, main_s=seconds, launches_per_train=list(per_train), updates_per_train=u,
+                           launches={k: LAUNCHES[k] for k in ALL_KERNELS}, last_metrics=m, max_param_move=moved)
+
+    out = {}
+    steps = TRAIN_STEPS * TRAIN_ENVS
+    PPOMAE.train, PPOMAE.learn = counted_train, recorded_learn
+    try:
+        joint, out["joint"] = run("joint", ["--total_timesteps", str(2 * steps)], 2)
+        out["separate"] = run("separate", ["--total_timesteps", str(steps), "--separate_optimizer", "True"], 1)[1]
+        out["plain"] = run("plain", ["--total_timesteps", str(steps), "--representation", "False"], 1)[1]
+        CKPT_DIR.mkdir(exist_ok=True)
+        path = str(CKPT_DIR / "joint.ckpt")
+        joint.save(path)
+        saved = dict(steps=joint.num_timesteps, params=[p.detach().clone() for p in joint.policy.parameters()],
+                     mu=joint.optimizer.mu.clone(), nu=joint.optimizer.nu.clone(), count=joint.optimizer.count)
+        del joint
+        resumed, out["resume"] = run("joint", ["--total_timesteps", str(3 * steps), "--resume_from", path], 1)
+    finally:
+        PPOMAE.train, PPOMAE.learn = train, learn
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    got = entries[-1]
+    on_card = all(t.device.type == "cuda" for t in (*got["params"], got["mu"], got["nu"]))
+    same = (got["steps"] == saved["steps"] and got["count"] == saved["count"] and torch.equal(got["mu"], saved["mu"])
+            and torch.equal(got["nu"], saved["nu"]) and all(torch.equal(a, b) for a, b in zip(got["params"], saved["params"])))
+    if not (on_card and same and resumed.num_timesteps == 3 * steps):
+        fail(f"resume: restored {got['steps']} steps (saved {saved['steps']}), state equal {same}, on the card {on_card}, "
+             f"ended at {resumed.num_timesteps}")
+    print(f"  resume: restored {got['steps']} steps, Adam count {got['count']}; parameters and moments equal the saved ones on the card")
+    out["resume"].update(restored_steps=got["steps"], restored_equal=same, restored_on_card=on_card)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -387,10 +556,13 @@ def main() -> int:
     print("[3] kernels against their plain versions")
     errs = check_attention()
     timed = {}
-    for kind, fn, shapes in (("forward", time_attention, ((8, SERVE_N), (SERVE_B, SERVE_N), (SERVE_B, TRAIN_N_KEPT))),
-                             ("backward", time_attention_bwd, ((SERVE_B, SERVE_N), (SERVE_B, TRAIN_N_KEPT)))):
+    n192, n10 = (SERVE_B, SERVE_N), (SERVE_B, TRAIN_N_KEPT)
+    for kind, fn, split, shapes in (("forward", time_attention, False, ((8, SERVE_N), n192, n10)),
+                                    ("backward", time_attention_bwd, False, (n192, n10)),
+                                    ("v1 forward", time_attention, True, (n192, n10)),
+                                    ("v1 backward", time_attention_bwd, True, (n192, n10))):
         for b, n in shapes:
-            t = timed[kind, b, n] = fn(b, n, SERVE_H, SERVE_DH, torch.bfloat16)
+            t = timed[kind, b, n] = fn(b, n, SERVE_H, SERVE_DH, torch.bfloat16, split=split)
             print(f"  {kind} B={b} N={n} H={SERVE_H} Dh={SERVE_DH} bf16: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
                   f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bytes']} B, {t['flops']} FLOP)")
 
@@ -405,27 +577,45 @@ def main() -> int:
     print(f"  learn: {its}; {tr['updates_per_train']} updates per train(), launches per train() {tr['launches_per_train']}")
     print(f"  minibatch update {tr['update_ms']:.3f} ms ({TRAIN_BATCH} samples), {tr['update_obs_frames_per_s']:.1f} update obs-frames/s")
 
-    def row(name, source, replaces, kind, launches, err):
-        t, t10 = timed[kind, SERVE_B, SERVE_N], timed[kind, SERVE_B, TRAIN_N_KEPT]
+    print("[6] attention-layer bench")
+    bench = bench_phase()
+
+    print("[7] training CLI")
+    cli = cli_phase()
+
+    def by_path(name):
+        """The kernel's launches in each path's run (counts set to 0 just before it)."""
+        return dict(serve=sl["attention_launches"] if name == KERNEL else 0, train=tr["launches"].get(name, 0),
+                    bench_v2=bench["v2"]["launches"].get(name, 0), bench_v1=bench["v1"]["launches"].get(name, 0),
+                    **{f"cli_{mode}": cli[mode]["launches"][name] for mode in ("joint", "separate", "plain", "resume")})
+
+    def row(name, source, replaces, kind, path, err):
+        t, t10 = timed[(kind, *n192)], timed[(kind, *n10)]
+        launches = by_path(name)
         return dict(
-            name=name, route="cuda", source=source, replaces=replaces, launches=launches,
-            launches_by_path=dict(serve=sl["attention_launches"] if kind == "forward" else 0, train=launches),
+            name=name, route="cuda", source=source, replaces=replaces, launches=launches[path], main_path=path,
+            launches_by_path=launches,
             max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], shape=dict(B=SERVE_B, N=SERVE_N, H=SERVE_H, Dh=SERVE_DH, dtype="bfloat16"),
             n10_ms=t10["ms"], n10_plain_ms=t10["plain_ms"], n10_library_ms=t10["library_ms"], n10_bound_ms=t10["bound_ms"],
         )
 
+    b8 = timed["forward", 8, SERVE_N]
+    src, ref = "m3l_tpu_torch/csrc/", "m3l_tpu/nn/flash_attention.py:"
     kernels = [
-        dict(row(KERNEL, "m3l_tpu_torch/csrc/flash_attention_qkv_fwd.cu", "m3l_tpu/nn/flash_attention.py:263", "forward",
-                 tr["launches"][KERNEL], errs["forward"]),
-             batch8_ms=timed["forward", 8, SERVE_N]["ms"], batch8_plain_ms=timed["forward", 8, SERVE_N]["plain_ms"],
-             batch8_library_ms=timed["forward", 8, SERVE_N]["library_ms"], batch8_bound_ms=timed["forward", 8, SERVE_N]["bound_ms"]),
-        row(BWD_KERNEL, "m3l_tpu_torch/csrc/flash_attention_qkv_bwd.cu", "m3l_tpu/nn/flash_attention.py:280", "backward",
-            tr["launches"][BWD_KERNEL], errs["backward"]),
+        dict(row(KERNEL, src + "flash_attention_qkv_fwd.cu", ref + "263", "forward", "train", errs["forward"]),
+             batch8_ms=b8["ms"], batch8_plain_ms=b8["plain_ms"], batch8_library_ms=b8["library_ms"], batch8_bound_ms=b8["bound_ms"]),
+        row(BWD_KERNEL, src + "flash_attention_qkv_bwd.cu", ref + "280", "backward", "train", errs["backward"]),
+        row(V1_KERNEL, src + "flash_attention_fwd.cu", ref + "40", "v1 forward", "bench_v1", errs["v1 forward"]),
+        row(V1_BWD_KERNEL, src + "flash_attention_bwd.cu", ref + "55", "v1 backward", "bench_v1", errs["v1 backward"]),
     ]
+    for k, name in zip(kernels, ("_fwd_qkv_kernel", "_bwd_qkv_kernel", "_fwd_kernel", "_bwd_kernel")):
+        k["tpu_kernel"] = name
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"slice": sl}))
     print(json.dumps({"train": tr}))
+    print(json.dumps({"bench_attention": bench}))
+    print(json.dumps({"cli": cli}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

@@ -6,16 +6,21 @@ code is PyTorch; every Pallas kernel of the JAX package becomes a hand-written C
 nothing of ``m3l_tpu``.
 
 Package layout:
-  utils/    device resolution, obs packing (vt_load), JAX-weight conversion
+  utils/    device resolution, obs packing (vt_load), JAX-weight conversion, TensorBoard logger
   ops/      positional tables, NHWC patchify, modal masking
   nn/       flax-semantics layers, transformer stack, EarlyCNN, the attention kernel wrappers
+            (packed qkv and split-head v1)
   models/   VTT, VTMAE (embeddings and the masked-reconstruction loss)
-  rl/       ActorCritic policy, PPOMAE (joint mode), GAE, rollout buffer, reward normalizer
-  train/    FlatAdam
-  envs/     host-side fake env, FrameStack, SyncVecEnv, make_env (no gymnasium)
+  rl/       ActorCritic policy, PPOMAE (joint, separate and plain-PPO modes, target_kl,
+            checkpoints), GAE, rollout buffer, reward normalizer, callbacks
+  train/    FlatAdam, checkpoint files
+  envs/     host-side fake env, FrameStack, SyncVecEnv and the process pools, make_env
+            (no gymnasium)
+  cli/      the training entry point (python -m m3l_tpu_torch.cli.train)
   kernels/  nvcc build + ctypes loading, launch counts
   csrc/     CUDA C++ sources (sm_90a)
   serve.py  build_policy + PolicyServer: raw obs -> actions on the card
+  bench_attention.py  one attention layer fwd+bwd on the card: einsum vs v1 vs v2
   profile_paths.py  torch.profiler breakdown of serving and training on the card
 """
 

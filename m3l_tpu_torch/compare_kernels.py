@@ -1,0 +1,135 @@
+"""This tree's packed attention kernels against another checkout's, on the card: results bit for
+bit, register counts, and times taken in turns in one process.
+
+    python -m m3l_tpu_torch.compare_kernels <other checkout>/m3l_tpu_torch/csrc
+
+The other tree's ``flash_attention_qkv_fwd.cu`` and ``flash_attention_qkv_bwd.cu`` (their C
+entry points must be this tree's) are built with this tree's nvcc flags into
+``kernels/_build/other/``. Both trees' kernels are called the same way, straight through their C
+entry points on preallocated outputs, so a time is the kernel's and not the wrapper's. For a
+kernel change that must keep its arithmetic, every output must be bitwise equal at the shapes
+``chip_smoke.py`` checks; times are CUDA-event means at B=512, H=4, Dh=64 in bf16, in the order
+other, this, this, other, so drift of the card shows. Exits 1 if any output differs.
+"""
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from .kernels.build import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, build_all, find_nvcc, load_library
+from .nn import flash_attention as fa
+
+NAMES = {"flash_attention_qkv_fwd": fa._SIGNATURES, "flash_attention_qkv_bwd": fa._BWD_SIGNATURES}
+SHAPES = [(512, 192, 4, 64), (512, 10, 4, 64), (8, 192, 4, 64), (64, 196, 16, 64), (3, 1, 2, 8), (2, 33, 2, 128)]
+
+
+def registers(nvcc: str, src: Path) -> list[str]:
+    """``ptxas -v`` lines: each kernel's name and its registers."""
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xptxas", "-v", "-c", "-o", "/dev/null", str(src)]
+    err = subprocess.run(cmd, capture_output=True, text=True, check=True).stderr.splitlines()
+    out, kernel = [], None
+    for line in err:
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif "registers" in line and kernel:
+            out.append(f"{kernel}: {line.split(':', 1)[1].strip()}")
+    return out
+
+
+def load_other(csrc: Path) -> dict[str, ctypes.CDLL]:
+    nvcc = find_nvcc()
+    out_dir = BUILD_DIR / "other"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    libs = {}
+    for name, sigs in NAMES.items():
+        lib_path = out_dir / f"{name}.so"
+        subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(lib_path), str(csrc / f"{name}.cu")], check=True)
+        lib = ctypes.CDLL(str(lib_path))
+        for fn, (argtypes, restype) in sigs.items():
+            getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, restype
+        libs[name] = lib
+        for tree, src in (("other", csrc / f"{name}.cu"), ("this", CSRC_DIR / f"{name}.cu")):
+            for line in registers(nvcc, src):
+                print(f"  {tree} {line}")
+    return libs
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def calls(libs, b, n, h, dh, dtype, masked, seed=0):
+    """The forward and backward of the libraries ``libs`` as argument-free launches on seeded
+    inputs, each writing its own preallocated output: both trees are called the same way."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(b, n, 3 * h * dh, generator=g, device="cuda").to(dtype)
+    cot = torch.randn(b, n, h * dh, generator=g, device="cuda").to(dtype)
+    bias = None
+    if masked:
+        keep = torch.rand(b, n, generator=g, device="cuda") > 0.3
+        keep[:, 0] = True
+        bias = fa._key_bias(keep).contiguous()
+    scale, elem = dh**-0.5, qkv.element_size()
+    out_f, out_b = torch.empty(b, n, h * dh, device="cuda", dtype=dtype), torch.empty_like(qkv)
+    stats = torch.empty((b, h, n, 3), dtype=torch.float32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    bp = None if bias is None else bias.data_ptr()
+
+    def fwd():
+        if libs["flash_attention_qkv_fwd"].m3l_flash_qkv_fwd(qkv.data_ptr(), bp, out_f.data_ptr(), b, n, h, dh, scale, elem, stream):
+            raise RuntimeError("forward launch failed")
+        return out_f
+
+    def bwd():
+        if libs["flash_attention_qkv_bwd"].m3l_flash_qkv_bwd(
+            qkv.data_ptr(), bp, cot.data_ptr(), out_b.data_ptr(), stats.data_ptr(), b, n, h, dh, scale, elem, stream
+        ):
+            raise RuntimeError("backward launch failed")
+        return out_b
+
+    return fwd, bwd
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = sys.argv[1:] if argv is None else argv
+    if len(args) != 1 or not torch.cuda.is_available():
+        print(__doc__, file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(card)
+    build_all()
+    other = load_other(Path(args[0]))
+    this = {name: load_library(name, sigs) for name, sigs in NAMES.items()}
+    same = True
+    for b, n, h, dh in SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for masked in (False, True):
+                (this_f, this_b), (other_f, other_b) = (calls(libs, b, n, h, dh, dtype, masked) for libs in (this, other))
+                ok = torch.equal(this_f(), other_f()) and torch.equal(this_b(), other_b())
+                same &= ok
+                print(f"  B={b} N={n} H={h} Dh={dh} {str(dtype)[6:]} mask={masked}: {'bit-equal' if ok else 'DIFFERENT'}")
+    for n in (192, 10):
+        (this_f, this_b), (other_f, other_b) = (calls(libs, 512, n, 4, 64, torch.bfloat16, False, seed=101) for libs in (this, other))
+        for kind, mine, theirs in (("forward", this_f, other_f), ("backward", this_b, other_b)):
+            turns = [("other", cuda_ms(theirs)), ("this", cuda_ms(mine)), ("this", cuda_ms(mine)), ("other", cuda_ms(theirs))]
+            print(f"  N={n} {kind} ms: " + ", ".join(f"{tree} {ms:.4f}" for tree, ms in turns))
+    print("all outputs bit-equal" if same else "SOME OUTPUTS DIFFER")
+    return 0 if same else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,4 +1,4 @@
-// Element access and warp reductions shared by the attention kernels (flash_attention_qkv_*.cu).
+// Element access and warp reductions shared by the attention kernels (flash_attention_kernels.cuh).
 //
 // The kernels read and write the packed rows as 32-bit words: one f32, or two bf16 of which the
 // element at the lower address sits in the low half. All arithmetic is in f32.

@@ -1,0 +1,597 @@
+// The attention kernels' bodies, shared by both interfaces (sm_90a).
+//
+// The packed pair (flash_attention_qkv_fwd.cu, flash_attention_qkv_bwd.cu) and the split-head
+// pair (flash_attention_fwd.cu, flash_attention_bwd.cu) compute one function:
+//
+//   S = (Q K^T) * scale + bias[b];  A = exp(S - rowmax) / rowsum               f32
+//   forward:  O = round_to_input_type(A) V                                     sums in f32
+//   backward: dV = A^T g;  dA = g V^T;  dS = (A o (dA - rowsum(dA o A))) * scale;
+//             dQ = dS K;  dK = dS^T Q   (A unrounded; every product and sum in f32)
+//
+// and differ only in where the head rows of (b, h) lie. A `Rows` descriptor holds that rule for
+// one operand: the base pointer of block (b, h) and the row stride, in 32-bit words. Packed qkv
+// (B, N, 3*H*Dh) is "batch B, heads H, row stride 3*H*Dh/E", q at word offset 0, k at H*Dh/E,
+// v at 2*H*Dh/E; split q, k, v (B*H, N, Dh) are "batch B*H, heads 1, row stride Dh/E". The key
+// bias is one f32 row of N per batch index (B rows, or B*H rows for the split layout). The
+// arithmetic, and so every result bit, does not depend on the descriptor.
+//
+// Forward grid (ceil(N / 32), heads, batch): each block stages K and V of one (b, h) in shared
+// memory (16-byte loads, K rows padded by one word so a warp's lanes, each on its own key, hit
+// distinct banks), and 4 warps of 8 query rows each build their rows' f32 scores there.
+//
+// Backward: on the TPU one grid step holds all queries and keys of its batch rows and the grid
+// runs in order. Here blocks run in parallel and dK, dV sum over all queries, so the kernel runs
+// two deterministic passes (no atomics) on the caller's stream, one block of 4 warps per
+// (32-row tile, head, batch row) each:
+//
+//   pass 1 (query tiles): stage K and V of (b, h); recompute the tile's full score rows, the row
+//     max m and sum l, A and dA = g V^T, then D = rowsum(dA o A), dS and dQ = dS K. Writes dQ
+//     and (m, l, D) to an f32 (batch, heads, N, 3) scratch the wrapper allocates.
+//   pass 2 (key tiles): stage Q, g and (m, l, D) of (b, h); recompute A_ij = exp(s_ij - m_i) / l_i
+//     and dS_ij for the tile's keys against every query, then dV_j = sum_i A_ij g_i and
+//     dK_j = sum_i dS_ij q_i. Scores are summed over Dh in the same order in both passes (and
+//     scaled with one explicit fma), so pass 2 recomputes pass 1's A bit for bit.
+//
+// The source notes of the four .cu files give the bounds on the H100. These first versions
+// compute on the CUDA cores in f32: they are right first. Tensor cores (wgmma), TMA and a
+// one-pass backward with register accumulators are later work.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+#include <stdint.h>
+
+#include "flash_attention_common.cuh"
+
+namespace m3l {
+namespace {  // each .cu is its own library: internal linkage keeps their kernels apart
+
+constexpr int kWarps = 4;              // warps per block
+constexpr int kRows = 8;               // query rows (forward, pass 1) or keys (pass 2) per warp
+constexpr int kTile = kWarps * kRows;  // rows per block
+constexpr int kMaxDh = 128;
+
+// One operand's head rows, in 32-bit words: head h of batch row b starts at
+// base + b * batch + h * head, and its rows are `row` words apart.
+template <typename W>
+struct Rows {
+  W* base;
+  size_t batch;
+  int head;
+  int row;
+  __device__ W* at(int b, int h) const { return base + b * batch + (size_t)h * head; }
+};
+using In = Rows<const uint32_t>;
+using Out = Rows<uint32_t>;
+
+inline bool valid_shape(int batch, int n, int heads, int dh, int elem_bytes) {
+  return dh % 8 == 0 && dh <= kMaxDh && n >= 1 && batch >= 1 && heads >= 1 && (elem_bytes == 2 || elem_bytes == 4);
+}
+
+// ---------------------------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------------------------
+
+struct FwdLayout {
+  int dw;        // 32-bit words in one head row of q, k or v
+  int kw;        // padded K row stride in words
+  int vs_off;    // word offsets of V, Q and P in shared memory
+  int qs_off;
+  int ps_off;
+  int words;     // total words
+};
+
+__host__ __device__ inline FwdLayout fwd_layout(int n, int dh, int elem_bytes) {
+  FwdLayout l;
+  l.dw = dh * elem_bytes / 4;
+  l.kw = l.dw + 1;
+  l.vs_off = (n * l.kw + 3) / 4 * 4;   // V rows are read and written as 16-byte vectors
+  l.qs_off = l.vs_off + n * l.dw;
+  l.ps_off = l.qs_off + kTile * dh;
+  l.words = l.ps_off + kTile * n;
+  return l;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+fwd_kernel(In q, In k, In v, const float* __restrict__ bias, Out out, int n, int dh, float scale) {
+  constexpr int E = Elem<T>::kPerWord;
+  constexpr int kLaneWords = 4 / E;    // dh <= 128: at most this many output words per lane
+  extern __shared__ __align__(16) uint32_t smem[];
+
+  const FwdLayout l = fwd_layout(n, dh, sizeof(T));
+  const int dw = l.dw, kw = l.kw;
+  uint32_t* ks = smem;
+  uint32_t* vs = smem + l.vs_off;
+  float* qs = reinterpret_cast<float*>(smem + l.qs_off);
+  float* ps = reinterpret_cast<float*>(smem + l.ps_off);
+
+  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const uint32_t* qb = q.at(b, h);
+  const uint32_t* kb = k.at(b, h);
+  const uint32_t* vb = v.at(b, h);
+
+  // stage K (padded rows) and V of (b, h), 16 bytes per load
+  const int vecs = dw / 4;
+  for (int i = threadIdx.x; i < n * vecs; i += blockDim.x) {
+    const int j = i / vecs, c = (i % vecs) * 4;
+    const uint4 kv = *reinterpret_cast<const uint4*>(kb + (size_t)j * k.row + c);
+    const uint4 vv = *reinterpret_cast<const uint4*>(vb + (size_t)j * v.row + c);
+    uint32_t* kd = ks + j * kw + c;
+    kd[0] = kv.x;
+    kd[1] = kv.y;
+    kd[2] = kv.z;
+    kd[3] = kv.w;
+    *reinterpret_cast<uint4*>(vs + j * dw + c) = vv;
+  }
+
+  // each warp stages its own query rows in f32; rows past N are zeros and are never written
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = tile * kTile + warp * kRows;
+  float* qw = qs + warp * kRows * dh;
+  float* pw = ps + warp * kRows * n;
+  for (int i = lane; i < kRows * dw; i += 32) {
+    const int r = i / dw, c = i % dw;
+    float f[E];
+    if (q0 + r < n) {
+      Elem<T>::unpack(qb[(size_t)(q0 + r) * q.row + c], f);
+    } else {
+      for (int e = 0; e < E; ++e) f[e] = 0.f;
+    }
+    for (int e = 0; e < E; ++e) qw[r * dh + c * E + e] = f[e];
+  }
+  __syncthreads();
+  if (q0 >= n) return;  // warp-uniform; no block-wide barrier follows
+
+  // scores: lane j owns keys j, j + 32, ...; the rows of the warp share each K word
+  const float* bias_b = bias ? bias + (size_t)b * n : nullptr;
+  for (int j = lane; j < n; j += 32) {
+    float acc[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+    const uint32_t* kr = ks + j * kw;
+#pragma unroll 4
+    for (int c = 0; c < dw; ++c) {
+      float kf[E];
+      Elem<T>::unpack(kr[c], kf);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[r] = fmaf(qw[r * dh + c * E + e], kf[e], acc[r]);
+      }
+    }
+    const float bj = bias_b ? bias_b[j] : 0.f;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) pw[r * n + j] = acc[r] * scale + bj;
+  }
+  __syncwarp();
+
+  // row softmax in f32, then the probabilities rounded to the input type (as A.astype(v.dtype))
+  for (int r = 0; r < kRows; ++r) {
+    float* pr = pw + r * n;
+    float m = -INFINITY;
+    for (int j = lane; j < n; j += 32) m = fmaxf(m, pr[j]);
+    m = warp_max(m);
+    float s = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      const float e = expf(pr[j] - m);
+      pr[j] = e;
+      s += e;
+    }
+    s = warp_sum(s);
+    for (int j = lane; j < n; j += 32) pr[j] = Elem<T>::round(pr[j] / s);
+  }
+  __syncwarp();
+
+  // O = A V: lane owns output words lane, lane + 32, ... of the head row
+  float acc[kRows][kLaneWords * E];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+    for (int t = 0; t < kLaneWords * E; ++t) acc[r][t] = 0.f;
+  }
+  for (int j = 0; j < n; ++j) {
+    const uint32_t* vr = vs + j * dw;
+    float vf[kLaneWords][E];
+#pragma unroll
+    for (int t = 0; t < kLaneWords; ++t) {
+      const int c = lane + 32 * t;
+      if (c < dw) {
+        Elem<T>::unpack(vr[c], vf[t]);
+      } else {
+        for (int e = 0; e < E; ++e) vf[t][e] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float p = pw[r * n + j];
+#pragma unroll
+      for (int t = 0; t < kLaneWords; ++t) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[r][t * E + e] = fmaf(p, vf[t][e], acc[r][t * E + e]);
+      }
+    }
+  }
+
+  uint32_t* ob = out.at(b, h);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (q0 + r >= n) break;
+#pragma unroll
+    for (int t = 0; t < kLaneWords; ++t) {
+      const int c = lane + 32 * t;
+      if (c < dw) ob[(size_t)(q0 + r) * out.row + c] = Elem<T>::pack(&acc[r][t * E]);
+    }
+  }
+}
+
+template <typename K>
+int allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename T>
+int launch_fwd_t(In q, In k, In v, const float* bias, Out out, int batch, int heads, int n, int dh, float scale,
+                 cudaStream_t stream) {
+  const size_t smem = (size_t)fwd_layout(n, dh, sizeof(T)).words * 4;
+  const int err = allow_smem(fwd_kernel<T>, smem);
+  if (err) return err;
+  const dim3 grid((n + kTile - 1) / kTile, heads, batch);
+  fwd_kernel<T><<<grid, kWarps * 32, smem, stream>>>(q, k, v, bias, out, n, dh, scale);
+  return (int)cudaGetLastError();
+}
+
+// The forward on `stream`; returns cudaGetLastError() (0 on success). `bias` may be null.
+inline int launch_fwd(In q, In k, In v, const void* bias, Out out, int batch, int heads, int n, int dh, float scale,
+                      int elem_bytes, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* bi = static_cast<const float*>(bias);
+  if (elem_bytes == 2) return launch_fwd_t<__nv_bfloat16>(q, k, v, bi, out, batch, heads, n, dh, scale, s);
+  return launch_fwd_t<float>(q, k, v, bi, out, batch, heads, n, dh, scale, s);
+}
+
+// ---------------------------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------------------------
+
+// Shared memory of either pass, in 32-bit words: two padded (N, Dh) head tables (pass 1: K and
+// V; pass 2: Q and g), the warps' own rows in f32 (pass 1: q and g; pass 2: k and v), two f32
+// (kTile, N) tiles (pass 1: scores/A and dA/dS; pass 2: A and dS transposed, one row per key),
+// and in pass 2 the (m, l, D) of every query.
+struct BwdLayout {
+  int dw;        // 32-bit words in one head row
+  int kw;        // padded row stride of the staged tables
+  int t1_off, own_a_off, own_b_off, p_off, d_off, st_off;
+  int words;
+};
+
+__host__ __device__ inline BwdLayout bwd_layout(int n, int dh, int elem_bytes, bool with_stats) {
+  BwdLayout l;
+  l.dw = dh * elem_bytes / 4;
+  l.kw = l.dw + 1;
+  l.t1_off = n * l.kw;
+  l.own_a_off = 2 * n * l.kw;
+  l.own_b_off = l.own_a_off + kTile * dh;
+  l.p_off = l.own_b_off + kTile * dh;
+  l.d_off = l.p_off + kTile * n;
+  l.st_off = l.d_off + kTile * n;
+  l.words = l.st_off + (with_stats ? 3 * n : 0);
+  return l;
+}
+
+// Stage the n head rows at `a` and `b` (row strides a_row, b_row) into padded tables ta / tb,
+// 16 bytes per load.
+__device__ inline void stage_tables(const uint32_t* a, int a_row, const uint32_t* b, int b_row, int n, int dw, int kw,
+                                    uint32_t* ta, uint32_t* tb) {
+  const int vecs = dw / 4;
+  for (int i = threadIdx.x; i < n * vecs; i += blockDim.x) {
+    const int j = i / vecs, c = (i % vecs) * 4;
+    const uint4 av = *reinterpret_cast<const uint4*>(a + (size_t)j * a_row + c);
+    const uint4 bv = *reinterpret_cast<const uint4*>(b + (size_t)j * b_row + c);
+    uint32_t* ad = ta + j * kw + c;
+    uint32_t* bd = tb + j * kw + c;
+    ad[0] = av.x; ad[1] = av.y; ad[2] = av.z; ad[3] = av.w;
+    bd[0] = bv.x; bd[1] = bv.y; bd[2] = bv.z; bd[3] = bv.w;
+  }
+}
+
+// Stage a warp's kRows rows (from row r0) of two head row sets in f32; rows past n are zeros.
+template <typename T>
+__device__ inline void stage_own(const uint32_t* a, int a_row, const uint32_t* b, int b_row, int r0, int n, int dw,
+                                 int dh, float* fa, float* fb) {
+  constexpr int E = Elem<T>::kPerWord;
+  const int lane = threadIdx.x % 32;
+  for (int i = lane; i < kRows * dw; i += 32) {
+    const int r = i / dw, c = i % dw;
+    float xa[E], xb[E];
+    if (r0 + r < n) {
+      Elem<T>::unpack(a[(size_t)(r0 + r) * a_row + c], xa);
+      Elem<T>::unpack(b[(size_t)(r0 + r) * b_row + c], xb);
+    } else {
+      for (int e = 0; e < E; ++e) xa[e] = xb[e] = 0.f;
+    }
+    for (int e = 0; e < E; ++e) {
+      fa[r * dh + c * E + e] = xa[e];
+      fb[r * dh + c * E + e] = xb[e];
+    }
+  }
+}
+
+// For the table row `row` (padded words) and the warp's kRows own f32 rows: the dot product of
+// every own row with the table row, for two table/own pairs at once. The sum runs over Dh in
+// the same order in both passes.
+template <typename T>
+__device__ inline void dots(const uint32_t* ra, const uint32_t* rb, const float* fa, const float* fb, int dw,
+                            int dh, float* acc_a, float* acc_b) {
+  constexpr int E = Elem<T>::kPerWord;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) acc_a[r] = acc_b[r] = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < dw; ++c) {
+    float xa[E], xb[E];
+    Elem<T>::unpack(ra[c], xa);
+    Elem<T>::unpack(rb[c], xb);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        acc_a[r] = fmaf(fa[r * dh + c * E + e], xa[e], acc_a[r]);
+        acc_b[r] = fmaf(fb[r * dh + c * E + e], xb[e], acc_b[r]);
+      }
+    }
+  }
+}
+
+// The operands of the backward: inputs q, k, v, the cotangent g, outputs dq, dk, dv.
+struct BwdOperands {
+  In q, k, v, g;
+  Out dq, dk, dv;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+bwd_dq_kernel(BwdOperands o, const float* __restrict__ bias, float* __restrict__ stats, int n, int dh, float scale) {
+  constexpr int E = Elem<T>::kPerWord;
+  constexpr int kLaneWords = 4 / E;    // dh <= 128: at most this many output words per lane
+  extern __shared__ __align__(16) uint32_t smem[];
+
+  const BwdLayout l = bwd_layout(n, dh, sizeof(T), false);
+  const int dw = l.dw, kw = l.kw;
+  uint32_t* ks = smem;
+  uint32_t* vs = smem + l.t1_off;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* qw = reinterpret_cast<float*>(smem + l.own_a_off) + warp * kRows * dh;
+  float* gw = reinterpret_cast<float*>(smem + l.own_b_off) + warp * kRows * dh;
+  float* pw = reinterpret_cast<float*>(smem + l.p_off) + warp * kRows * n;
+  float* dsw = reinterpret_cast<float*>(smem + l.d_off) + warp * kRows * n;
+
+  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = tile * kTile + warp * kRows;
+
+  stage_tables(o.k.at(b, h), o.k.row, o.v.at(b, h), o.v.row, n, dw, kw, ks, vs);
+  stage_own<T>(o.q.at(b, h), o.q.row, o.g.at(b, h), o.g.row, q0, n, dw, dh, qw, gw);
+  __syncthreads();
+  if (q0 >= n) return;  // warp-uniform; no block-wide barrier follows
+
+  // scores and dA = g V^T: lane j owns keys j, j + 32, ...
+  const float* bias_b = bias ? bias + (size_t)b * n : nullptr;
+  for (int j = lane; j < n; j += 32) {
+    float s[kRows], da[kRows];
+    dots<T>(ks + j * kw, vs + j * kw, qw, gw, dw, dh, s, da);
+    const float bj = bias_b ? bias_b[j] : 0.f;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      pw[r * n + j] = fmaf(s[r], scale, bj);
+      dsw[r * n + j] = da[r];
+    }
+  }
+  __syncwarp();
+
+  // per row: softmax in f32, D = rowsum(dA o A), dS = (A o (dA - D)) * scale
+  float* st = stats + ((size_t)(b * gridDim.y + h) * n) * 3;
+  for (int r = 0; r < kRows; ++r) {
+    float* pr = pw + r * n;
+    float* dr = dsw + r * n;
+    float m = -INFINITY;
+    for (int j = lane; j < n; j += 32) m = fmaxf(m, pr[j]);
+    m = warp_max(m);
+    float sum = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      const float e = expf(pr[j] - m);
+      pr[j] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    float d = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      const float a = pr[j] / sum;
+      pr[j] = a;
+      d = fmaf(dr[j], a, d);
+    }
+    d = warp_sum(d);
+    for (int j = lane; j < n; j += 32) dr[j] = (pr[j] * (dr[j] - d)) * scale;
+    if (lane == 0 && q0 + r < n) {
+      st[(q0 + r) * 3 + 0] = m;
+      st[(q0 + r) * 3 + 1] = sum;
+      st[(q0 + r) * 3 + 2] = d;
+    }
+  }
+  __syncwarp();
+
+  // dQ = dS K: lane owns output words lane, lane + 32, ... of the head row
+  float acc[kRows][kLaneWords * E];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+    for (int t = 0; t < kLaneWords * E; ++t) acc[r][t] = 0.f;
+  }
+  for (int j = 0; j < n; ++j) {
+    const uint32_t* kr = ks + j * kw;
+    float kf[kLaneWords][E];
+#pragma unroll
+    for (int t = 0; t < kLaneWords; ++t) {
+      const int c = lane + 32 * t;
+      if (c < dw) {
+        Elem<T>::unpack(kr[c], kf[t]);
+      } else {
+        for (int e = 0; e < E; ++e) kf[t][e] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float p = dsw[r * n + j];
+#pragma unroll
+      for (int t = 0; t < kLaneWords; ++t) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[r][t * E + e] = fmaf(p, kf[t][e], acc[r][t * E + e]);
+      }
+    }
+  }
+
+  uint32_t* ob = o.dq.at(b, h);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (q0 + r >= n) break;
+#pragma unroll
+    for (int t = 0; t < kLaneWords; ++t) {
+      const int c = lane + 32 * t;
+      if (c < dw) ob[(size_t)(q0 + r) * o.dq.row + c] = Elem<T>::pack(&acc[r][t * E]);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+bwd_dkv_kernel(BwdOperands o, const float* __restrict__ bias, const float* __restrict__ stats, int n, int dh,
+               float scale) {
+  constexpr int E = Elem<T>::kPerWord;
+  constexpr int kLaneWords = 4 / E;
+  extern __shared__ __align__(16) uint32_t smem[];
+
+  const BwdLayout l = bwd_layout(n, dh, sizeof(T), true);
+  const int dw = l.dw, kw = l.kw;
+  uint32_t* qs = smem;
+  uint32_t* gs = smem + l.t1_off;
+  float* st = reinterpret_cast<float*>(smem + l.st_off);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* kwf = reinterpret_cast<float*>(smem + l.own_a_off) + warp * kRows * dh;
+  float* vwf = reinterpret_cast<float*>(smem + l.own_b_off) + warp * kRows * dh;
+  float* pa = reinterpret_cast<float*>(smem + l.p_off) + warp * kRows * n;   // A, row r = key k0 + r
+  float* pd = reinterpret_cast<float*>(smem + l.d_off) + warp * kRows * n;   // dS, same layout
+
+  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int k0 = tile * kTile + warp * kRows;
+
+  stage_tables(o.q.at(b, h), o.q.row, o.g.at(b, h), o.g.row, n, dw, kw, qs, gs);
+  const float* st_src = stats + ((size_t)(b * gridDim.y + h) * n) * 3;
+  for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) st[i] = st_src[i];
+  stage_own<T>(o.k.at(b, h), o.k.row, o.v.at(b, h), o.v.row, k0, n, dw, dh, kwf, vwf);
+  __syncthreads();
+  if (k0 >= n) return;  // warp-uniform; no block-wide barrier follows
+
+  float bk[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) bk[r] = (bias && k0 + r < n) ? bias[(size_t)b * n + k0 + r] : 0.f;
+
+  // A and dS of the warp's keys against every query: lane i owns queries i, i + 32, ...
+  for (int i = lane; i < n; i += 32) {
+    float s[kRows], da[kRows];
+    dots<T>(qs + i * kw, gs + i * kw, kwf, vwf, dw, dh, s, da);
+    const float m = st[3 * i], sum = st[3 * i + 1], d = st[3 * i + 2];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float a = expf(fmaf(s[r], scale, bk[r]) - m) / sum;
+      pa[r * n + i] = a;
+      pd[r * n + i] = (a * (da[r] - d)) * scale;
+    }
+  }
+  __syncwarp();
+
+  // dV = A^T g and dK = dS^T Q: lane owns output words lane, lane + 32, ... of the head row
+  float acc_v[kRows][kLaneWords * E], acc_k[kRows][kLaneWords * E];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+    for (int t = 0; t < kLaneWords * E; ++t) acc_v[r][t] = acc_k[r][t] = 0.f;
+  }
+  for (int i = 0; i < n; ++i) {
+    const uint32_t* qr = qs + i * kw;
+    const uint32_t* gr = gs + i * kw;
+    float qf[kLaneWords][E], gf[kLaneWords][E];
+#pragma unroll
+    for (int t = 0; t < kLaneWords; ++t) {
+      const int c = lane + 32 * t;
+      if (c < dw) {
+        Elem<T>::unpack(qr[c], qf[t]);
+        Elem<T>::unpack(gr[c], gf[t]);
+      } else {
+        for (int e = 0; e < E; ++e) qf[t][e] = gf[t][e] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float a = pa[r * n + i], ds = pd[r * n + i];
+#pragma unroll
+      for (int t = 0; t < kLaneWords; ++t) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          acc_v[r][t * E + e] = fmaf(a, gf[t][e], acc_v[r][t * E + e]);
+          acc_k[r][t * E + e] = fmaf(ds, qf[t][e], acc_k[r][t * E + e]);
+        }
+      }
+    }
+  }
+
+  uint32_t* dkb = o.dk.at(b, h);
+  uint32_t* dvb = o.dv.at(b, h);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (k0 + r >= n) break;
+#pragma unroll
+    for (int t = 0; t < kLaneWords; ++t) {
+      const int c = lane + 32 * t;
+      if (c < dw) {
+        dkb[(size_t)(k0 + r) * o.dk.row + c] = Elem<T>::pack(&acc_k[r][t * E]);
+        dvb[(size_t)(k0 + r) * o.dv.row + c] = Elem<T>::pack(&acc_v[r][t * E]);
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch_bwd_t(const BwdOperands& o, const float* bias, float* stats, int batch, int heads, int n, int dh, float scale,
+                 cudaStream_t stream) {
+  const size_t smem1 = (size_t)bwd_layout(n, dh, sizeof(T), false).words * 4;
+  const size_t smem2 = (size_t)bwd_layout(n, dh, sizeof(T), true).words * 4;
+  int err = allow_smem(bwd_dq_kernel<T>, smem1);
+  if (err) return err;
+  err = allow_smem(bwd_dkv_kernel<T>, smem2);
+  if (err) return err;
+  const dim3 grid((n + kTile - 1) / kTile, heads, batch);
+  bwd_dq_kernel<T><<<grid, kWarps * 32, smem1, stream>>>(o, bias, stats, n, dh, scale);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  bwd_dkv_kernel<T><<<grid, kWarps * 32, smem2, stream>>>(o, bias, stats, n, dh, scale);
+  return (int)cudaGetLastError();
+}
+
+// Both passes on `stream`; returns cudaGetLastError() (0 on success). `bias` may be null;
+// `stats` is f32 scratch of batch * heads * n * 3 values.
+inline int launch_bwd(const BwdOperands& o, const void* bias, void* stats, int batch, int heads, int n, int dh,
+                      float scale, int elem_bytes, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* bi = static_cast<const float*>(bias);
+  float* st = static_cast<float*>(stats);
+  if (elem_bytes == 2) return launch_bwd_t<__nv_bfloat16>(o, bi, st, batch, heads, n, dh, scale, s);
+  return launch_bwd_t<float>(o, bi, st, batch, heads, n, dh, scale, s);
+}
+
+// A tensor's 32-bit words.
+inline const uint32_t* words(const void* p) { return static_cast<const uint32_t*>(p); }
+inline uint32_t* words(void* p) { return static_cast<uint32_t*>(p); }
+
+}  // namespace
+}  // namespace m3l

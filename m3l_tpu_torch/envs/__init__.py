@@ -1,5 +1,6 @@
 from .factory import make_env  # noqa: F401
 from .fake import FakeInsertionEnv  # noqa: F401
 from .spaces import Box, Dict  # noqa: F401
-from .vec import SyncVecEnv  # noqa: F401
+from .shm_vec import SharedMemoryVecEnv  # noqa: F401
+from .vec import SubprocVecEnv, SyncVecEnv, make_vec_env  # noqa: F401
 from .wrappers import FrameStack  # noqa: F401

@@ -1,12 +1,20 @@
-"""Fused attention on the packed qkv projection: the CUDA kernels and their plain versions.
+"""Fused attention: the CUDA kernels and their plain versions, for both interfaces of
+``m3l_tpu/nn/flash_attention.py``.
 
-Counterpart of ``m3l_tpu/nn/flash_attention.py`` ``flash_attention_qkv`` (the Pallas kernels
-``_fwd_qkv_kernel`` and ``_bwd_qkv_kernel`` behind the custom VJP ``_flash_qkv``). The kernels are
-``csrc/flash_attention_qkv_fwd.cu`` and ``csrc/flash_attention_qkv_bwd.cu``; their source notes
-give the designs and the bounds on the H100. ``flash_attention_qkv`` routes through one
-``torch.autograd.Function`` on every device: on a CUDA tensor it launches the kernels or raises;
-on a CPU tensor it runs :func:`flash_attention_qkv_reference` and
-:func:`flash_attention_qkv_bwd_reference`, the same arithmetic in plain PyTorch.
+* ``flash_attention_qkv`` (v2, every model path): the packed qkv projection (B, N, 3*H*Dh) in,
+  (B, N, H*Dh) out; the Pallas kernels ``_fwd_qkv_kernel`` and ``_bwd_qkv_kernel`` behind the
+  custom VJP ``_flash_qkv``; here ``csrc/flash_attention_qkv_fwd.cu`` and ``_bwd.cu``.
+* ``flash_attention`` (v1, the attention-layer bench): q, k, v (B, N, H, Dh) in and out, split
+  into heads through device memory as JAX's ``collapse`` does; the Pallas kernels ``_fwd_kernel``
+  and ``_bwd_kernel`` behind ``_flash``; here ``csrc/flash_attention_fwd.cu`` and ``_bwd.cu``.
+
+Both pairs compute one function and share their kernel bodies
+(``csrc/flash_attention_kernels.cuh``), so the split-head interface is the packed one with batch
+B*H and one head: its plain versions are the packed ones on ``cat([q, k, v], -1)``, and so are its
+tolerances. Each interface routes through one ``torch.autograd.Function`` on every device: on a
+CUDA tensor it launches the kernels or raises; on a CPU tensor it runs the plain versions
+(:func:`flash_attention_qkv_reference`, :func:`flash_attention_qkv_bwd_reference` and their v1
+counterparts), the same arithmetic in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -19,6 +27,8 @@ from ..kernels.build import load_library
 
 KERNEL = "flash_attention_qkv_fwd"
 BWD_KERNEL = "flash_attention_qkv_bwd"
+V1_KERNEL = "flash_attention_fwd"
+V1_BWD_KERNEL = "flash_attention_bwd"
 MAX_HEAD_DIM = 128
 BWD_F32_TOL = 2e-5  # see flash_attention_qkv_bwd_tolerance
 
@@ -195,7 +205,7 @@ def _check(qkv: torch.Tensor, num_heads: int) -> int:
 def _check_smem(smem: int, qkv: torch.Tensor, dh: int) -> None:
     limit = torch.cuda.get_device_properties(qkv.device).shared_memory_per_block_optin
     if smem > limit:
-        raise ValueError(f"flash_attention_qkv: N={qkv.shape[1]}, head_dim={dh} needs {smem} B of shared memory, the card has {limit}")
+        raise ValueError(f"flash attention: N={qkv.shape[1]}, head_dim={dh} needs {smem} B of shared memory, the card has {limit}")
 
 
 def _launch(qkv: torch.Tensor, num_heads: int, bias: torch.Tensor | None, scale: float) -> torch.Tensor:
@@ -280,3 +290,207 @@ def flash_attention_qkv(
             raise ValueError(f"flash_attention_qkv: key_mask must be bool ({b}, {n}) on {qkv.device}")
         bias = _key_bias(key_mask).contiguous()
     return _FlashQKV.apply(qkv, bias, num_heads, float(_default_scale(qkv, num_heads, scale)))
+
+
+# --------------------------------------------------------------------------------------------- #
+# v1: split heads, q, k, v (B, N, H, Dh). In the kernels' terms this is batch B*H with one head:
+# q, k, v collapsed to (B*H, N, Dh) and the key bias repeated per head, row b*H + h.
+# --------------------------------------------------------------------------------------------- #
+
+
+def _collapse(x: torch.Tensor) -> torch.Tensor:
+    """(B, N, H, Dh) -> contiguous (B*H, N, Dh), row b*H + h (JAX's ``collapse``)."""
+    b, n, h, dh = x.shape
+    return x.transpose(1, 2).reshape(b * h, n, dh).contiguous()
+
+
+def _uncollapse(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B*H, N, Dh) -> (B, N, H, Dh)."""
+    bh, n, dh = x.shape
+    return x.reshape(bh // heads, heads, n, dh).transpose(1, 2)
+
+
+def _v1_mask(key_mask: torch.Tensor | None, heads: int) -> torch.Tensor | None:
+    """(B, N) key mask -> (B*H, N), row b*H + h (``jnp.repeat(..., h, axis=0)``)."""
+    return None if key_mask is None else key_mask.repeat_interleave(heads, 0)
+
+
+def _v1_fwd_plain(q, k, v, bias, scale) -> torch.Tensor:
+    """The packed plain forward with one head on (B*H, N, 3*Dh)."""
+    return _fwd_plain(torch.cat([q, k, v], dim=-1), 1, bias, scale)
+
+
+def _v1_bwd_plain(q, k, v, g, bias, scale) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The packed plain backward with one head, split into (dq, dk, dv)."""
+    return _bwd_plain(torch.cat([q, k, v], dim=-1), g, 1, bias, scale).chunk(3, dim=-1)
+
+
+def _v1_scale(q: torch.Tensor, scale: float | None) -> float:
+    return q.shape[-1] ** -0.5 if scale is None else scale
+
+
+def flash_attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, key_mask: torch.Tensor | None = None, scale: float | None = None
+) -> torch.Tensor:
+    """Plain version of :func:`flash_attention`: (B, N, H, Dh) -> (B, N, H, Dh), the arithmetic
+    of :func:`flash_attention_qkv_reference`."""
+    h = q.shape[2]
+    out = _v1_fwd_plain(_collapse(q), _collapse(k), _collapse(v), _mask_bias(_v1_mask(key_mask, h)), _v1_scale(q, scale))
+    return _uncollapse(out, h)
+
+
+def flash_attention_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor, *,
+    key_mask: torch.Tensor | None = None, scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain backward of :func:`flash_attention` for the cotangent ``g`` (B, N, H, Dh): (dq, dk,
+    dv), each (B, N, H, Dh), as ``_bwd_kernel`` computes them (the arithmetic of
+    :func:`flash_attention_qkv_bwd_reference`)."""
+    h = q.shape[2]
+    bias = _mask_bias(_v1_mask(key_mask, h))
+    grads = _v1_bwd_plain(_collapse(q), _collapse(k), _collapse(v), _collapse(g), bias, _v1_scale(q, scale))
+    return tuple(_uncollapse(x, h) for x in grads)
+
+
+def flash_attention_tolerance(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ref: torch.Tensor, *,
+    key_mask: torch.Tensor | None = None, scale: float | None = None,
+) -> torch.Tensor:
+    """Elementwise bound on |kernel - plain| for :func:`flash_attention`: the bound of
+    :func:`flash_attention_qkv_tolerance` on the same numbers, packed with one head."""
+    h = q.shape[2]
+    qkv = torch.cat([_collapse(q), _collapse(k), _collapse(v)], dim=-1)
+    tol = flash_attention_qkv_tolerance(qkv, 1, _collapse(ref), key_mask=_v1_mask(key_mask, h), scale=_v1_scale(q, scale))
+    return _uncollapse(tol, h)
+
+
+def flash_attention_bwd_tolerance(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor, refs: tuple, *,
+    key_mask: torch.Tensor | None = None, scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Elementwise bounds on |kernel - plain| for (dq, dk, dv), given the plain ``refs``: the
+    bound of :func:`flash_attention_qkv_bwd_tolerance` on the same numbers, packed with one head."""
+    h = q.shape[2]
+    qkv = torch.cat([_collapse(q), _collapse(k), _collapse(v)], dim=-1)
+    ref = torch.cat([_collapse(r) for r in refs], dim=-1)
+    tol = flash_attention_qkv_bwd_tolerance(qkv, _collapse(g), 1, ref, key_mask=_v1_mask(key_mask, h), scale=_v1_scale(q, scale))
+    return tuple(_uncollapse(t, h) for t in tol.chunk(3, dim=-1))
+
+
+_V1_SIGNATURES = {
+    "m3l_flash_fwd_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_size_t),
+    "m3l_flash_fwd": (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+}
+_V1_BWD_SIGNATURES = {
+    "m3l_flash_bwd_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_size_t),
+    "m3l_flash_bwd": (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+}
+
+
+def _check_v1(q: torch.Tensor, *others: torch.Tensor) -> int:
+    """Checks both split-head kernels share, on q and the tensors of its shape; returns head_dim."""
+    bh, n, dh = q.shape
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"flash_attention: dtype {q.dtype} not supported (bfloat16 or float32)")
+    if dh % 8 or dh > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head_dim {dh} must be a multiple of 8 and at most {MAX_HEAD_DIM}")
+    for t in (q, *others):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash_attention: every operand must be {q.dtype} {tuple(q.shape)} on {q.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("flash_attention: operands must be contiguous and 16-byte aligned")
+    if bh > 65535:
+        raise ValueError(f"flash_attention: batch * heads {bh} must be at most 65535")
+    return dh
+
+
+def _launch_v1(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor | None, scale: float) -> torch.Tensor:
+    """The split-head forward kernel on (B*H, N, Dh) operands; ``bias`` is the contiguous f32
+    (B*H, N) key bias or None."""
+    bh, n, _ = q.shape
+    dh = _check_v1(q, k, v)
+    lib = load_library(V1_KERNEL, _V1_SIGNATURES)
+    _check_smem(lib.m3l_flash_fwd_smem_bytes(n, dh, q.element_size()), q, dh)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.m3l_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
+            bh, n, dh, float(scale), q.element_size(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {err}")
+    LAUNCHES[V1_KERNEL] += 1
+    return out
+
+
+def _launch_v1_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor, bias: torch.Tensor | None, scale: float
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The split-head backward kernel (both passes): (dq, dk, dv) for the cotangent ``g``."""
+    bh, n, _ = q.shape
+    g = g.contiguous()  # an expanded or strided cotangent is copied, not refused
+    dh = _check_v1(q, k, v, g)
+    lib = load_library(V1_BWD_KERNEL, _V1_BWD_SIGNATURES)
+    _check_smem(lib.m3l_flash_bwd_smem_bytes(n, dh, q.element_size()), q, dh)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    stats = torch.empty((bh, n, 3), dtype=torch.float32, device=q.device)  # row max, sum, D
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.m3l_flash_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(), g.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), bh, n, dh, float(scale), q.element_size(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward: kernel launch failed with CUDA error {err}")
+    LAUNCHES[V1_BWD_KERNEL] += 1
+    return dq, dk, dv
+
+
+class _FlashV1(torch.autograd.Function):
+    """Forward and backward of the split-head attention on collapsed (B*H, N, Dh) operands; saves
+    q, k, v and the key bias, as the TPU custom VJP ``_flash_fwd`` does. The bias gets no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.scale = scale
+        if q.device.type == "cuda":
+            return _launch_v1(q, k, v, bias, scale)
+        return _v1_fwd_plain(q, k, v, bias, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        if q.device.type == "cuda":
+            dq, dk, dv = _launch_v1_bwd(q, k, v, g, bias, ctx.scale)
+        else:
+            dq, dk, dv = _v1_bwd_plain(q, k, v, g, bias, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, key_mask: torch.Tensor | None = None, scale: float | None = None
+) -> torch.Tensor:
+    """Fused multi-head attention, (B, N, H, Dh) -> (B, N, H, Dh), differentiable with respect to
+    q, k and v. Each operand is split into heads in device memory (``transpose(1, 2)``, a copy)
+    before the kernel and the output merged after it, as the JAX v1 interface does."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"flash_attention: q, k, v must share one (B, N, H, Dh) shape, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    b, n, h, _ = q.shape
+    bias = None
+    if key_mask is not None:
+        if key_mask.shape != (b, n) or key_mask.dtype != torch.bool or key_mask.device != q.device:
+            raise ValueError(f"flash_attention: key_mask must be bool ({b}, {n}) on {q.device}")
+        bias = _key_bias(_v1_mask(key_mask, h)).contiguous()
+    out = _FlashV1.apply(_collapse(q), _collapse(k), _collapse(v), bias, float(_v1_scale(q, scale)))
+    return _uncollapse(out, h)

@@ -1,24 +1,37 @@
-"""PPO with interleaved MAE representation learning, joint mode (counterpart of
-``m3l_tpu/rl/ppo_mae.py`` ``PPOMAE``).
+"""PPO with interleaved MAE representation learning (counterpart of ``m3l_tpu/rl/ppo_mae.py``
+``PPOMAE``).
 
-Joint mode (the default): each minibatch takes one Adam step on grad(ppo_loss + mae_loss) with
-one global-norm clip, the policy features and the MAE loss sharing one token pipeline. The
-update phase is GAE, then ``n_epochs`` permutations of the buffer cut into minibatches; each
-minibatch indexes the device-resident rollout, packs it with ``vt_load``, runs the joint loss,
-backward (through the attention kernels on the card) and :class:`FlatAdam`. The JAX package
-fuses the phase into one jitted ``lax.scan``; here it is an eager loop.
+The update phase is GAE, then ``n_epochs`` permutations of the buffer cut into minibatches; each
+minibatch indexes the device-resident rollout and packs it with ``vt_load``. Three modes, as in
+the JAX package:
+
+* joint (the default): one Adam step on grad(ppo_loss + mae_loss) with one global-norm clip, the
+  policy features and the MAE loss sharing one token pipeline;
+* separate (``separate_optimizer=True`` with ``train_mae``): ``batch_size // mae_batch_size``
+  MAE chunk updates through their own Adam (``mae_lr``, eps 1e-8, no clip) over the MAE's
+  parameters, then the clipped PPO step over all parameters;
+* plain PPO (``train_mae=False``): the PPO step alone, ``mae_loss`` reported as 0.
+
+``target_kl`` gates the PPO steps: a minibatch whose ``approx_kl`` exceeds ``1.5 * target_kl``
+applies no PPO update, and no minibatch after it runs (the JAX scan masks them to no-ops; its
+MAE chunks of the stopping minibatch are applied, and so they are here). Metrics are averaged
+over the executed updates. The JAX package fuses the phase into one jitted ``lax.scan``; here it
+is an eager loop, and the gate reads ``approx_kl`` on the host once per minibatch.
 
 SB3 semantics kept: advantages normalized per minibatch with the ddof=1 std; unclipped actions
 stored; the truncated-episode value bootstrap applied to normalized rewards; rewards normalized
-by the running-return std. The separate-optimizer mode, ``target_kl`` early stopping and
-plain PPO without the MAE loss are not ported yet, and asking for them raises.
+by the running-return std.
 
 Random numbers (actions, permutations, masks) come from one ``torch.Generator`` on the device,
 seeded from ``seed``; they never match JAX's. :meth:`train_phase` takes the permutation and the
-masks as arguments, so a test can hand in its own.
+masks as arguments, so a test can hand in its own. Checkpoints (:meth:`save`, :meth:`load`) are
+torch state dicts, with the reward normalizer's state in a ``.vecnorm.pkl`` file beside them;
+loading puts every tensor on this model's device.
 """
 from __future__ import annotations
 
+import os
+import pickle
 import time
 from collections import deque
 
@@ -26,6 +39,7 @@ import numpy as np
 import torch
 
 from ..ops.masking import ModalMask
+from ..train.checkpoint import load_checkpoint, save_checkpoint
 from ..train.optim import FlatAdam
 from ..utils.device import resolve_device
 from ..utils.obs import vt_load
@@ -56,17 +70,16 @@ class PPOMAE:
         vf_coef: float = 0.5,
         max_grad_norm: float = 0.5,
         target_kl: float | None = None,
+        mae_batch_size: int = 32,
         separate_optimizer: bool = False,
+        train_mae: bool = True,
+        mae_lr: float = 1e-4,
         norm_reward: bool = True,
         frame_stack: int = 1,
         seed: int = 0,
         verbose: int = 0,
         device: str | torch.device | None = None,
     ):
-        if separate_optimizer:
-            raise NotImplementedError("PPOMAE: separate_optimizer=True is not ported yet (joint mode only)")
-        if target_kl is not None:
-            raise NotImplementedError("PPOMAE: target_kl early stopping is not ported yet")
         self.device = resolve_device(device)
         self.env = env
         self.n_envs = env.num_envs
@@ -79,6 +92,10 @@ class PPOMAE:
         self.normalize_advantage = normalize_advantage
         self.ent_coef = ent_coef
         self.vf_coef = vf_coef
+        self.target_kl = target_kl
+        self.mae_batch_size = mae_batch_size
+        self.separate_optimizer = separate_optimizer and train_mae
+        self.train_mae = train_mae
         self.frame_stack = frame_stack
         self.verbose = verbose
 
@@ -93,6 +110,8 @@ class PPOMAE:
 
         self.policy = policy.to(self.device)
         self.optimizer = FlatAdam(self.policy.parameters(), learning_rate, eps=1e-5, max_grad_norm=max_grad_norm)
+        # the reference's mae_optimizer: Adam over the MAE's parameters only, no clip
+        self.mae_optimizer = FlatAdam(self.policy.features.mae.parameters(), mae_lr) if self.separate_optimizer else None
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
         self.reward_normalizer = RewardNormalizer(self.n_envs, gamma=gamma, enabled=norm_reward)
@@ -134,16 +153,40 @@ class PPOMAE:
                        approx_kl=approx_kl, clip_fraction=clip_fraction, loss=total)
         return total, metrics
 
-    def minibatch_update(self, data: dict, idx: torch.Tensor, advantages: torch.Tensor, returns: torch.Tensor, mask: ModalMask) -> dict:
-        """One joint PPO+MAE Adam step on the samples ``idx`` of the device-resident rollout;
-        returns the step's metrics as detached device scalars."""
+    def _mae_chunk_updates(self, x: dict, masks: list[ModalMask]) -> torch.Tensor:
+        """Separate mode: one MAE Adam step per chunk of ``mae_batch_size`` samples of the packed
+        minibatch, chunk i with ``masks[i]``; returns the last chunk's loss."""
+        bs = self.mae_batch_size
+        for i, mask in enumerate(masks):
+            loss = self.policy.features.mae_loss({k: v[i * bs : (i + 1) * bs] for k, v in x.items()}, mask)
+            self.mae_optimizer.zero_grad()
+            loss.backward()
+            self.mae_optimizer.step()
+        return loss.detach()
+
+    def minibatch_update(self, data: dict, idx: torch.Tensor, advantages: torch.Tensor, returns: torch.Tensor, mask) -> dict | None:
+        """One update on the samples ``idx`` of the device-resident rollout. ``mask`` is the MAE
+        mask: one :class:`ModalMask` in joint mode, one per MAE chunk in separate mode, None for
+        plain PPO. Returns the step's metrics as detached device scalars, or None when the
+        ``target_kl`` gate stops it (then no PPO update is applied)."""
         x = vt_load({k: v[idx] for k, v in data["obs"].items()}, frame_stack=self.frame_stack)
-        values, log_prob, entropy, mae_loss = self.policy.evaluate_actions_packed_with_mae(x, data["actions"][idx], mask)
+        actions = data["actions"][idx]
+        joint = self.train_mae and not self.separate_optimizer
+        if self.separate_optimizer:
+            mae_loss = self._mae_chunk_updates(x, mask)
+        if joint:
+            values, log_prob, entropy, mae_loss = self.policy.evaluate_actions_packed_with_mae(x, actions, mask)
+        else:
+            values, log_prob, entropy = self.policy.evaluate_actions_packed(x, actions)
+        if not self.train_mae:
+            mae_loss = torch.zeros((), device=self.device)
         total, metrics = self._ppo_losses(
             values, log_prob, entropy, data["values"][idx], data["log_probs"][idx], advantages[idx], returns[idx]
         )
+        if self.target_kl is not None and not bool(metrics["approx_kl"] <= 1.5 * self.target_kl):
+            return None
         self.optimizer.zero_grad()
-        (total + mae_loss).backward()
+        (total + mae_loss if joint else total).backward()
         self.optimizer.step()
         metrics["mae_loss"] = mae_loss
         return {k: v.detach() for k, v in metrics.items()}
@@ -156,16 +199,24 @@ class PPOMAE:
         last_values: torch.Tensor,
         last_dones: torch.Tensor,
         idx: torch.Tensor,
-        masks: list[ModalMask],
+        masks: list,
     ) -> dict:
-        """GAE, then one update per row of ``idx`` (n_updates, batch) with the matching mask of
-        ``masks``. Returns the metrics averaged over the updates and the explained variance."""
+        """GAE, then one update per row of ``idx`` (n_updates, batch) with the matching entry of
+        ``masks`` (see :meth:`minibatch_update`), until the ``target_kl`` gate stops. Returns the
+        metrics averaged over the executed updates (0 if none ran), their count and the
+        explained variance."""
         t_len, e_len = rewards.shape
         adv, ret = compute_gae(rewards, data["values"].reshape(t_len, e_len), episode_starts, last_values, last_dones,
                                self.gamma, self.gae_lambda)
         advantages_all, returns_all = adv.reshape(-1), ret.reshape(-1)
-        steps = [self.minibatch_update(data, i, advantages_all, returns_all, m) for i, m in zip(idx, masks)]
-        out = {k: torch.stack([s[k] for s in steps]).mean() for k in METRICS}
+        steps = []
+        for i, m in zip(idx, masks):
+            metrics = self.minibatch_update(data, i, advantages_all, returns_all, m)
+            if metrics is None:
+                break
+            steps.append(metrics)
+        zero = torch.zeros((), device=self.device)
+        out = {k: torch.stack([s[k] for s in steps]).mean() if steps else zero for k in METRICS}
         out["n_updates_executed"] = torch.tensor(float(len(steps)))
         var_ret = returns_all.var(correction=0)
         out["explained_variance"] = torch.where(
@@ -173,15 +224,25 @@ class PPOMAE:
         )
         return {k: float(v) for k, v in out.items()}
 
-    def sample_updates(self, obs_keys) -> tuple[torch.Tensor, list[ModalMask]]:
+    def sample_updates(self, obs_keys) -> tuple[torch.Tensor, list]:
         """The update phase's randomness from the generator: one permutation of the buffer per
-        epoch, cut into minibatches, and one mask per minibatch."""
+        epoch, cut into minibatches, and each minibatch's MAE mask (one in joint mode, one per
+        chunk in separate mode, None for plain PPO)."""
         n = self.n_steps * self.n_envs
         perms = [torch.randperm(n, generator=self.generator, device=self.device) for _ in range(self.n_epochs)]
         idx = torch.stack(perms).reshape(self.n_epochs * self.n_minibatches, self.batch_size)
         mae = self.policy.features.mae
-        masks = [mae.sample_mask(self.generator, self.batch_size, use_vision="image" in obs_keys) for _ in range(len(idx))]
-        return idx, masks
+        use_vision = "image" in obs_keys
+
+        def draw(batch):
+            return mae.sample_mask(self.generator, batch, use_vision=use_vision)
+
+        if not self.train_mae:
+            return idx, [None] * len(idx)
+        if self.separate_optimizer:
+            chunks = max(self.batch_size // self.mae_batch_size, 1)
+            return idx, [[draw(self.mae_batch_size) for _ in range(chunks)] for _ in range(len(idx))]
+        return idx, [draw(self.batch_size) for _ in range(len(idx))]
 
     def train(self) -> dict:
         data = self.buffer.to_device(self.device)
@@ -268,3 +329,44 @@ class PPOMAE:
             else:
                 actions = self.policy.step(self._to_device(obs), self.generator)[0]
         return np.clip(actions.cpu().numpy(), self._action_low, self._action_high)
+
+    # ------------------------------------------------------------------ #
+    # checkpoints
+    # ------------------------------------------------------------------ #
+    def state_dict(self) -> dict:
+        return {
+            "policy": self.policy.state_dict(),
+            "policy_opt_state": self.optimizer.state_dict(),
+            "mae_opt_state": None if self.mae_optimizer is None else self.mae_optimizer.state_dict(),
+            "reward_normalizer": self.reward_normalizer.state_dict(),
+            "num_timesteps": self.num_timesteps,
+        }
+
+    def load_state_dict(self, d: dict) -> None:
+        """Restore a :meth:`state_dict` into this (architecture-compatible) model; parameters and
+        optimizer moments are copied onto this model's device."""
+        self.policy.load_state_dict(d["policy"])
+        self.optimizer.load_state_dict(d["policy_opt_state"])
+        if d.get("mae_opt_state") is not None and self.mae_optimizer is not None:
+            self.mae_optimizer.load_state_dict(d["mae_opt_state"])
+        if "reward_normalizer" in d:
+            self.reward_normalizer.load_state_dict(d["reward_normalizer"])
+        self.num_timesteps = int(d["num_timesteps"])
+
+    def save(self, path: str) -> None:
+        """Write the model, optimizer and normalizer state: ``path`` and ``path.vecnorm.pkl``
+        (SB3 ``model.save`` plus ``CheckpointCallback``'s ``save_vecnormalize``)."""
+        sd = self.state_dict()
+        normalizer = sd.pop("reward_normalizer")
+        save_checkpoint(path, sd)
+        with open(f"{path}.vecnorm.pkl", "wb") as f:
+            pickle.dump(normalizer, f)
+
+    def load(self, path: str) -> None:
+        """Restore a checkpoint written by :meth:`save` (or ``CheckpointCallback``), its tensors
+        mapped to this model's device."""
+        self.load_state_dict(load_checkpoint(path, map_location=self.device))
+        vn = f"{path}.vecnorm.pkl"
+        if os.path.isfile(vn):
+            with open(vn, "rb") as f:
+                self.reward_normalizer.load_state_dict(pickle.load(f))

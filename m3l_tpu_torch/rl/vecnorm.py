@@ -28,6 +28,12 @@ class RunningMeanStd:
         m2 = m_a + m_b + delta**2 * self.count * batch_count / tot
         self.mean, self.var, self.count = new_mean, m2 / tot, tot
 
+    def state_dict(self) -> dict:
+        return {"mean": self.mean.copy(), "var": self.var.copy(), "count": self.count}
+
+    def load_state_dict(self, d: dict) -> None:
+        self.mean, self.var, self.count = np.asarray(d["mean"]), np.asarray(d["var"]), float(d["count"])
+
 
 class RewardNormalizer:
     def __init__(self, num_envs: int, gamma: float = 0.99, clip_reward: float = 10.0, epsilon: float = 1e-8, enabled: bool = True):
@@ -46,3 +52,11 @@ class RewardNormalizer:
         out = np.clip(rewards / np.sqrt(self.ret_rms.var + self.epsilon), -self.clip_reward, self.clip_reward)
         self.returns[dones.astype(bool)] = 0.0
         return out.astype(np.float32)
+
+    def state_dict(self) -> dict:
+        return {"returns": self.returns.copy(), "ret_rms": self.ret_rms.state_dict(), "enabled": self.enabled}
+
+    def load_state_dict(self, d: dict) -> None:
+        self.returns = np.asarray(d["returns"])
+        self.ret_rms.load_state_dict(d["ret_rms"])
+        self.enabled = bool(d.get("enabled", True))

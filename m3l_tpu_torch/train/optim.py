@@ -66,3 +66,18 @@ class FlatAdam:
             p.add_(update[offset : offset + p.numel()].view_as(p))
             offset += p.numel()
 
+    def state_dict(self) -> dict:
+        """The step count and both flat moments (the JAX ``FlatAdamState``)."""
+        return {"count": self.count, "mu": self.mu, "nu": self.nu}
+
+    def load_state_dict(self, d: dict) -> None:
+        """Restore a :meth:`state_dict`; the moments land on the parameters' device, whatever
+        device they were saved from."""
+        dev = self.mu.device
+        for k in ("mu", "nu"):
+            if tuple(d[k].shape) != tuple(self.mu.shape):
+                raise ValueError(f"FlatAdam: saved {k} has {tuple(d[k].shape)} values, this optimizer {tuple(self.mu.shape)}")
+        self.count = int(d["count"])
+        self.mu = d["mu"].to(dev, torch.float32, copy=True)
+        self.nu = d["nu"].to(dev, torch.float32, copy=True)
+

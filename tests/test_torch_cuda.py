@@ -5,7 +5,9 @@ Tolerances: the elementwise bounds of ``flash_attention_qkv_tolerance`` and
 ``flash_attention_qkv_bwd_tolerance``, whose docstrings give the reasons. Forward: f32 abs
 1e-5; bf16 one ulp of the output plus one ulp of each probability times |v|. Backward: f32 abs
 2e-5; bf16 one ulp of dqkv plus the worst-case f32 summation-order term (N + Dh + 8) * eps32
-times the sums over |terms|.
+times the sums over |terms|. The split-head (v1) kernels are held to the same bounds
+(``flash_attention_tolerance``, ``flash_attention_bwd_tolerance``), and to the packed kernels'
+results on the same numbers, bit for bit: both pairs run one kernel body.
 """
 import pytest
 import torch
@@ -15,11 +17,18 @@ from m3l_tpu_torch.nn import flash_attention as fa
 from m3l_tpu_torch.nn.flash_attention import (
     BWD_KERNEL,
     KERNEL,
+    V1_BWD_KERNEL,
+    V1_KERNEL,
+    flash_attention,
+    flash_attention_bwd_reference,
+    flash_attention_bwd_tolerance,
     flash_attention_qkv,
     flash_attention_qkv_bwd_reference,
     flash_attention_qkv_bwd_tolerance,
     flash_attention_qkv_reference,
     flash_attention_qkv_tolerance,
+    flash_attention_reference,
+    flash_attention_tolerance,
 )
 
 pytestmark = pytest.mark.cuda
@@ -114,3 +123,48 @@ def test_kernel_refuses_inputs_it_does_not_take(card):
         fa._launch_bwd(qkv, torch.zeros(2, 10, 64, device=card, dtype=torch.bfloat16), 1, None, 0.125)
     with pytest.raises(ValueError, match="cotangent"):
         fa._launch_bwd(qkv, torch.zeros(2, 10, 32, device=card), 1, None, 0.125)
+
+
+def _split(qkv, h):
+    """Packed (B, N, 3*H*Dh) -> contiguous q, k, v (B, N, H, Dh)."""
+    b, n, thd = qkv.shape
+    return [t.contiguous() for t in qkv.view(b, n, 3, h, thd // (3 * h)).unbind(2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,h,dh", SHAPES + [(512, 192, 4, 64), (512, 10, 4, 64), (64, 196, 16, 64)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_v1_kernels_match_plain_and_the_packed_kernels(card, b, n, h, dh, dtype, masked):
+    """Forward and backward (through autograd) of the split-head kernels: within the plain
+    versions' bounds, and equal to the packed kernels on the same numbers."""
+    qkv, cot, mask = _inputs(card, b, n, h, dh, dtype, masked)
+    q, k, v = (t.requires_grad_(True) for t in _split(qkv, h))
+    g = cot.view(b, n, h, dh)
+    before = (LAUNCHES[V1_KERNEL], LAUNCHES[V1_BWD_KERNEL])
+    out = flash_attention(q, k, v, key_mask=mask)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    torch.cuda.synchronize()
+    assert (LAUNCHES[V1_KERNEL], LAUNCHES[V1_BWD_KERNEL]) == (before[0] + 1, before[1] + 1)
+    q, k, v = (t.detach() for t in (q, k, v))
+    ref = flash_attention_reference(q, k, v, key_mask=mask)
+    assert out.dtype == dtype and out.shape == (b, n, h, dh)
+    assert ((out.float() - ref.float()).abs() <= flash_attention_tolerance(q, k, v, ref, key_mask=mask)).all()
+    refs = flash_attention_bwd_reference(q, k, v, g, key_mask=mask)
+    for got, want, tol in zip(grads, refs, flash_attention_bwd_tolerance(q, k, v, g, refs, key_mask=mask)):
+        assert got.dtype == dtype and torch.isfinite(got).all() and ((got.float() - want.float()).abs() <= tol).all()
+    bias = None if mask is None else fa._key_bias(mask)
+    assert torch.equal(out.reshape(b, n, h * dh), flash_attention_qkv(qkv, h, key_mask=mask))
+    dqkv = fa._launch_bwd(qkv, cot, h, bias, dh**-0.5)
+    assert torch.equal(torch.cat([x.reshape(b, n, h * dh) for x in grads], dim=-1), dqkv)
+
+
+def test_v1_kernel_refuses_inputs_it_does_not_take(card):
+    x = torch.zeros(4, 10, 64, device=card)
+    with pytest.raises(TypeError):
+        fa._launch_v1(*(x.half() for _ in range(3)), None, 0.125)
+    with pytest.raises(ValueError, match="every operand"):
+        fa._launch_v1(x, x, x.bfloat16(), None, 0.125)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa._launch_v1(x, x, torch.zeros(4, 64, 10, device=card).transpose(1, 2), None, 0.125)
+    with pytest.raises(ValueError, match="every operand"):
+        fa._launch_v1_bwd(x, x, x, torch.zeros(4, 10, 32, device=card), None, 0.125)

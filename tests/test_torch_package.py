@@ -67,6 +67,18 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
     env = SyncVecEnv([make_env("FakeInsertion", 0)])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         PPOMAE(policy, env, n_steps=4, batch_size=4)
+    from m3l_tpu_torch import bench_attention
+    from m3l_tpu_torch.cli import train
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench_attention.make_inputs(2, 8, 64)
+    config = train.build_parser().parse_args([])
+    assert config.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.check_config(config)
+    from m3l_tpu_torch import compare_kernels
+
+    assert compare_kernels.main(["m3l_tpu_torch/csrc"]) == 2  # no card: usage, no comparison
 
 
 def test_wrapper_has_no_plain_fallback_off_the_cpu():

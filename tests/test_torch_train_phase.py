@@ -142,10 +142,14 @@ def test_learn_on_the_cpu_and_unported_options_raise():
     a = model.predict(obs)
     np.testing.assert_array_equal(a, model.predict(obs))
     assert a.shape == (N_ENVS, 3) and (np.abs(a) <= 1.0).all()
-    with pytest.raises(NotImplementedError, match="separate_optimizer"):
-        PPOMAE(port_policy(), port_env(), separate_optimizer=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="target_kl"):
-        PPOMAE(port_policy(), port_env(), target_kl=0.1, device="cpu")
+    # the options once refused are ported (tests/test_torch_ppo_modes.py checks them against JAX)
+    separate = PPOMAE(port_policy(), port_env(), separate_optimizer=True, target_kl=0.1, device="cpu")
+    mae_params = list(separate.policy.features.mae.parameters())
+    assert separate.separate_optimizer and len(separate.mae_optimizer.params) == len(mae_params)
+    assert all(a is b for a, b in zip(separate.mae_optimizer.params, mae_params))
+    assert separate.mae_optimizer.eps == 1e-8 and separate.mae_optimizer.max_grad_norm is None
+    plain = PPOMAE(port_policy(), port_env(), separate_optimizer=True, train_mae=False, device="cpu")
+    assert not plain.separate_optimizer and plain.mae_optimizer is None
 
 
 def test_train_f32_check_sees_a_dropped_key():
