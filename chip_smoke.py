@@ -11,7 +11,8 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    stated tolerance, at the serving and training shapes and a few more (the packed qkv pair and
    the split-head v1 pair, which share one kernel body); then each timed beside
    its plain version, its byte/FLOP bound and one PyTorch library call that computes the same
-   function (timed as a yardstick only; the port never calls it);
+   function (timed as a yardstick only; the port never calls it). Each backward case prints the
+   body that served it (bf16 on the tensor cores, f32 on the CUDA cores) and fails on another;
 4. the serving slice: the full-width PPO+MAE policy (dim 256, 4 encoder layers + 1 post layer,
    bf16 compute, random weights from a seed) serves 8 requests of batch 8 and one of batch 512
    through PolicyServer; every forward must launch the attention kernel 5 times, and the
@@ -42,7 +43,8 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    ``smoke_checkpoints/`` (gitignored) and removed at the end.
 
 Each phase after the kernel checks runs with the launch counts set to 0 just before it and read
-just after. The last lines are a {"kernels": [...]} JSON line, {"slice": ...}, {"train": ...},
+just after; phases 5-7 also fail unless every bf16 backward launch took the tensor-core body.
+The last lines are a {"kernels": [...]} JSON line, {"slice": ...}, {"train": ...},
 {"bench_attention": ...} and {"cli": ...} JSON lines, the card line as nvidia-smi prints it, and
 {"ok": true, "device": {...}}.
 """
@@ -64,7 +66,7 @@ import torch.nn.functional as F
 from m3l_tpu_torch import bench_attention
 from m3l_tpu_torch.cli import train as train_cli
 from m3l_tpu_torch.envs import SyncVecEnv, make_env
-from m3l_tpu_torch.kernels import LAUNCHES, reset_launches
+from m3l_tpu_torch.kernels import BWD_BODY_LAUNCHES, LAUNCHES, reset_launches
 from m3l_tpu_torch.kernels.build import build_all
 from m3l_tpu_torch.nn import flash_attention as fa
 from m3l_tpu_torch.nn.flash_attention import (
@@ -155,7 +157,7 @@ def packed_qkv(b, n, h, dh, dtype, masked, seed):
     return qkv, cot, mask
 
 
-def report(kind, b, n, h, dh, dtype, masked, out, ref, tol) -> float:
+def report(kind, b, n, h, dh, dtype, masked, out, ref, tol, body="") -> float:
     """Print one kernel-vs-plain case; fail if an element is outside its bound. Returns max err."""
     if out.shape != ref.shape or out.dtype != dtype or not torch.isfinite(out).all():
         fail(f"{kind} output malformed at {(b, n, h, dh, dtype)}")
@@ -165,7 +167,7 @@ def report(kind, b, n, h, dh, dtype, masked, out, ref, tol) -> float:
     ok = ratio <= 1.0
     print(f"  {kind} B={b} N={n} H={h} Dh={dh} {str(dtype)[6:]} mask={masked}: max_abs_err={err:.3e} "
           f"max|ref|={ref_max:.3e} rel_err={err / ref_max:.3e} tol in [{tol.min().item():.3e}, {tol.max().item():.3e}] "
-          f"max err/tol={ratio:.3f} {'ok' if ok else 'FAIL'}")
+          f"max err/tol={ratio:.3f}{' body=' + body if body else ''} {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"{kind} kernel disagrees with its plain version at {(b, n, h, dh, dtype, masked)}")
     return err
@@ -188,6 +190,7 @@ def check_attention() -> dict:
         cases = [(s, dt, m) for s in shapes for dt in (torch.bfloat16, torch.float32) for m in (False, True)]
         for i, ((b, n, h, dh), dtype, masked) in enumerate(cases):
             qkv, cot, mask = packed_qkv(b, n, h, dh, dtype, masked, seed=i)
+            bodies = Counter(BWD_BODY_LAUNCHES)
             if kind == "forward":
                 out = flash_attention_qkv(qkv, h, key_mask=mask)
                 ref = flash_attention_qkv_reference(qkv, h, key_mask=mask)
@@ -210,10 +213,23 @@ def check_attention() -> dict:
                 ref = torch.cat(refs, dim=-1)
                 tol = torch.cat(flash_attention_bwd_tolerance(q, k, v, g, refs, key_mask=mask), dim=-1)
             torch.cuda.synchronize()
-            err = report(kind, b, n, h, dh, dtype, masked, out, ref, tol)
+            body = ",".join((BWD_BODY_LAUNCHES - bodies).elements())
+            err = report(kind, b, n, h, dh, dtype, masked, out, ref, tol, body)
+            want = "" if "forward" in kind else "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+            if body != want:
+                fail(f"{kind} at {(b, n, h, dh, dtype, masked)} took the body {body!r}, expected {want!r}")
             if (b, n, h, dh, dtype, masked) == (SERVE_B, SERVE_N, SERVE_H, SERVE_DH, torch.bfloat16, False):
                 errs[kind] = err
     return errs
+
+
+def tensor_core_only(where: str) -> dict:
+    """The backward launches per body since the counts were last set to 0; fails unless every one
+    took the tensor-core body (every model path runs bf16 at shapes that fit it)."""
+    bodies = dict(BWD_BODY_LAUNCHES)
+    if bodies.get("cuda_core", 0) or bodies.get("tensor_core", 0) != LAUNCHES[BWD_KERNEL] + LAUNCHES[V1_BWD_KERNEL]:
+        fail(f"{where}: backward launches by body {bodies}, expected all {dict(LAUNCHES)} on the tensor cores")
+    return bodies
 
 
 def bound(nbytes: int, flops: int, dtype) -> dict:
@@ -399,6 +415,7 @@ def train_slice() -> dict:
     model.learn(total_timesteps=2 * TRAIN_STEPS * TRAIN_ENVS)
     torch.cuda.synchronize()
     launches = {k: LAUNCHES[k] for k in (KERNEL, BWD_KERNEL)}
+    learn_bodies = tensor_core_only("bf16 learn")
     if LAUNCHES[V1_KERNEL] or LAUNCHES[V1_BWD_KERNEL]:
         fail(f"training launched the split-head kernels: {dict(LAUNCHES)}")
     for i, counts in enumerate(per_train):
@@ -416,6 +433,7 @@ def train_slice() -> dict:
     idx = torch.arange(TRAIN_BATCH, device=model.device)
     gen = torch.Generator(device=model.device).manual_seed(3)
     masks = [model.policy.features.mae.sample_mask(gen, TRAIN_BATCH) for _ in range(TRAIN_TIMED_UPDATES + 1)]
+    reset_launches()
     model.minibatch_update(mb["data"], idx, mb["advantages"], mb["returns"], masks[0])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -423,10 +441,11 @@ def train_slice() -> dict:
         model.minibatch_update(mb["data"], idx, mb["advantages"], mb["returns"], m)
     torch.cuda.synchronize()
     update_s = (time.perf_counter() - t0) / TRAIN_TIMED_UPDATES
+    tensor_core_only("timed bf16 updates")
     return dict(
         f32_check=dict(errs, tol=TRAIN_F32_TOL, minibatch=CHECK_BATCH),
         iterations=[dict(collect_s=s["collect"], train_s=s["train"]) for s in model.iteration_seconds],
-        updates_per_train=updates, launches=launches, launches_per_train=per_train,
+        updates_per_train=updates, launches=launches, launches_per_train=per_train, bwd_bodies=learn_bodies,
         update_ms=update_s * 1e3, update_obs_frames_per_s=TRAIN_BATCH * FRAME_STACK / update_s,
         last_metrics=metrics, max_param_move=moved,
     )
@@ -450,11 +469,12 @@ def bench_phase() -> dict:
         reset_launches()
         ms, timed = bench_attention.time_variant(name, [p.clone() for p in params], x)
         path = {k: LAUNCHES[k] for k in ALL_KERNELS if LAUNCHES[k]}
+        bodies = tensor_core_only(f"bench {name}")
         want = {k: bench_attention.INNER for k in own[name]}
         if dict(timed) != want or path != {k: 2 * v for k, v in want.items()}:
             fail(f"{name} layer launched {dict(timed)} in its timed call and {path} in all, expected {want} per call")
         print(f"  {name + ' layer fwd+bwd':50s} {ms:8.3f} ms; launches per timed call {dict(timed)}")
-        out[name] = dict(ms=ms, launches_timed_call=dict(timed), launches=path)
+        out[name] = dict(ms=ms, launches_timed_call=dict(timed), launches=path, bwd_bodies=bodies)
     return out
 
 
@@ -494,6 +514,7 @@ def cli_phase() -> dict:
         want = {KERNEL: expect * u + 5, BWD_KERNEL: expect * u, V1_KERNEL: 0, V1_BWD_KERNEL: 0}
         if u != updates or len(per_train) != iterations or any(c != want for c in per_train):
             fail(f"{mode}: {len(per_train)} train() calls launched {per_train}, expected {iterations} of {want}")
+        bodies = tensor_core_only(f"cli {mode}")
         m = model.last_metrics
         before = entries[-1]["params"]
         moved = max((p.detach() - b).abs().max().item() for p, b in zip(model.policy.parameters(), before))
@@ -504,7 +525,7 @@ def cli_phase() -> dict:
         split = "; ".join(f"collect {i['collect_s']:.2f} s, train {i['train_s']:.2f} s" for i in its)
         print(f"  {mode}: {split}; main() {seconds:.1f} s; launches per train() {per_train[0]}")
         return model, dict(iterations=its, main_s=seconds, launches_per_train=list(per_train), updates_per_train=u,
-                           launches={k: LAUNCHES[k] for k in ALL_KERNELS}, last_metrics=m, max_param_move=moved)
+                           launches={k: LAUNCHES[k] for k in ALL_KERNELS}, bwd_bodies=bodies, last_metrics=m, max_param_move=moved)
 
     out = {}
     steps = TRAIN_STEPS * TRAIN_ENVS
@@ -611,6 +632,8 @@ def main() -> int:
     ]
     for k, name in zip(kernels, ("_fwd_qkv_kernel", "_bwd_qkv_kernel", "_fwd_kernel", "_bwd_kernel")):
         k["tpu_kernel"] = name
+    for k in kernels[1::2]:  # every bf16 backward launch of phases 3 and 5-7 took this body (checked)
+        k.update(body="tensor_core", body_source=src + "flash_attention_bwd_mma.cuh")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"slice": sl}))
     print(json.dumps({"train": tr}))

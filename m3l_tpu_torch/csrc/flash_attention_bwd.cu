@@ -8,28 +8,32 @@
 //   dV = A^T g;  dA = g V^T;  dS = (A o (dA - rowsum(dA o A))) * scale;  dQ = dS K;  dK = dS^T Q
 //   dq, dk, dv (B*H, N, Dh), each rounded once to the input type
 //
-// The two deterministic passes are `bwd_dq_kernel` and `bwd_dkv_kernel` in
-// flash_attention_kernels.cuh; this file gives them the split addressing "batch B*H, heads 1,
-// row stride Dh": grid (ceil(N / 32), 1, B*H) and an f32 (B*H, N, 3) scratch for (m, l, D).
-// Every result equals the packed backward's on the same numbers, bit for bit.
+// The bodies are the packed backward's, chosen by the same rule (bwd_body in
+// flash_attention_bwd_mma.cuh): bf16 on the tensor cores, one block per batch row B*H; f32 and
+// bf16 heads past that body's shared memory on the CUDA-core passes, grid (ceil(N / 32), 1, B*H)
+// with an f32 (B*H, N, 3) scratch for (m, l, D). This file gives them the split addressing
+// "batch B*H, heads 1, row stride Dh". Every result equals the packed backward's on the same
+// numbers, bit for bit.
 //
 // Bound on an H100 SXM: the same bytes and operations as the packed backward. At B*H = 2048,
 // N = 192, Dh = 64 in bf16 it reads q, k, v (151 MB) and g (50 MB) and writes dq, dk, dv
-// (151 MB): 0.105 ms by bytes, against 0.049 ms for its 48.3 GFLOP at the tensor-core rate.
-// This first version shares the packed backward's CUDA-core f32 design: it is right first.
+// (151 MB): 0.105 ms by bytes, against 0.049 ms for its 48.3 GFLOP at the tensor-core rate (the
+// tensor-core body does 116 GFLOP: 0.117 ms at the dense peak).
 
-#include "flash_attention_kernels.cuh"
+#include "flash_attention_bwd_mma.cuh"
 
 extern "C" {
 
-// Dynamic shared memory the larger of the two passes needs, in bytes.
-size_t m3l_flash_bwd_smem_bytes(int n, int dh, int elem_bytes) {
-  return (size_t)m3l::bwd_layout(n, dh, elem_bytes, true).words * 4;
-}
+// The body a launch at this shape takes: 1 the tensor-core body, 0 the CUDA-core passes.
+int m3l_flash_bwd_body(int n, int dh, int elem_bytes) { return m3l::bwd_body(n, dh, elem_bytes); }
 
-// Launches both passes on `stream`; returns cudaGetLastError() (0 on success). `bias` (bh, n)
-// may be null. `stats` is f32 scratch of bh * n * 3 values. The caller checks shapes: dh a
-// multiple of 8 and at most 128, contiguous 16-byte aligned q, k, v, g, dq, dk and dv.
+// Dynamic shared memory that body needs, in bytes.
+size_t m3l_flash_bwd_smem_bytes(int n, int dh, int elem_bytes) { return m3l::bwd_smem_bytes(n, dh, elem_bytes); }
+
+// Launches the backward on `stream`; returns cudaGetLastError() (0 on success). `bias` (bh, n)
+// may be null. `stats` is f32 scratch of bh * n * 3 values, which only the CUDA-core body reads
+// (it may be null when m3l_flash_bwd_body is 1). The caller checks shapes: dh a multiple of 8
+// and at most 128, contiguous 16-byte aligned q, k, v, g, dq, dk and dv.
 int m3l_flash_bwd(const void* q, const void* k, const void* v, const void* bias, const void* g, void* dq, void* dk,
                   void* dv, void* stats, int bh, int n, int dh, float scale, int elem_bytes, void* stream) {
   if (!m3l::valid_shape(bh, n, 1, dh, elem_bytes)) return (int)cudaErrorInvalidValue;

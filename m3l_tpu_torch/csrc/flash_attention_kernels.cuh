@@ -32,9 +32,11 @@
 //     dK_j = sum_i dS_ij q_i. Scores are summed over Dh in the same order in both passes (and
 //     scaled with one explicit fma), so pass 2 recomputes pass 1's A bit for bit.
 //
-// The source notes of the four .cu files give the bounds on the H100. These first versions
-// compute on the CUDA cores in f32: they are right first. Tensor cores (wgmma), TMA and a
-// one-pass backward with register accumulators are later work.
+// These two passes compute on the CUDA cores in f32. They are the backward of f32 inputs, bit
+// for bit as first ported, and of bf16 heads too large for the tensor-core body of
+// flash_attention_bwd_mma.cuh, which serves every other bf16 backward (the shape rule is its
+// bwd_body). The forward here is the only forward body. The source notes of the four .cu files
+// give the bounds on the H100.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -578,9 +580,9 @@ int launch_bwd_t(const BwdOperands& o, const float* bias, float* stats, int batc
   return (int)cudaGetLastError();
 }
 
-// Both passes on `stream`; returns cudaGetLastError() (0 on success). `bias` may be null;
-// `stats` is f32 scratch of batch * heads * n * 3 values.
-inline int launch_bwd(const BwdOperands& o, const void* bias, void* stats, int batch, int heads, int n, int dh,
+// Both CUDA-core passes on `stream`; returns cudaGetLastError() (0 on success). `bias` may be
+// null; `stats` is f32 scratch of batch * heads * n * 3 values.
+inline int launch_bwd_cuda_core(const BwdOperands& o, const void* bias, void* stats, int batch, int heads, int n, int dh,
                       float scale, int elem_bytes, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bi = static_cast<const float*>(bias);

@@ -8,36 +8,41 @@
 //   dV = A^T g;  dA = g V^T;  dS = (A o (dA - rowsum(dA o A))) * scale;  dQ = dS K;  dK = dS^T Q
 //   dqkv (B, N, 3*H*Dh) = [dq heads | dk heads | dv heads], each rounded once to the input type
 //
-// Every product and sum is in f32 (the forward rounds A to the input type before A.V; the
-// backward, like the TPU kernel, uses the unrounded A). The bias gets no gradient.
+// Every sum is in f32 (the forward rounds A to the input type before A.V; the backward, like the
+// TPU kernel, uses the unrounded A). The bias gets no gradient.
 //
-// The two deterministic passes (query tiles for dQ and the row statistics, key tiles for dK and
-// dV) are `bwd_dq_kernel` and `bwd_dkv_kernel` in flash_attention_kernels.cuh, shared with the
-// split-head backward (flash_attention_bwd.cu); this file gives them the packed addressing:
-// grid (ceil(N / 32), H, B), q, k, v and dq, dk, dv at their column offsets of the packed rows,
-// and an f32 (B, H, N, 3) scratch for (m, l, D) (4.7 MB at B = 512, N = 192, H = 4).
+// Two bodies, chosen by dtype and shape before launch (bwd_body, flash_attention_bwd_mma.cuh),
+// both shared with the split-head backward (flash_attention_bwd.cu); this file gives them the
+// packed addressing: q, k, v and dq, dk, dv at their column offsets of the packed rows.
+//   bf16: `bwd_mma_kernel`, one block per (head, batch row) on the tensor cores (mma.sync
+//     m16n8k16), the whole head staged once in shared memory, A and dS entering their products
+//     as two bf16 terms (hi + lo), no global scratch.
+//   f32, and bf16 heads past that body's shared memory (N > 384 at Dh = 64): the CUDA-core
+//     passes `bwd_dq_kernel` and `bwd_dkv_kernel` (flash_attention_kernels.cuh), grid
+//     (ceil(N / 32), H, B), with an f32 (B, H, N, 3) scratch for (m, l, D).
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense). At the training shape B = 512,
 // N = 192, H = 4, Dh = 64 in bf16 the function must read qkv (151.0 MB) and g (50.3 MB) and
 // write dqkv (151.0 MB): 352 MB, 0.105 ms. Its products are 10*B*H*N*N*Dh = 48.3 GFLOP, 0.049 ms
 // at the bf16 tensor-core rate, so the bytes bound it. At N = 10 (the MAE encoder on the kept
-// tokens) it moves 18.4 MB, 5.5 us. This first version recomputes S and dA in both passes
-// (14*B*H*N*N*Dh on the CUDA cores in f32, 67.6 GFLOP at N = 192, at least 1 ms at 67 TFLOP/s)
-// and reads its operands from shared memory once per product: it is right first. Tensor cores
-// (wgmma), TMA and one pass with register-resident accumulators are the later work.
+// tokens) it moves 18.4 MB, 5.5 us. The tensor-core body recomputes S and dA three times and
+// splits three products in two: 24*B*H*N*N*Dh = 116 GFLOP, 0.117 ms at the dense peak, so at
+// the rate mma.sync reaches it is bound by its operations, not by the bytes.
 
-#include "flash_attention_kernels.cuh"
+#include "flash_attention_bwd_mma.cuh"
 
 extern "C" {
 
-// Dynamic shared memory the larger of the two passes needs, in bytes.
-size_t m3l_flash_qkv_bwd_smem_bytes(int n, int dh, int elem_bytes) {
-  return (size_t)m3l::bwd_layout(n, dh, elem_bytes, true).words * 4;
-}
+// The body a launch at this shape takes: 1 the tensor-core body, 0 the CUDA-core passes.
+int m3l_flash_qkv_bwd_body(int n, int dh, int elem_bytes) { return m3l::bwd_body(n, dh, elem_bytes); }
 
-// Launches both passes on `stream`; returns cudaGetLastError() (0 on success). `bias` may be
-// null. `stats` is f32 scratch of b * heads * n * 3 values. The caller checks shapes: dh a
-// multiple of 8 and at most 128, contiguous 16-byte aligned qkv, g and dqkv.
+// Dynamic shared memory that body needs, in bytes.
+size_t m3l_flash_qkv_bwd_smem_bytes(int n, int dh, int elem_bytes) { return m3l::bwd_smem_bytes(n, dh, elem_bytes); }
+
+// Launches the backward on `stream`; returns cudaGetLastError() (0 on success). `bias` may be
+// null. `stats` is f32 scratch of b * heads * n * 3 values, which only the CUDA-core body reads
+// (it may be null when m3l_flash_qkv_bwd_body is 1). The caller checks shapes: dh a multiple of
+// 8 and at most 128, contiguous 16-byte aligned qkv, g and dqkv.
 int m3l_flash_qkv_bwd(const void* qkv, const void* bias, const void* g, void* dqkv, void* stats, int b, int n,
                       int heads, int dh, float scale, int elem_bytes, void* stream) {
   if (!m3l::valid_shape(b, n, heads, dh, elem_bytes)) return (int)cudaErrorInvalidValue;

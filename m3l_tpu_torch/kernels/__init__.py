@@ -1,14 +1,20 @@
 """Hand-written CUDA kernels: build and load (:mod:`.build`) and their launch counts.
 
 Each kernel wrapper adds one to ``LAUNCHES[<kernel name>]`` where it launches its kernel and
-nowhere else, so a run can show that its main path went through the kernels.
+nowhere else, so a run can show that its main path went through the kernels. The attention
+backward has two bodies (bf16 on the tensor cores, f32 and bf16 heads too large for that one on
+the CUDA cores); each backward launch of either interface also adds one to
+``BWD_BODY_LAUNCHES["tensor_core"]`` or ``BWD_BODY_LAUNCHES["cuda_core"]``, so a run can show
+which body served it.
 """
 from __future__ import annotations
 
 from collections import Counter
 
 LAUNCHES: Counter = Counter()
+BWD_BODY_LAUNCHES: Counter = Counter()
 
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    BWD_BODY_LAUNCHES.clear()

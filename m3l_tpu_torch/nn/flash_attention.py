@@ -9,7 +9,8 @@
   and ``_bwd_kernel`` behind ``_flash``; here ``csrc/flash_attention_fwd.cu`` and ``_bwd.cu``.
 
 Both pairs compute one function and share their kernel bodies
-(``csrc/flash_attention_kernels.cuh``), so the split-head interface is the packed one with batch
+(``csrc/flash_attention_kernels.cuh``; the bf16 backward's tensor-core body in
+``csrc/flash_attention_bwd_mma.cuh``), so the split-head interface is the packed one with batch
 B*H and one head: its plain versions are the packed ones on ``cat([q, k, v], -1)``, and so are its
 tolerances. Each interface routes through one ``torch.autograd.Function`` on every device: on a
 CUDA tensor it launches the kernels or raises; on a CPU tensor it runs the plain versions
@@ -22,7 +23,7 @@ import ctypes
 
 import torch
 
-from ..kernels import LAUNCHES
+from ..kernels import BWD_BODY_LAUNCHES, LAUNCHES
 from ..kernels.build import load_library
 
 KERNEL = "flash_attention_qkv_fwd"
@@ -30,6 +31,7 @@ BWD_KERNEL = "flash_attention_qkv_bwd"
 V1_KERNEL = "flash_attention_fwd"
 V1_BWD_KERNEL = "flash_attention_bwd"
 MAX_HEAD_DIM = 128
+BWD_BODIES = ("cuda_core", "tensor_core")  # indexed by the C entry points' *_bwd_body
 BWD_F32_TOL = 2e-5  # see flash_attention_qkv_bwd_tolerance
 
 
@@ -177,6 +179,7 @@ _SIGNATURES = {
     ),
 }
 _BWD_SIGNATURES = {
+    "m3l_flash_qkv_bwd_body": ([ctypes.c_int] * 3, ctypes.c_int),
     "m3l_flash_qkv_bwd_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_size_t),
     "m3l_flash_qkv_bwd": (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
@@ -227,8 +230,15 @@ def _launch(qkv: torch.Tensor, num_heads: int, bias: torch.Tensor | None, scale:
     return out
 
 
+def _bwd_stats(body: str, shape: tuple, device) -> torch.Tensor | None:
+    """The f32 (..., N, 3) scratch of row max, sum and D that only the CUDA-core body uses."""
+    return torch.empty(shape, dtype=torch.float32, device=device) if body == "cuda_core" else None
+
+
 def _launch_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, bias: torch.Tensor | None, scale: float) -> torch.Tensor:
-    """The backward kernel (both passes): packed dqkv for the cotangent ``g``."""
+    """The backward kernel: packed dqkv for the cotangent ``g``, by the body the C side's shape
+    rule picks (bf16 on the tensor cores where the head fits its shared memory, else the
+    CUDA-core passes)."""
     b, n, thd = qkv.shape
     dh = _check(qkv, num_heads)
     if g.shape != (b, n, thd // 3) or g.dtype != qkv.dtype or g.device != qkv.device:
@@ -237,18 +247,20 @@ def _launch_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, bias: torch.
     if g.data_ptr() % 16:
         raise ValueError("flash_attention_qkv backward: cotangent must be 16-byte aligned")
     lib = load_library(BWD_KERNEL, _BWD_SIGNATURES)
+    body = BWD_BODIES[lib.m3l_flash_qkv_bwd_body(n, dh, qkv.element_size())]
     _check_smem(lib.m3l_flash_qkv_bwd_smem_bytes(n, dh, qkv.element_size()), qkv, dh)
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty((b, num_heads, n, 3), dtype=torch.float32, device=qkv.device)  # row max, sum, D
+    stats = _bwd_stats(body, (b, num_heads, n, 3), qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.m3l_flash_qkv_bwd(
-            qkv.data_ptr(), None if bias is None else bias.data_ptr(), g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-            b, n, num_heads, dh, float(scale), qkv.element_size(), stream,
+            qkv.data_ptr(), None if bias is None else bias.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+            None if stats is None else stats.data_ptr(), b, n, num_heads, dh, float(scale), qkv.element_size(), stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_qkv backward: kernel launch failed with CUDA error {err}")
     LAUNCHES[BWD_KERNEL] += 1
+    BWD_BODY_LAUNCHES[body] += 1
     return dqkv
 
 
@@ -385,6 +397,7 @@ _V1_SIGNATURES = {
     ),
 }
 _V1_BWD_SIGNATURES = {
+    "m3l_flash_bwd_body": ([ctypes.c_int] * 3, ctypes.c_int),
     "m3l_flash_bwd_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_size_t),
     "m3l_flash_bwd": (
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
@@ -433,23 +446,27 @@ def _launch_v1(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Te
 def _launch_v1_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor, bias: torch.Tensor | None, scale: float
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The split-head backward kernel (both passes): (dq, dk, dv) for the cotangent ``g``."""
+    """The split-head backward kernel: (dq, dk, dv) for the cotangent ``g``, by the packed
+    backward's bodies and shape rule."""
     bh, n, _ = q.shape
     g = g.contiguous()  # an expanded or strided cotangent is copied, not refused
     dh = _check_v1(q, k, v, g)
     lib = load_library(V1_BWD_KERNEL, _V1_BWD_SIGNATURES)
+    body = BWD_BODIES[lib.m3l_flash_bwd_body(n, dh, q.element_size())]
     _check_smem(lib.m3l_flash_bwd_smem_bytes(n, dh, q.element_size()), q, dh)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    stats = torch.empty((bh, n, 3), dtype=torch.float32, device=q.device)  # row max, sum, D
+    stats = _bwd_stats(body, (bh, n, 3), q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.m3l_flash_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(), g.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), bh, n, dh, float(scale), q.element_size(), stream,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), None if stats is None else stats.data_ptr(),
+            bh, n, dh, float(scale), q.element_size(), stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention backward: kernel launch failed with CUDA error {err}")
     LAUNCHES[V1_BWD_KERNEL] += 1
+    BWD_BODY_LAUNCHES[body] += 1
     return dq, dk, dv
 
 

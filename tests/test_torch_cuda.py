@@ -7,12 +7,17 @@ Tolerances: the elementwise bounds of ``flash_attention_qkv_tolerance`` and
 2e-5; bf16 one ulp of dqkv plus the worst-case f32 summation-order term (N + Dh + 8) * eps32
 times the sums over |terms|. The split-head (v1) kernels are held to the same bounds
 (``flash_attention_tolerance``, ``flash_attention_bwd_tolerance``), and to the packed kernels'
-results on the same numbers, bit for bit: both pairs run one kernel body.
+results on the same numbers, bit for bit: both pairs run one kernel body. The bf16 backward runs
+on the tensor cores (A and dS split into two bf16 terms) wherever its head fits that body's
+shared memory, the f32 backward on the CUDA cores; ``BWD_BODY_LAUNCHES`` shows which body served
+a launch.
 """
+from collections import Counter
+
 import pytest
 import torch
 
-from m3l_tpu_torch.kernels import LAUNCHES
+from m3l_tpu_torch.kernels import BWD_BODY_LAUNCHES, LAUNCHES
 from m3l_tpu_torch.nn import flash_attention as fa
 from m3l_tpu_torch.nn.flash_attention import (
     BWD_KERNEL,
@@ -109,6 +114,60 @@ def test_gradient_through_autograd_function(card, dtype):
     ref = flash_attention_qkv_bwd_reference(qkv, ones, h)
     tol = flash_attention_qkv_bwd_tolerance(qkv, ones, h, ref)
     assert ((x.grad.float() - ref.float()).abs() <= tol).all()
+
+
+def _bwd_case(card, b, n, h, dh, dtype, mask):
+    """One packed backward launch against its plain version; returns the body that served it."""
+    qkv, cot, _ = _inputs(card, b, n, h, dh, dtype, False)
+    bodies = Counter(BWD_BODY_LAUNCHES)
+    out = fa._launch_bwd(qkv, cot, h, None if mask is None else fa._key_bias(mask), dh**-0.5)
+    torch.cuda.synchronize()
+    (body,) = (BWD_BODY_LAUNCHES - bodies).elements()
+    ref = flash_attention_qkv_bwd_reference(qkv, cot, h, key_mask=mask)
+    tol = flash_attention_qkv_bwd_tolerance(qkv, cot, h, ref, key_mask=mask)
+    assert out.dtype == dtype and torch.isfinite(out).all() and ((out.float() - ref.float()).abs() <= tol).all()
+    return body
+
+
+@pytest.mark.parametrize("dh", [8, 64, 128])
+@pytest.mark.parametrize("n", [1, 10, 33, 196])
+@pytest.mark.parametrize("masked", [False, True])
+def test_bf16_bwd_on_the_tensor_cores(card, n, dh, masked):
+    """Ragged N (padded to 16 with -inf keys) and head dims that are not a multiple of 16."""
+    mask = None
+    if masked:
+        mask = torch.rand(3, n, generator=torch.Generator(device=card).manual_seed(1), device=card) > 0.3
+        mask[:, 0] = True
+    assert _bwd_case(card, 3, n, 2, dh, torch.bfloat16, mask) == "tensor_core"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_with_a_fully_masked_row(card, dtype):
+    mask = torch.ones(3, 40, dtype=torch.bool, device=card)
+    mask[1] = False
+    mask[2, 20:] = False
+    body = _bwd_case(card, 3, 40, 2, 64, dtype, mask)
+    assert body == ("tensor_core" if dtype == torch.bfloat16 else "cuda_core")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_body_at_the_model_shapes(card, dtype):
+    """Every bf16 backward at the model shapes (N = 192 and the 10 kept tokens, H = 4, Dh = 64)
+    takes the tensor-core body, every f32 one the CUDA-core body, in both interfaces."""
+    want = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+    for n in (192, 10):
+        assert _bwd_case(card, 8, n, 4, 64, dtype, None) == want
+        x = torch.zeros(32, n, 64, device=card, dtype=dtype)
+        bodies = Counter(BWD_BODY_LAUNCHES)
+        fa._launch_v1_bwd(x, x, x, x, None, 0.125)
+        assert BWD_BODY_LAUNCHES - bodies == Counter({want: 1})
+
+
+@pytest.mark.parametrize("n,dh", [(240, 128), (400, 64)])
+def test_bf16_bwd_past_the_tensor_core_shared_memory_takes_the_cuda_core_body(card, n, dh):
+    """The shape rule: a bf16 head whose staged Q, K, V, g exceed the 227 KB a block can use
+    (N > 208 at Dh = 128, N > 384 at Dh = 64) goes to the CUDA-core passes, still within bound."""
+    assert _bwd_case(card, 2, n, 1, dh, torch.bfloat16, None) == "cuda_core"
 
 
 def test_kernel_refuses_inputs_it_does_not_take(card):
