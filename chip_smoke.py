@@ -9,10 +9,11 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
 2. build every CUDA source of m3l_tpu_torch/csrc (one nvcc each, all started together);
 3. each kernel against its plain PyTorch version on the card, element by element within its
    stated tolerance, at the serving and training shapes and a few more (the packed qkv pair and
-   the split-head v1 pair, which share one kernel body); then each timed beside
+   the split-head v1 pair, which share their kernel bodies); then each timed beside
    its plain version, its byte/FLOP bound and one PyTorch library call that computes the same
-   function (timed as a yardstick only; the port never calls it). Each backward case prints the
-   body that served it (bf16 on the tensor cores, f32 on the CUDA cores) and fails on another;
+   function (timed as a yardstick only; the port never calls it). Each case prints the body
+   that served it (bf16 on the tensor cores, f32 on the CUDA cores, forward and backward) and
+   fails on another;
 4. the serving slice: the full-width PPO+MAE policy (dim 256, 4 encoder layers + 1 post layer,
    bf16 compute, random weights from a seed) serves 8 requests of batch 8 and one of batch 512
    through PolicyServer; every forward must launch the attention kernel 5 times, and the
@@ -30,7 +31,7 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
 
 6. the attention-layer bench (``m3l_tpu_torch.bench_attention``) at its full shape B=512, N=192,
    D=256, H=4, bf16: the v1 and v2 layers must give the same loss and gradients, bit for bit
-   (one kernel body), and each timed call of 10 steps must launch only its own kernels, 10
+   (shared kernel bodies), and each timed call of 10 steps must launch only its own kernels, 10
    forward and 10 backward; the einsum layer none. Every variant is timed;
 7. the training CLI on the card at full width (``cli.train.main``, its defaults: dim 256, depth
    4, frame stack 4, bf16) on FakeInsertion with 8 envs in process workers (``--subproc True``),
@@ -43,7 +44,8 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    ``smoke_checkpoints/`` (gitignored) and removed at the end.
 
 Each phase after the kernel checks runs with the launch counts set to 0 just before it and read
-just after; phases 5-7 also fail unless every bf16 backward launch took the tensor-core body.
+just after; phases 4-7 also fail unless every bf16 forward launch, and in phases 5-7 every bf16
+backward launch, took the tensor-core body.
 The last lines are a {"kernels": [...]} JSON line, {"slice": ...}, {"train": ...},
 {"bench_attention": ...} and {"cli": ...} JSON lines, the card line as nvidia-smi prints it, and
 {"ok": true, "device": {...}}.
@@ -66,7 +68,7 @@ import torch.nn.functional as F
 from m3l_tpu_torch import bench_attention
 from m3l_tpu_torch.cli import train as train_cli
 from m3l_tpu_torch.envs import SyncVecEnv, make_env
-from m3l_tpu_torch.kernels import BWD_BODY_LAUNCHES, LAUNCHES, reset_launches
+from m3l_tpu_torch.kernels import BWD_BODY_LAUNCHES, FWD_BODY_LAUNCHES, LAUNCHES, reset_launches
 from m3l_tpu_torch.kernels.build import build_all
 from m3l_tpu_torch.nn import flash_attention as fa
 from m3l_tpu_torch.nn.flash_attention import (
@@ -190,7 +192,8 @@ def check_attention() -> dict:
         cases = [(s, dt, m) for s in shapes for dt in (torch.bfloat16, torch.float32) for m in (False, True)]
         for i, ((b, n, h, dh), dtype, masked) in enumerate(cases):
             qkv, cot, mask = packed_qkv(b, n, h, dh, dtype, masked, seed=i)
-            bodies = Counter(BWD_BODY_LAUNCHES)
+            counter = FWD_BODY_LAUNCHES if "forward" in kind else BWD_BODY_LAUNCHES
+            bodies = Counter(counter)
             if kind == "forward":
                 out = flash_attention_qkv(qkv, h, key_mask=mask)
                 ref = flash_attention_qkv_reference(qkv, h, key_mask=mask)
@@ -213,9 +216,9 @@ def check_attention() -> dict:
                 ref = torch.cat(refs, dim=-1)
                 tol = torch.cat(flash_attention_bwd_tolerance(q, k, v, g, refs, key_mask=mask), dim=-1)
             torch.cuda.synchronize()
-            body = ",".join((BWD_BODY_LAUNCHES - bodies).elements())
+            body = ",".join((counter - bodies).elements())
             err = report(kind, b, n, h, dh, dtype, masked, out, ref, tol, body)
-            want = "" if "forward" in kind else "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+            want = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
             if body != want:
                 fail(f"{kind} at {(b, n, h, dh, dtype, masked)} took the body {body!r}, expected {want!r}")
             if (b, n, h, dh, dtype, masked) == (SERVE_B, SERVE_N, SERVE_H, SERVE_DH, torch.bfloat16, False):
@@ -224,12 +227,14 @@ def check_attention() -> dict:
 
 
 def tensor_core_only(where: str) -> dict:
-    """The backward launches per body since the counts were last set to 0; fails unless every one
-    took the tensor-core body (every model path runs bf16 at shapes that fit it)."""
-    bodies = dict(BWD_BODY_LAUNCHES)
-    if bodies.get("cuda_core", 0) or bodies.get("tensor_core", 0) != LAUNCHES[BWD_KERNEL] + LAUNCHES[V1_BWD_KERNEL]:
-        fail(f"{where}: backward launches by body {bodies}, expected all {dict(LAUNCHES)} on the tensor cores")
-    return bodies
+    """The forward and backward launches per body since the counts were last set to 0; fails
+    unless every one took the tensor-core body (every model path runs bf16 at shapes that fit it)."""
+    out = {}
+    for name, counter, kernels in (("fwd", FWD_BODY_LAUNCHES, (KERNEL, V1_KERNEL)), ("bwd", BWD_BODY_LAUNCHES, (BWD_KERNEL, V1_BWD_KERNEL))):
+        bodies = out[name] = dict(counter)
+        if bodies.get("cuda_core", 0) or bodies.get("tensor_core", 0) != sum(LAUNCHES[k] for k in kernels):
+            fail(f"{where}: {name} launches by body {bodies}, expected all {dict(LAUNCHES)} on the tensor cores")
+    return out
 
 
 def bound(nbytes: int, flops: int, dtype) -> dict:
@@ -305,6 +310,7 @@ def serve_slice() -> dict:
     launches = LAUNCHES[KERNEL]
     if launches != 5 * forwards or any(LAUNCHES[k] for k in (BWD_KERNEL, V1_KERNEL, V1_BWD_KERNEL)):
         fail(f"serving launched the attention kernels {dict(LAUNCHES)} in {forwards} forwards, expected 5 forward launches per forward")
+    bodies = tensor_core_only("serving")
 
     if large_actions.shape != (512, ACTION_DIM) or not np.isfinite(large_actions).all():
         fail("batch-512 actions malformed")
@@ -336,7 +342,7 @@ def serve_slice() -> dict:
     return dict(
         batch8_latency_ms_p50=statistics.median(lat_ms), batch8_latency_ms=lat_ms,
         batch512_ms=t_large * 1e3, batch512_obs_frames_per_s=512 * FRAME_STACK / t_large,
-        forwards=forwards, attention_launches=launches, **errs, **scale,
+        forwards=forwards, attention_launches=launches, bodies=bodies, **errs, **scale,
     )
 
 
@@ -445,7 +451,7 @@ def train_slice() -> dict:
     return dict(
         f32_check=dict(errs, tol=TRAIN_F32_TOL, minibatch=CHECK_BATCH),
         iterations=[dict(collect_s=s["collect"], train_s=s["train"]) for s in model.iteration_seconds],
-        updates_per_train=updates, launches=launches, launches_per_train=per_train, bwd_bodies=learn_bodies,
+        updates_per_train=updates, launches=launches, launches_per_train=per_train, bodies=learn_bodies,
         update_ms=update_s * 1e3, update_obs_frames_per_s=TRAIN_BATCH * FRAME_STACK / update_s,
         last_metrics=metrics, max_param_move=moved,
     )
@@ -474,7 +480,7 @@ def bench_phase() -> dict:
         if dict(timed) != want or path != {k: 2 * v for k, v in want.items()}:
             fail(f"{name} layer launched {dict(timed)} in its timed call and {path} in all, expected {want} per call")
         print(f"  {name + ' layer fwd+bwd':50s} {ms:8.3f} ms; launches per timed call {dict(timed)}")
-        out[name] = dict(ms=ms, launches_timed_call=dict(timed), launches=path, bwd_bodies=bodies)
+        out[name] = dict(ms=ms, launches_timed_call=dict(timed), launches=path, bodies=bodies)
     return out
 
 
@@ -525,7 +531,7 @@ def cli_phase() -> dict:
         split = "; ".join(f"collect {i['collect_s']:.2f} s, train {i['train_s']:.2f} s" for i in its)
         print(f"  {mode}: {split}; main() {seconds:.1f} s; launches per train() {per_train[0]}")
         return model, dict(iterations=its, main_s=seconds, launches_per_train=list(per_train), updates_per_train=u,
-                           launches={k: LAUNCHES[k] for k in ALL_KERNELS}, bwd_bodies=bodies, last_metrics=m, max_param_move=moved)
+                           launches={k: LAUNCHES[k] for k in ALL_KERNELS}, bodies=bodies, last_metrics=m, max_param_move=moved)
 
     out = {}
     steps = TRAIN_STEPS * TRAIN_ENVS
@@ -630,10 +636,10 @@ def main() -> int:
         row(V1_KERNEL, src + "flash_attention_fwd.cu", ref + "40", "v1 forward", "bench_v1", errs["v1 forward"]),
         row(V1_BWD_KERNEL, src + "flash_attention_bwd.cu", ref + "55", "v1 backward", "bench_v1", errs["v1 backward"]),
     ]
+    # every bf16 launch of phases 3-7 took the tensor-core body of its direction (checked)
     for k, name in zip(kernels, ("_fwd_qkv_kernel", "_bwd_qkv_kernel", "_fwd_kernel", "_bwd_kernel")):
-        k["tpu_kernel"] = name
-    for k in kernels[1::2]:  # every bf16 backward launch of phases 3 and 5-7 took this body (checked)
-        k.update(body="tensor_core", body_source=src + "flash_attention_bwd_mma.cuh")
+        body_src = "flash_attention_fwd_mma.cuh" if "fwd" in name else "flash_attention_bwd_mma.cuh"
+        k.update(tpu_kernel=name, body="tensor_core", body_source=src + body_src)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"slice": sl}))
     print(json.dumps({"train": tr}))

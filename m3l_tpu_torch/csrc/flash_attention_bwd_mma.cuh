@@ -39,14 +39,13 @@
 // Dh = 64 this body holds N <= 384, at Dh = 128 N <= 208.
 #pragma once
 
-#include "flash_attention_kernels.cuh"
+#include "flash_attention_mma.cuh"
 
 namespace m3l {
 namespace {
 
 constexpr int kMmaWarps = 6;           // warps per block (fewer when N < 96): N = 192 is 12 strips
 constexpr int kSplitTerms = 2;         // bf16 terms of A and dS in their products
-constexpr size_t kSmemOptin = 232448;  // sm_90: the most dynamic shared memory of one block
 
 // Shared memory of the tensor-core body in bytes: four bf16 tables (Q, K, V, g) of np rows of
 // ld values (np = N rounded up to 16, ld = Dh rounded up to 16, plus 8), the key bias (np f32)
@@ -56,8 +55,6 @@ inline size_t mma_smem_bytes(int n, int dh) {
   return 8 * np * ld + 20 * np;
 }
 
-enum BwdBody { kCudaCore = 0, kTensorCore = 1 };
-
 inline int bwd_body(int n, int dh, int elem_bytes) {
   return elem_bytes == 2 && mma_smem_bytes(n, dh) <= kSmemOptin ? kTensorCore : kCudaCore;
 }
@@ -66,63 +63,6 @@ inline int bwd_body(int n, int dh, int elem_bytes) {
 inline size_t bwd_smem_bytes(int n, int dh, int elem_bytes) {
   if (bwd_body(n, dh, elem_bytes) == kTensorCore) return mma_smem_bytes(n, dh);
   return (size_t)bwd_layout(n, dh, elem_bytes, true).words * 4;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
-
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of row l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// The same, each matrix transposed.
-__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// d += a b for a 16x16 bf16 A tile (row major) and a 16x8 B tile (column major), f32 d.
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// f32 accumulator tiles c[t] (rows x keys j0 + 8t .. + 7, m16n8 layout) -> the A operand of the
-// next product over those 16 keys, as kSplitTerms bf16 terms: a[0] = bf16(c), a[1] = bf16(c - a[0]).
-__device__ __forceinline__ void split_a(float (&c)[2][4], uint32_t (&a)[kSplitTerms][4]) {
-#pragma unroll
-  for (int s = 0; s < kSplitTerms; ++s) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {  // a[s][r]: tile r / 2, accumulator pair 2 * (r % 2)
-      float& x0 = c[r / 2][2 * (r % 2)];
-      float& x1 = c[r / 2][2 * (r % 2) + 1];
-      const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-      a[s][r] = *reinterpret_cast<const uint32_t*>(&h);
-      x0 -= __low2float(h);  // exact: x and its bf16 rounding share the leading bits
-      x1 -= __high2float(h);
-    }
-  }
 }
 
 // x[t] = A_strip (16 x DHP, fragments xa) times rows r0 .. r0 + 15 of the table xs, transposed,
@@ -145,39 +85,6 @@ __device__ __forceinline__ void two_products(const uint32_t (&xa)[KD][4], const 
     mma16816(x[1], xa[kk], bx[2], bx[3]);
     mma16816(y[0], ya[kk], by[0], by[1]);
     mma16816(y[1], ya[kk], by[2], by[3]);
-  }
-}
-
-// acc (16 x DHP) += a (16 x 16, kSplitTerms terms) times rows r0 .. r0 + 15 of the table ts
-// (16 x DHP, through ldmatrix.trans); `toff` is this lane's offset.
-template <int KD>
-__device__ __forceinline__ void accumulate(float (&acc)[2 * KD][4], const uint32_t (&a)[kSplitTerms][4],
-                                           const __nv_bfloat16* ts, int toff) {
-#pragma unroll
-  for (int c = 0; c < KD; ++c) {
-    uint32_t b[4];
-    ldsm4_t(b, ts + toff + c * 16);
-#pragma unroll
-    for (int s = 0; s < kSplitTerms; ++s) {
-      mma16816(acc[2 * c], a[s], b[0], b[1]);
-      mma16816(acc[2 * c + 1], a[s], b[2], b[3]);
-    }
-  }
-}
-
-// Write rows r0 + lane / 4 and r0 + lane / 4 + 8 of a 16 x DHP accumulator, rows < n and
-// columns < dh only, rounded to bf16.
-template <int KD>
-__device__ __forceinline__ void store_strip(const Out& out, int b, int h, const float (&acc)[2 * KD][4], int r0, int n,
-                                            int dh, int lane) {
-  uint32_t* base = out.at(b, h);
-  const int r = r0 + lane / 4;
-#pragma unroll
-  for (int t = 0; t < 2 * KD; ++t) {
-    if (t * 8 >= dh) break;
-    const int w = t * 4 + lane % 4;
-    if (r < n) base[(size_t)r * out.row + w] = bf16x2(acc[t][0], acc[t][1]);
-    if (r + 8 < n) base[(size_t)(r + 8) * out.row + w] = bf16x2(acc[t][2], acc[t][3]);
   }
 }
 
@@ -340,10 +247,7 @@ template <int KD>
 int launch_bwd_mma_t(const BwdOperands& o, const float* bias, int batch, int heads, int n, int dh, float scale,
                      cudaStream_t stream) {
   const size_t smem = mma_smem_bytes(n, dh);
-  int err = allow_smem(bwd_mma_kernel<KD>, smem);
-  if (err) return err;
-  err = (int)cudaFuncSetAttribute(bwd_mma_kernel<KD>, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                  (int)cudaSharedmemCarveoutMaxShared);
+  const int err = allow_mma_smem(bwd_mma_kernel<KD>, smem);
   if (err) return err;
   const int strips = (n + 15) / 16, warps = strips < kMmaWarps ? strips : kMmaWarps;
   bwd_mma_kernel<KD><<<dim3(heads, batch), warps * 32, smem, stream>>>(o, bias, n, dh, scale);

@@ -32,11 +32,12 @@
 //     dK_j = sum_i dS_ij q_i. Scores are summed over Dh in the same order in both passes (and
 //     scaled with one explicit fma), so pass 2 recomputes pass 1's A bit for bit.
 //
-// These two passes compute on the CUDA cores in f32. They are the backward of f32 inputs, bit
-// for bit as first ported, and of bf16 heads too large for the tensor-core body of
+// These bodies compute on the CUDA cores in f32. The forward is the body of f32 inputs, bit for
+// bit as first ported; every bf16 forward runs the tensor-core body of flash_attention_fwd_mma.cuh
+// (the rule is its fwd_body). The two backward passes are the backward of f32 inputs, bit for
+// bit as first ported, and of bf16 heads too large for the tensor-core body of
 // flash_attention_bwd_mma.cuh, which serves every other bf16 backward (the shape rule is its
-// bwd_body). The forward here is the only forward body. The source notes of the four .cu files
-// give the bounds on the H100.
+// bwd_body). The source notes of the four .cu files give the bounds on the H100.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -244,15 +245,6 @@ int launch_fwd_t(In q, In k, In v, const float* bias, Out out, int batch, int he
   const dim3 grid((n + kTile - 1) / kTile, heads, batch);
   fwd_kernel<T><<<grid, kWarps * 32, smem, stream>>>(q, k, v, bias, out, n, dh, scale);
   return (int)cudaGetLastError();
-}
-
-// The forward on `stream`; returns cudaGetLastError() (0 on success). `bias` may be null.
-inline int launch_fwd(In q, In k, In v, const void* bias, Out out, int batch, int heads, int n, int dh, float scale,
-                      int elem_bytes, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* bi = static_cast<const float*>(bias);
-  if (elem_bytes == 2) return launch_fwd_t<__nv_bfloat16>(q, k, v, bi, out, batch, heads, n, dh, scale, s);
-  return launch_fwd_t<float>(q, k, v, bi, out, batch, heads, n, dh, scale, s);
 }
 
 // ---------------------------------------------------------------------------------------------

@@ -9,28 +9,35 @@
 //   O_h = round_to_input_type(A) V_h       products summed in f32
 //   out (B, N, H*Dh), head h written at column offset h*Dh, rounded to the input type
 //
-// The kernel body is `fwd_kernel` in flash_attention_kernels.cuh, shared with the split-head
-// forward (flash_attention_fwd.cu); this file gives it the packed addressing: grid
-// (ceil(N / 32), H, B), each block staging K and V of one (b, h) straight from the packed rows
-// (no head-split transpose through device memory).
+// Two bodies, chosen by dtype before launch (fwd_body, flash_attention_fwd_mma.cuh), both shared
+// with the split-head forward (flash_attention_fwd.cu); this file gives them the packed
+// addressing: q, k and v read straight from their column offsets of the packed rows (no
+// head-split transpose through device memory), the output written at its head's offset.
+//   bf16: `fwd_mma_kernel`, grid (ceil(N / 64), H, B) of up to 4 warps, each warp a 16-query
+//     strip on the tensor cores (mma.sync m16n8k16), K and V of (b, h) staged in shared memory,
+//     one pass over the keys with an online softmax; the scores never leave registers.
+//   f32: `fwd_kernel` (flash_attention_kernels.cuh), grid (ceil(N / 32), H, B), scores, softmax
+//     and A.V on the CUDA cores.
 //
-// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense). At the serving shape B = 512,
-// N = 192, H = 4, Dh = 64 in bf16 the kernel must read qkv once (512*192*768*2 B = 151 MB) and
-// write the output once (512*192*256*2 B = 50 MB): 201 MB, 60 us at 3.35 TB/s. QK^T and AV are
-// 4*B*H*N*N*Dh = 19.3 GFLOP, 20 us at the bf16 tensor-core rate. So the bound is the bytes,
-// about 60 us. This first version computes on the CUDA cores in f32 (67 TFLOP/s), where the
-// same 19.3 GFLOP take at least 0.29 ms, and its shared-memory reads limit it further: it is
-// right first. Tensor cores (wgmma), TMA and a ring of tiles are the later work that brings it
-// towards the byte bound.
+// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense). At the serving and training shape
+// B = 512, N = 192, H = 4, Dh = 64 in bf16 the kernel must read qkv once (512*192*768*2 B =
+// 151 MB) and write the output once (512*192*256*2 B = 50 MB): 201 MB, 60 us at 3.35 TB/s. QK^T
+// and AV are 4*B*H*N*N*Dh = 19.3 GFLOP, 20 us at the bf16 tensor-core rate. So the bound is the
+// bytes, about 60 us. The CUDA-core body needs at least 0.29 ms for the same FLOP at f32's
+// 67 TFLOP/s and measured 2.1 ms, held back by its score tile in shared memory; the tensor-core
+// body does the products at the bf16 rate and keeps the scores in registers, so what is left is
+// the bytes, the N^2 exp a head and the staging of K and V (once per block of 64 queries, from
+// L2 after the first block of a head).
 
-#include "flash_attention_kernels.cuh"
+#include "flash_attention_fwd_mma.cuh"
 
 extern "C" {
 
-// Dynamic shared memory one block needs, in bytes.
-size_t m3l_flash_qkv_fwd_smem_bytes(int n, int dh, int elem_bytes) {
-  return (size_t)m3l::fwd_layout(n, dh, elem_bytes).words * 4;
-}
+// The body a launch at this shape takes: 1 the tensor-core body, 0 the CUDA-core body.
+int m3l_flash_qkv_fwd_body(int n, int dh, int elem_bytes) { return m3l::fwd_body(elem_bytes); }
+
+// Dynamic shared memory that body needs, in bytes.
+size_t m3l_flash_qkv_fwd_smem_bytes(int n, int dh, int elem_bytes) { return m3l::fwd_smem_bytes(n, dh, elem_bytes); }
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success). `bias` may be null.
 // The caller checks shapes: dh a multiple of 8 and at most 128, 16-byte aligned contiguous rows.

@@ -2,19 +2,21 @@
 
 Each kernel wrapper adds one to ``LAUNCHES[<kernel name>]`` where it launches its kernel and
 nowhere else, so a run can show that its main path went through the kernels. The attention
-backward has two bodies (bf16 on the tensor cores, f32 and bf16 heads too large for that one on
-the CUDA cores); each backward launch of either interface also adds one to
-``BWD_BODY_LAUNCHES["tensor_core"]`` or ``BWD_BODY_LAUNCHES["cuda_core"]``, so a run can show
-which body served it.
+forward and backward each have two bodies: bf16 on the tensor cores; f32 (and, in the backward,
+bf16 heads too large for that body) on the CUDA cores. Each forward launch of either interface
+also adds one to ``FWD_BODY_LAUNCHES["tensor_core"]`` or ``FWD_BODY_LAUNCHES["cuda_core"]``, and
+each backward launch to ``BWD_BODY_LAUNCHES``, so a run can show which body served it.
 """
 from __future__ import annotations
 
 from collections import Counter
 
 LAUNCHES: Counter = Counter()
+FWD_BODY_LAUNCHES: Counter = Counter()
 BWD_BODY_LAUNCHES: Counter = Counter()
 
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    FWD_BODY_LAUNCHES.clear()
     BWD_BODY_LAUNCHES.clear()

@@ -8,9 +8,10 @@
   into heads through device memory as JAX's ``collapse`` does; the Pallas kernels ``_fwd_kernel``
   and ``_bwd_kernel`` behind ``_flash``; here ``csrc/flash_attention_fwd.cu`` and ``_bwd.cu``.
 
-Both pairs compute one function and share their kernel bodies
-(``csrc/flash_attention_kernels.cuh``; the bf16 backward's tensor-core body in
-``csrc/flash_attention_bwd_mma.cuh``), so the split-head interface is the packed one with batch
+Both pairs compute one function and share their kernel bodies (bf16 on the tensor cores:
+``csrc/flash_attention_fwd_mma.cuh`` and ``csrc/flash_attention_bwd_mma.cuh``; f32, and bf16
+heads past the tensor-core backward's shared memory, on the CUDA cores:
+``csrc/flash_attention_kernels.cuh``), so the split-head interface is the packed one with batch
 B*H and one head: its plain versions are the packed ones on ``cat([q, k, v], -1)``, and so are its
 tolerances. Each interface routes through one ``torch.autograd.Function`` on every device: on a
 CUDA tensor it launches the kernels or raises; on a CPU tensor it runs the plain versions
@@ -23,7 +24,7 @@ import ctypes
 
 import torch
 
-from ..kernels import BWD_BODY_LAUNCHES, LAUNCHES
+from ..kernels import BWD_BODY_LAUNCHES, FWD_BODY_LAUNCHES, LAUNCHES
 from ..kernels.build import load_library
 
 KERNEL = "flash_attention_qkv_fwd"
@@ -31,7 +32,7 @@ BWD_KERNEL = "flash_attention_qkv_bwd"
 V1_KERNEL = "flash_attention_fwd"
 V1_BWD_KERNEL = "flash_attention_bwd"
 MAX_HEAD_DIM = 128
-BWD_BODIES = ("cuda_core", "tensor_core")  # indexed by the C entry points' *_bwd_body
+BODIES = ("cuda_core", "tensor_core")  # indexed by the C entry points' *_fwd_body and *_bwd_body
 BWD_F32_TOL = 2e-5  # see flash_attention_qkv_bwd_tolerance
 
 
@@ -172,6 +173,7 @@ def _ulp(ref: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 _SIGNATURES = {
+    "m3l_flash_qkv_fwd_body": ([ctypes.c_int] * 3, ctypes.c_int),
     "m3l_flash_qkv_fwd_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_size_t),
     "m3l_flash_qkv_fwd": (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
@@ -212,10 +214,12 @@ def _check_smem(smem: int, qkv: torch.Tensor, dh: int) -> None:
 
 
 def _launch(qkv: torch.Tensor, num_heads: int, bias: torch.Tensor | None, scale: float) -> torch.Tensor:
-    """The forward kernel on ``qkv``; ``bias`` is the contiguous f32 (B, N) key bias or None."""
+    """The forward kernel on ``qkv``, by the body the C side's rule picks (bf16 on the tensor
+    cores, f32 on the CUDA cores); ``bias`` is the contiguous f32 (B, N) key bias or None."""
     b, n, thd = qkv.shape
     dh = _check(qkv, num_heads)
     lib = load_library(KERNEL, _SIGNATURES)
+    body = BODIES[lib.m3l_flash_qkv_fwd_body(n, dh, qkv.element_size())]
     _check_smem(lib.m3l_flash_qkv_fwd_smem_bytes(n, dh, qkv.element_size()), qkv, dh)
     out = torch.empty((b, n, thd // 3), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
@@ -227,6 +231,7 @@ def _launch(qkv: torch.Tensor, num_heads: int, bias: torch.Tensor | None, scale:
     if err != 0:
         raise RuntimeError(f"flash_attention_qkv: kernel launch failed with CUDA error {err}")
     LAUNCHES[KERNEL] += 1
+    FWD_BODY_LAUNCHES[body] += 1
     return out
 
 
@@ -247,7 +252,7 @@ def _launch_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, bias: torch.
     if g.data_ptr() % 16:
         raise ValueError("flash_attention_qkv backward: cotangent must be 16-byte aligned")
     lib = load_library(BWD_KERNEL, _BWD_SIGNATURES)
-    body = BWD_BODIES[lib.m3l_flash_qkv_bwd_body(n, dh, qkv.element_size())]
+    body = BODIES[lib.m3l_flash_qkv_bwd_body(n, dh, qkv.element_size())]
     _check_smem(lib.m3l_flash_qkv_bwd_smem_bytes(n, dh, qkv.element_size()), qkv, dh)
     dqkv = torch.empty_like(qkv)
     stats = _bwd_stats(body, (b, num_heads, n, 3), qkv.device)
@@ -390,6 +395,7 @@ def flash_attention_bwd_tolerance(
 
 
 _V1_SIGNATURES = {
+    "m3l_flash_fwd_body": ([ctypes.c_int] * 3, ctypes.c_int),
     "m3l_flash_fwd_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_size_t),
     "m3l_flash_fwd": (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
@@ -424,11 +430,12 @@ def _check_v1(q: torch.Tensor, *others: torch.Tensor) -> int:
 
 
 def _launch_v1(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor | None, scale: float) -> torch.Tensor:
-    """The split-head forward kernel on (B*H, N, Dh) operands; ``bias`` is the contiguous f32
-    (B*H, N) key bias or None."""
+    """The split-head forward kernel on (B*H, N, Dh) operands, by the packed forward's bodies
+    and rule; ``bias`` is the contiguous f32 (B*H, N) key bias or None."""
     bh, n, _ = q.shape
     dh = _check_v1(q, k, v)
     lib = load_library(V1_KERNEL, _V1_SIGNATURES)
+    body = BODIES[lib.m3l_flash_fwd_body(n, dh, q.element_size())]
     _check_smem(lib.m3l_flash_fwd_smem_bytes(n, dh, q.element_size()), q, dh)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -440,6 +447,7 @@ def _launch_v1(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Te
     if err != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {err}")
     LAUNCHES[V1_KERNEL] += 1
+    FWD_BODY_LAUNCHES[body] += 1
     return out
 
 
@@ -452,7 +460,7 @@ def _launch_v1_bwd(
     g = g.contiguous()  # an expanded or strided cotangent is copied, not refused
     dh = _check_v1(q, k, v, g)
     lib = load_library(V1_BWD_KERNEL, _V1_BWD_SIGNATURES)
-    body = BWD_BODIES[lib.m3l_flash_bwd_body(n, dh, q.element_size())]
+    body = BODIES[lib.m3l_flash_bwd_body(n, dh, q.element_size())]
     _check_smem(lib.m3l_flash_bwd_smem_bytes(n, dh, q.element_size()), q, dh)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     stats = _bwd_stats(body, (bh, n, 3), q.device)

@@ -7,17 +7,18 @@ Tolerances: the elementwise bounds of ``flash_attention_qkv_tolerance`` and
 2e-5; bf16 one ulp of dqkv plus the worst-case f32 summation-order term (N + Dh + 8) * eps32
 times the sums over |terms|. The split-head (v1) kernels are held to the same bounds
 (``flash_attention_tolerance``, ``flash_attention_bwd_tolerance``), and to the packed kernels'
-results on the same numbers, bit for bit: both pairs run one kernel body. The bf16 backward runs
-on the tensor cores (A and dS split into two bf16 terms) wherever its head fits that body's
-shared memory, the f32 backward on the CUDA cores; ``BWD_BODY_LAUNCHES`` shows which body served
-a launch.
+results on the same numbers, bit for bit: both pairs run the same kernel bodies. The bf16
+forward runs on the tensor cores (one pass, the unnormalised probabilities rounded to bf16),
+the f32 forward on the CUDA cores; the bf16 backward runs on the tensor cores (A and dS split
+into two bf16 terms) wherever its head fits that body's shared memory, the f32 backward on the
+CUDA cores. ``FWD_BODY_LAUNCHES`` and ``BWD_BODY_LAUNCHES`` show which body served a launch.
 """
 from collections import Counter
 
 import pytest
 import torch
 
-from m3l_tpu_torch.kernels import BWD_BODY_LAUNCHES, LAUNCHES
+from m3l_tpu_torch.kernels import BWD_BODY_LAUNCHES, FWD_BODY_LAUNCHES, LAUNCHES
 from m3l_tpu_torch.nn import flash_attention as fa
 from m3l_tpu_torch.nn.flash_attention import (
     BWD_KERNEL,
@@ -114,6 +115,61 @@ def test_gradient_through_autograd_function(card, dtype):
     ref = flash_attention_qkv_bwd_reference(qkv, ones, h)
     tol = flash_attention_qkv_bwd_tolerance(qkv, ones, h, ref)
     assert ((x.grad.float() - ref.float()).abs() <= tol).all()
+
+
+def _fwd_case(card, b, n, h, dh, dtype, mask):
+    """One forward launch of each interface against the plain version; the two equal bit for bit.
+    Returns the body that served them."""
+    qkv, _, _ = _inputs(card, b, n, h, dh, dtype, False)
+    bodies = Counter(FWD_BODY_LAUNCHES)
+    out = flash_attention_qkv(qkv, h, key_mask=mask)
+    q, k, v = _split(qkv, h)
+    out_v1 = flash_attention(q, k, v, key_mask=mask)
+    torch.cuda.synchronize()
+    body, other = (FWD_BODY_LAUNCHES - bodies).elements()
+    ref = flash_attention_qkv_reference(qkv, h, key_mask=mask)
+    tol = flash_attention_qkv_tolerance(qkv, h, ref, key_mask=mask)
+    assert out.dtype == dtype and torch.isfinite(out).all() and ((out.float() - ref.float()).abs() <= tol).all()
+    assert body == other and torch.equal(out_v1.reshape(b, n, h * dh), out)
+    return body
+
+
+@pytest.mark.parametrize("dh", [8, 64, 128])
+@pytest.mark.parametrize("n", [1, 10, 33, 196])
+@pytest.mark.parametrize("masked", [False, True])
+def test_bf16_fwd_on_the_tensor_cores(card, n, dh, masked):
+    """Ragged N (padded to 16 with -inf keys) and head dims that are not a multiple of 16."""
+    mask = None
+    if masked:
+        mask = torch.rand(3, n, generator=torch.Generator(device=card).manual_seed(1), device=card) > 0.3
+        mask[:, 0] = True
+    assert _fwd_case(card, 3, n, 2, dh, torch.bfloat16, mask) == "tensor_core"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwd_with_a_fully_masked_row(card, dtype):
+    mask = torch.ones(3, 40, dtype=torch.bool, device=card)
+    mask[1] = False
+    mask[2, 20:] = False
+    body = _fwd_case(card, 3, 40, 2, 64, dtype, mask)
+    assert body == ("tensor_core" if dtype == torch.bfloat16 else "cuda_core")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwd_body_at_the_model_shapes(card, dtype):
+    """Every bf16 forward at the model shapes (N = 192 and the 10 kept tokens, H = 4, Dh = 64;
+    the SSL encoder's N = 196, H = 16) takes the tensor-core body, every f32 one the CUDA-core
+    body, in both interfaces."""
+    want = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+    for b, n, h in ((8, 192, 4), (8, 10, 4), (2, 196, 16)):
+        assert _fwd_case(card, b, n, h, 64, dtype, None) == want
+
+
+@pytest.mark.parametrize("n,dh", [(700, 64), (384, 128)])
+def test_bf16_fwd_past_the_cuda_core_body_shared_memory(card, n, dh):
+    """The tensor-core forward stages only K and V, so it takes bf16 heads the CUDA-core body's
+    shared memory refused (N > 578 at Dh = 64, N > 335 at Dh = 128)."""
+    assert _fwd_case(card, 2, n, 1, dh, torch.bfloat16, None) == "tensor_core"
 
 
 def _bwd_case(card, b, n, h, dh, dtype, mask):
