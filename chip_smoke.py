@@ -42,13 +42,32 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    launch the kernel counts of its mode. Cut from the reference workload as in phase 5: the
    rollout (1024 of 32768 samples) and the epochs (2 of 10). The checkpoint is written under
    ``smoke_checkpoints/`` (gitignored) and removed at the end.
+8. the SAC+MAE slice at full width (the SAC CLI's model: dim 256, depth 4, 4 heads x 64, mlp 512,
+   frame stack 4, 192 tokens, 10 kept, decoder depth 3; batch 256, MAE batch 256): (a) one f32
+   gradient step in separate and in joint mode on the card against the same weights, batch,
+   masks and noise on the CPU, at batch 32 (losses, ent_coef, every Adam's gradient and all
+   five parameter groups, to SAC_F32_TOL); (b) SACMAE.learn in bf16 on FakeInsertion with 4
+   in-process envs, learning_starts 512, gradient_steps 4 and a 20,000-transition ring, on the
+   host ReplayBuffer and on DeviceReplayBuffer (fused train_steps), in both modes: finite losses,
+   moved parameters, the target moved by tau toward the critic, and every train_steps() and
+   every policy action held to its attention launches (SAC_LAUNCHES); gradient steps/s and
+   env-steps/s are printed; (c) cli.train_sacmae.main at its defaults for 64 gradient steps,
+   then a save and a load into a fresh model: step count, parameters and the four Adams'
+   moments equal on the card. Cut from the reference workload: the ring (20,000 of 1,000,000
+   transitions), learning_starts (512 of 10,000), total_timesteps (a few hundred of 3,000,000)
+   and, for speed, 4 envs where the CLI's default is 1; widths, depth, tokens and batches are
+   full.
+
+Phase 3 also holds both packed kernels to their plain versions on each side of each whole-head
+limit the bodies had before they streamed long heads (LENGTH_CASES, B=2, H=4, with and without a
+key mask: no body has a length limit now), and times bf16 and f32 at B=2, N=784, Dh=64.
 
 Each phase after the kernel checks runs with the launch counts set to 0 just before it and read
-just after; phases 4-7 also fail unless every bf16 forward launch, and in phases 5-7 every bf16
+just after; phases 4-8 also fail unless every bf16 forward launch, and in phases 5-8 every bf16
 backward launch, took the tensor-core body.
 The last lines are a {"kernels": [...]} JSON line, {"slice": ...}, {"train": ...},
-{"bench_attention": ...} and {"cli": ...} JSON lines, the card line as nvidia-smi prints it, and
-{"ok": true, "device": {...}}.
+{"bench_attention": ...}, {"cli": ...} and {"sac": ...} JSON lines, the card line as nvidia-smi
+prints it, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -67,6 +86,7 @@ import torch.nn.functional as F
 
 from m3l_tpu_torch import bench_attention
 from m3l_tpu_torch.cli import train as train_cli
+from m3l_tpu_torch.cli import train_sacmae as sac_cli_module
 from m3l_tpu_torch.envs import SyncVecEnv, make_env
 from m3l_tpu_torch.kernels import BWD_BODY_LAUNCHES, FWD_BODY_LAUNCHES, LAUNCHES, reset_launches
 from m3l_tpu_torch.kernels.build import build_all
@@ -88,7 +108,8 @@ from m3l_tpu_torch.nn.flash_attention import (
     flash_attention_tolerance,
 )
 from m3l_tpu_torch.profile_paths import random_minibatch
-from m3l_tpu_torch.rl import PPOMAE
+from m3l_tpu_torch.models import VTMAE, VTT, VTTConfig
+from m3l_tpu_torch.rl import PPOMAE, SACMAE, MAEFeatures, SACActorCritic
 from m3l_tpu_torch.serve import PolicyServer, build_policy, random_obs
 
 # H100 SXM data sheet: HBM rate and dense peak rates per compute type
@@ -224,6 +245,48 @@ def check_attention() -> dict:
             if (b, n, h, dh, dtype, masked) == (SERVE_B, SERVE_N, SERVE_H, SERVE_DH, torch.bfloat16, False):
                 errs[kind] = err
     return errs
+
+
+# The longest head each body staged whole (in one tile) and one more, per dtype and head dim: the
+# bf16 forward, the bf16 backward (and the old CUDA-core passes' limit, which took longer bf16
+# heads), the f32 forward and the f32 backward. Each runs forward and backward at B=2, H=4.
+LENGTH_CASES = {
+    (torch.bfloat16, 64): (384, 385, 406, 407, 784, 785),
+    (torch.bfloat16, 128): (208, 209, 253, 254, 416, 417),
+    (torch.float32, 64): (274, 275, 348, 349),
+    (torch.float32, 128): (153, 154, 186, 187),
+}
+LONG_N = 784  # 8 frames at tubelet 2 on a 14 x 14 patch grid: timed in bf16 and f32
+
+
+def check_lengths() -> dict:
+    """Both packed kernels against their plain versions on each side of each old whole-head limit,
+    with and without a key mask; fails on a disagreement or a body other than its dtype's. Returns
+    the largest err/tol per direction and dtype."""
+    worst = {}
+    for (dtype, dh), ns in LENGTH_CASES.items():
+        for n in ns:
+            for masked in (False, True):
+                qkv, cot, mask = packed_qkv(2, n, 4, dh, dtype, masked, seed=n)
+                want = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+                for kind, counter in (("forward", FWD_BODY_LAUNCHES), ("backward", BWD_BODY_LAUNCHES)):
+                    bodies = Counter(counter)
+                    if kind == "forward":
+                        out = flash_attention_qkv(qkv, 4, key_mask=mask)
+                        ref = flash_attention_qkv_reference(qkv, 4, key_mask=mask)
+                        tol = flash_attention_qkv_tolerance(qkv, 4, ref, key_mask=mask)
+                    else:
+                        out = fa._launch_bwd(qkv, cot, 4, None if mask is None else fa._key_bias(mask), dh**-0.5)
+                        ref = flash_attention_qkv_bwd_reference(qkv, cot, 4, key_mask=mask)
+                        tol = flash_attention_qkv_bwd_tolerance(qkv, cot, 4, ref, key_mask=mask)
+                    torch.cuda.synchronize()
+                    body = ",".join((counter - bodies).elements())
+                    report(f"{kind} length", 2, n, 4, dh, dtype, masked, out, ref, tol, body)
+                    if body != want:
+                        fail(f"{kind} at N={n} Dh={dh} {dtype} took the body {body!r}, expected {want!r}")
+                    key = f"{kind} {str(dtype)[6:]}"
+                    worst[key] = max(worst.get(key, 0.0), ((out.float() - ref.float()).abs() / tol).max().item())
+    return worst
 
 
 def tensor_core_only(where: str) -> dict:
@@ -562,6 +625,243 @@ def cli_phase() -> dict:
     return out
 
 
+SAC_CHECK_BATCH, SAC_BATCH, SAC_ENVS, SAC_STARTS, SAC_GRAD_STEPS, SAC_RING, SAC_TRAIN_EVENTS = 32, 256, 4, 512, 4, 20_000, 8
+# attention launches per SAC gradient step (forward, backward). Separate: the MAE on one chunk of
+# the batch (4 encoder layers on the kept tokens, 3 decoder) and the features of x and of x_next
+# (4 encoder + 1 post each, no gradient). Joint: the features of x with their gradient and the
+# MAE loss in one pass (5 + 7), then x and x_next as above. Every policy action after
+# learning_starts adds 5 forwards.
+SAC_LAUNCHES = {"separate": (17, 7), "joint": (22, 12)}
+# One f32 SAC step at full width, card vs CPU (TF32 off), the same weights, batch, masks and noise:
+# each metric relative to its magnitude, each Adam's gradient relative to its norm, and each
+# parameter group after the step relative to the learning rate (3e-4), beyond the difference of
+# Adam's steps lr * g / (|g| + eps) that the two gradients imply (an element whose gradient is a
+# few eps from zero turns f32 noise into a large part of lr). About 10x the largest values these
+# seeds gave on the H100 (6.540e-8; 2.504e-7; 1.981e-4, the MAE in joint mode, about one ulp of a
+# parameter): the same f32 arithmetic in another summation order. tests/test_torch_sac_mae.py
+# shows that one key dropped from every attention layer exceeds the first two; the third holds
+# each side to Adam's step on its own gradient.
+SAC_F32_TOL = dict(loss_rel=1e-6, grad_rel=3e-6, param_per_lr=2e-3)
+SAC_GROUPS = ("mae", "actor", "critic", "target", "ent")
+
+
+def sac_policy(dtype, device) -> SACActorCritic:
+    """The SAC CLI's full-width model (``cli.train_sacmae.build_model``'s wiring) from torch's global
+    generator: dim 256, depth 4, 4 heads x 64, mlp 512, frame stack 4, decoder depth 3."""
+    c = VTTConfig(frame_stack=FRAME_STACK)
+    mae = VTMAE(VTT(c, dtype=dtype), decoder_dim=c.dim, masking_ratio=0.95, decoder_depth=3, decoder_heads=4,
+                early_conv_masking=True, dtype=dtype)
+    return SACActorCritic(MAEFeatures(mae, c.dim, frame_stack=FRAME_STACK, dtype=dtype), c.dim, ACTION_DIM, dtype=dtype).to(device)
+
+
+def sac_env(n=SAC_ENVS) -> SyncVecEnv:
+    return SyncVecEnv([make_env("FakeInsertion", i, seed=0, frame_stack=FRAME_STACK) for i in range(n)])
+
+
+def sac_group(name: str) -> str:
+    if name.startswith("features.mae."):
+        return "mae"
+    for g in ("critic_target", "critic", "log_ent_coef"):
+        if name.startswith(g):
+            return {"critic_target": "target", "critic": "critic", "log_ent_coef": "ent"}[g]
+    return "actor"
+
+
+def sac_steps_taken(model: SACMAE) -> dict:
+    """Per parameter name: (the gradient its Adam's single step took, that Adam's lr and eps). The
+    separate MAE Adam comes last: the actor's Adam leaves the MAE at zero gradient there."""
+    names = {id(p): n for n, p in model.policy.named_parameters()}
+    out = {}
+    for opt in (model.actor_optimizer, model.critic_optimizer, model.ent_optimizer, model.mae_optimizer):
+        if opt is None or opt.count != 1:
+            continue
+        g, off = opt.mu / (1.0 - opt.b1), 0
+        for p in opt.params:
+            if names[id(p)] not in out or opt is model.mae_optimizer:
+                out[names[id(p)]] = (g[off : off + p.numel()].view_as(p), opt.learning_rate, opt.eps)
+            off += p.numel()
+    return out
+
+
+def sac_models(separate: bool, seed: int = 0) -> list:
+    """The f32 full-width SACMAE on the card and on the CPU from the same weights, at batch
+    SAC_CHECK_BATCH."""
+    torch.manual_seed(seed)
+    init = sac_policy(torch.float32, "cpu").state_dict()
+    models = []
+    for dev in ("cuda", "cpu"):
+        p = sac_policy(torch.float32, dev)
+        p.load_state_dict(init)
+        models.append(SACMAE(p, sac_env(1), batch_size=SAC_CHECK_BATCH, mae_batch_size=SAC_CHECK_BATCH, separate_optimizer=separate,
+                             frame_stack=FRAME_STACK, buffer_size=64, device=dev))
+    return models
+
+
+def sac_update_errors(a: SACMAE, b: SACMAE, seed: int = 0) -> dict:
+    """One SAC+MAE step of ``a`` and ``b`` (same weights and settings) on the same batch, masks and
+    noise, drawn from ``seed``: what SAC_F32_TOL bounds, ``a`` against ``b``."""
+    bs, fs = b.batch_size, b.frame_stack
+    rng = np.random.default_rng(seed)
+    batch = {"obs": random_obs(rng, bs, fs), "next_obs": random_obs(rng, bs, fs),
+             "actions": rng.uniform(-1, 1, (bs, ACTION_DIM)).astype(np.float32),
+             "rewards": rng.normal(size=bs).astype(np.float32), "dones": (rng.random(bs) < 0.3).astype(np.float32)}
+    gen = torch.Generator().manual_seed(seed)
+    mask = b.policy.features.mae.sample_mask(gen, bs)
+    noise = [torch.randn(bs, ACTION_DIM, generator=gen) for _ in range(2)]
+    metrics = []
+    for m in (a, b):
+        put = lambda x: torch.from_numpy(x).to(m.device)  # noqa: E731
+        tb = {k: {kk: put(vv) for kk, vv in v.items()} if isinstance(v, dict) else put(v) for k, v in batch.items()}
+        out = m.update(tb, [type(mask)(*(t.to(m.device) for t in mask))], *(n.to(m.device) for n in noise))
+        metrics.append({k: float(v) for k, v in out.items()})
+    loss_rel = max(abs(metrics[0][k] - metrics[1][k]) / max(abs(metrics[1][k]), 1e-30) for k in metrics[1])
+    grad_rel = {}
+    for name in ("actor_optimizer", "critic_optimizer", "ent_optimizer", "mae_optimizer"):
+        oa, ob = getattr(a, name), getattr(b, name)
+        if ob is not None and ob.count:
+            grad_rel[name] = ((oa.mu.cpu() - ob.mu).norm() / ob.mu.norm()).item()
+    steps_a, steps_b = sac_steps_taken(a), sac_steps_taken(b)
+    implied = {}
+    for name, (g, lr, eps) in steps_b.items():
+        ga = steps_a[name][0].cpu()
+        implied[name] = lr * ((ga / (ga.abs() + eps)) - (g / (g.abs() + eps))).abs()
+    lr = b.critic_optimizer.learning_rate
+    param_per_lr = dict.fromkeys(SAC_GROUPS, 0.0)
+    a_params = dict(a.policy.named_parameters())
+    for name, p in b.policy.named_parameters():
+        diff = (a_params[name].detach().cpu() - p.detach()).abs()
+        if name in implied:
+            diff = diff - implied[name]
+        elif name.startswith("critic_target."):  # polyak: tau times the critic's step difference
+            diff = diff - b.tau * implied["critic." + name[len("critic_target."):]]
+        group = sac_group(name)
+        param_per_lr[group] = max(param_per_lr[group], diff.max().item() / lr)
+    return dict(loss_rel=loss_rel, grad_rel=grad_rel, param_per_lr=param_per_lr, metrics=metrics[1],
+                ent_coef=(metrics[0]["ent_coef"], metrics[1]["ent_coef"]))
+
+
+def sac_learn(separate: bool, device_buffer: bool) -> dict:
+    """SACMAE.learn in bf16 at full width on FakeInsertion: warm-up to learning_starts, then
+    SAC_TRAIN_EVENTS train events of SAC_GRAD_STEPS gradient steps; every train_steps() call and
+    every policy action is held to its attention launches."""
+    torch.manual_seed(3)
+    model = SACMAE(sac_policy(torch.bfloat16, "cuda"), sac_env(), batch_size=SAC_BATCH, mae_batch_size=SAC_BATCH,
+                   learning_starts=SAC_STARTS, gradient_steps=SAC_GRAD_STEPS, buffer_size=SAC_RING, separate_optimizer=separate,
+                   device_buffer=device_buffer, frame_stack=FRAME_STACK, seed=0, device="cuda")
+    before = [p.detach().clone() for p in model.policy.parameters()]
+    fwd, bwd = SAC_LAUNCHES["separate" if separate else "joint"]
+    calls, train_s = [], []
+    train_steps, sample = model.train_steps, model._sample
+
+    def counted(fn, kind):
+        def run(*args):
+            start = Counter(LAUNCHES)
+            t0 = time.perf_counter()
+            out = fn(*args)  # returns host numbers: synchronised
+            if kind == "train":
+                train_s.append(time.perf_counter() - t0)
+            calls.append((kind, LAUNCHES[KERNEL] - start[KERNEL], LAUNCHES[BWD_KERNEL] - start[BWD_KERNEL]))
+            return out
+        return run
+
+    model.train_steps, model._sample = counted(train_steps, "train"), counted(sample, "act")
+    reset_launches()
+    t0 = time.perf_counter()
+    # a train event after every env step from learning_starts on, a policy action before every later one
+    model.learn(total_timesteps=SAC_STARTS + (SAC_TRAIN_EVENTS - 1) * SAC_ENVS)
+    learn_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    bodies = tensor_core_only(f"sac learn {'separate' if separate else 'joint'}")
+    launches = {k: LAUNCHES[k] for k in ALL_KERNELS}
+    trains = [c for c in calls if c[0] == "train"]
+    acts = [c for c in calls if c[0] == "act"]
+    want_train, want_act = ("train", SAC_GRAD_STEPS * fwd, SAC_GRAD_STEPS * bwd), ("act", 5, 0)
+    if len(trains) != SAC_TRAIN_EVENTS or any(c != want_train for c in trains) or any(c != want_act for c in acts) or len(acts) != SAC_TRAIN_EVENTS - 1:
+        fail(f"sac learn launched {calls}, expected {SAC_TRAIN_EVENTS} train_steps() of {want_train} and {SAC_TRAIN_EVENTS - 1} acts of {want_act}")
+    if launches[V1_KERNEL] or launches[V1_BWD_KERNEL]:
+        fail(f"sac learn launched the split-head kernels: {launches}")
+    m = model.last_metrics
+    moved = max((p.detach() - b).abs().max().item() for p, b in zip(model.policy.parameters(), before))
+    finite = all(np.isfinite(v) for v in m.values()) and all(torch.isfinite(p).all() for p in model.policy.parameters())
+    if set(m) != {"mae_loss", "ent_coef", "ent_coef_loss", "critic_loss", "actor_loss"} or not finite or not moved > 0:
+        fail(f"sac learn: metrics {m}, max parameter move {moved}")
+    # the target moves by tau toward the critic on every step
+    model.train_steps = train_steps
+    p = model.policy
+    target0 = [t.detach().clone() for t in p.critic_target.parameters()]
+    model.train_steps(1)
+    for t0_, t, c in zip(target0, p.critic_target.parameters(), p.critic.parameters()):
+        if not torch.equal(t.detach(), (1.0 - model.tau) * t0_ + model.tau * c.detach()):
+            fail("sac: the target did not move by tau toward the critic")
+    grad_steps = SAC_GRAD_STEPS * SAC_TRAIN_EVENTS
+    return dict(learn_s=learn_s, transitions=model.num_timesteps, gradient_steps=grad_steps,
+                gradient_steps_per_s=grad_steps / sum(train_s), env_steps_per_s=model.num_timesteps / learn_s, train_steps_s=train_s,
+                launches=launches, launches_per_train_steps=list(trains[0][1:]), bodies=bodies, last_metrics=m, max_param_move=moved)
+
+
+def sac_cli() -> dict:
+    """``cli.train_sacmae.main`` on the card at its defaults (full width, bf16, batch 256, MAE
+    batch 256, frame stack 4, env workers in processes), cut in env count, ring, warm-up and
+    length; then save and load into a fresh model: step count, parameters and every Adam's moments
+    equal on the card."""
+    argv = ["--env", "FakeInsertion", "--n_envs", str(SAC_ENVS), "--buffer_size", str(SAC_RING),
+            "--learning_starts", str(SAC_STARTS), "--total_timesteps", str(SAC_STARTS + 63 * SAC_ENVS), "--seed", "0"]
+    reset_launches()
+    t0 = time.perf_counter()
+    model = sac_cli_module.main(argv)
+    main_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    bodies = tensor_core_only("sac cli")
+    launches = {k: LAUNCHES[k] for k in ALL_KERNELS}
+    fwd, bwd = SAC_LAUNCHES["separate"]
+    want = {KERNEL: 64 * fwd + 63 * 5, BWD_KERNEL: 64 * bwd, V1_KERNEL: 0, V1_BWD_KERNEL: 0}
+    if model._n_updates != 64 or launches != want or not all(np.isfinite(v) for v in model.last_metrics.values()):
+        fail(f"sac cli: {model._n_updates} updates, launches {launches} (expected {want}), metrics {model.last_metrics}")
+    CKPT_DIR.mkdir(exist_ok=True)
+    try:
+        path = str(CKPT_DIR / "sac.ckpt")
+        model.save(path)
+        config = sac_cli_module.build_parser().parse_args(argv)
+        fresh = sac_cli_module.build_model(config, sac_env())
+        fresh.load(path)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    opts = ("actor_optimizer", "critic_optimizer", "ent_optimizer", "mae_optimizer")
+    dev = model.device.type  # the CLI's default, cuda
+    same = fresh.num_timesteps == model.num_timesteps and all(
+        torch.equal(a, b) and a.device.type == dev for a, b in zip(fresh.policy.parameters(), model.policy.parameters()))
+    for name in opts:
+        a, b = getattr(fresh, name), getattr(model, name)
+        same &= a.count == b.count and torch.equal(a.mu, b.mu) and torch.equal(a.nu, b.nu) and a.mu.device.type == dev
+    if not same:
+        fail("sac cli: the loaded model differs from the saved one")
+    print(f"  sac cli: main() {main_s:.1f} s, {model._n_updates} gradient steps, launches {launches}; saved and loaded: "
+          f"{fresh.num_timesteps} steps, parameters and the four Adams' moments equal on the card")
+    return dict(main_s=main_s, gradient_steps=model._n_updates, launches=launches, bodies=bodies, last_metrics=model.last_metrics,
+                restored_equal=True)
+
+
+def sac_phase() -> dict:
+    out = {"f32_check": {}}
+    for mode, separate in (("separate", True), ("joint", False)):
+        t0 = time.perf_counter()
+        e = sac_update_errors(*sac_models(separate))
+        print(f"  sac {mode}: one f32 step at batch {SAC_CHECK_BATCH}, card vs CPU ({time.perf_counter() - t0:.1f} s): "
+              f"loss rel err {e['loss_rel']:.3e}, grad err/|grad| {json.dumps(e['grad_rel'])}, param err/lr {json.dumps(e['param_per_lr'])}, "
+              f"ent_coef {e['ent_coef']}; tol {SAC_F32_TOL}")
+        if (e["loss_rel"] > SAC_F32_TOL["loss_rel"] or max(e["grad_rel"].values()) > SAC_F32_TOL["grad_rel"]
+                or max(e["param_per_lr"].values()) > SAC_F32_TOL["param_per_lr"] or e["ent_coef"][0] != e["ent_coef"][1]):
+            fail(f"the f32 SAC step on the card disagrees with the CPU ({mode})")
+        out["f32_check"][mode] = dict(e, tol=SAC_F32_TOL, batch=SAC_CHECK_BATCH)
+    for mode, separate in (("separate", True), ("joint", False)):
+        for ring, device_buffer in (("host", False), ("device", True)):
+            r = out[f"{mode}_{ring}"] = sac_learn(separate, device_buffer)
+            print(f"  sac learn {mode} {ring} ring: {r['learn_s']:.2f} s, {r['gradient_steps_per_s']:.2f} gradient steps/s, "
+                  f"{r['env_steps_per_s']:.1f} env-steps/s; launches per train_steps({SAC_GRAD_STEPS}) {r['launches_per_train_steps']}")
+    out["cli"] = sac_cli()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -593,6 +893,15 @@ def main() -> int:
             print(f"  {kind} B={b} N={n} H={SERVE_H} Dh={SERVE_DH} bf16: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
                   f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bytes']} B, {t['flops']} FLOP)")
 
+    print("[3b] heads of any length: each side of each old whole-head limit")
+    length_worst = check_lengths()
+    print(f"  largest err/tol: {json.dumps(length_worst)}")
+    for dtype in (torch.bfloat16, torch.float32):
+        for kind, fn in (("forward", time_attention), ("backward", time_attention_bwd)):
+            t = timed[kind, 2, LONG_N, dtype] = fn(2, LONG_N, SERVE_H, SERVE_DH, dtype)
+            print(f"  {kind} B=2 N={LONG_N} H={SERVE_H} Dh={SERVE_DH} {str(dtype)[6:]}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                  f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bytes']} B, {t['flops']} FLOP)")
+
     print("[4] serving slice")
     sl = serve_slice()
     print(f"  batch 8: p50 {sl['batch8_latency_ms_p50']:.3f} ms per request; batch 512: {sl['batch512_ms']:.3f} ms, "
@@ -610,11 +919,15 @@ def main() -> int:
     print("[7] training CLI")
     cli = cli_phase()
 
+    print("[8] SAC+MAE slice")
+    sac = sac_phase()
+
     def by_path(name):
         """The kernel's launches in each path's run (counts set to 0 just before it)."""
         return dict(serve=sl["attention_launches"] if name == KERNEL else 0, train=tr["launches"].get(name, 0),
                     bench_v2=bench["v2"]["launches"].get(name, 0), bench_v1=bench["v1"]["launches"].get(name, 0),
-                    **{f"cli_{mode}": cli[mode]["launches"][name] for mode in ("joint", "separate", "plain", "resume")})
+                    **{f"cli_{mode}": cli[mode]["launches"][name] for mode in ("joint", "separate", "plain", "resume")},
+                    **{f"sac_{run}": sac[run]["launches"][name] for run in ("separate_host", "separate_device", "joint_host", "joint_device", "cli")})
 
     def row(name, source, replaces, kind, path, err):
         t, t10 = timed[(kind, *n192)], timed[(kind, *n10)]
@@ -625,7 +938,14 @@ def main() -> int:
             max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], shape=dict(B=SERVE_B, N=SERVE_N, H=SERVE_H, Dh=SERVE_DH, dtype="bfloat16"),
             n10_ms=t10["ms"], n10_plain_ms=t10["plain_ms"], n10_library_ms=t10["library_ms"], n10_bound_ms=t10["bound_ms"],
+            **long_n(kind),
         )
+
+    def long_n(kind):
+        """The packed kernel of this direction at B=2, N=784 (the v1 pair runs the same bodies)."""
+        direction = kind.split()[-1]
+        return {f"n{LONG_N}_{str(dt)[6:]}_{k}": timed[direction, 2, LONG_N, dt][k]
+                for dt in (torch.bfloat16, torch.float32) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
 
     b8 = timed["forward", 8, SERVE_N]
     src, ref = "m3l_tpu_torch/csrc/", "m3l_tpu/nn/flash_attention.py:"
@@ -645,6 +965,7 @@ def main() -> int:
     print(json.dumps({"train": tr}))
     print(json.dumps({"bench_attention": bench}))
     print(json.dumps({"cli": cli}))
+    print(json.dumps({"sac": sac}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

@@ -6,20 +6,21 @@ registers and spills, and times taken in turns in one process.
 The other tree's ``flash_attention_qkv_fwd.cu`` and ``flash_attention_qkv_bwd.cu`` (their
 ``m3l_flash_qkv_fwd`` and ``m3l_flash_qkv_bwd`` must take this tree's arguments) are built with
 this tree's nvcc flags into ``kernels/_build/other/``. Both trees' kernels are called the same
-way, straight through those C entry points on preallocated outputs, so a time is the kernel's
-and not the wrapper's. At the shapes ``chip_smoke.py`` checks and a few more (``BF16_ONLY``: the
-bf16 backward's CUDA-core body):
+way, straight through those C entry points on preallocated outputs (the backward's f32 scratch
+sized for either tree), so a time is the kernel's and not the wrapper's.
 
-* kernels whose arithmetic this tree keeps (the f32 forward, both backward bodies) must be
-  bitwise equal to the other tree's;
-* the bf16 forward, whose arithmetic changed (the tensor-core body), is held in both trees to
-  its plain version's bound, ``flash_attention_qkv_tolerance``; max err/tol is printed.
+* At the shapes ``chip_smoke.py`` checks and a few more (``SHAPES``), where both trees run the
+  same body, every output of all four bodies (forward and backward, bf16 and f32) must be
+  bitwise equal to the other tree's.
+* ``MOVED``: shapes whose body differs between the trees (a bf16 backward head the other tree
+  sent to the CUDA-core passes); the backward is held in both trees to its plain version's
+  bound, ``flash_attention_qkv_bwd_tolerance``, and max err/tol is printed.
 
 Registers, stack and spills of every kernel of both trees are printed (``ptxas -v``); the
-bf16 forward's body is ``fwd_mma_kernel<KD>`` for a head dim padded to 16 * KD.
+bodies are ``fwd_mma_kernel<KD>`` and ``bwd_mma_kernel<KD>`` for a head dim padded to 16 * KD.
 
 Times are CUDA-event means at B=512, H=4, Dh=64 in bf16, in the order other, this, this, other,
-so drift of the card shows. Exits 1 if a kept output differs or a changed one leaves its bound.
+so drift of the card shows. Exits 1 if an output differs or a moved one leaves its bound.
 """
 from __future__ import annotations
 
@@ -36,8 +37,9 @@ from .nn import flash_attention as fa
 NAMES = {"flash_attention_qkv_fwd": fa._SIGNATURES, "flash_attention_qkv_bwd": fa._BWD_SIGNATURES}
 ENTRY = {"flash_attention_qkv_fwd": "m3l_flash_qkv_fwd", "flash_attention_qkv_bwd": "m3l_flash_qkv_bwd"}
 SHAPES = [(512, 192, 4, 64), (512, 10, 4, 64), (8, 192, 4, 64), (64, 196, 16, 64), (3, 1, 2, 8), (2, 33, 2, 128)]
-# bf16 only: the CUDA-core backward's bf16 instance (an f32 head this long exceeds the f32 forward's shared memory)
-BF16_ONLY = [(2, 400, 1, 64)]
+# bf16 only: a head past the old tensor-core backward's shared memory, which the other tree (before
+# long heads streamed) sent to the CUDA-core passes
+MOVED = [(2, 400, 1, 64)]
 
 
 def registers(nvcc: str, src: Path) -> list[str]:
@@ -89,7 +91,7 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def calls(libs, b, n, h, dh, dtype, masked, seed=0):
     """The forward and backward of the libraries ``libs`` as argument-free launches on seeded
     inputs, each writing its own preallocated output: both trees are called the same way. The
-    third function gives a forward output's max err/tol against the plain forward."""
+    third function gives a backward output's max err/tol against the plain backward."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     qkv = torch.randn(b, n, 3 * h * dh, generator=g, device="cuda").to(dtype)
     cot = torch.randn(b, n, h * dh, generator=g, device="cuda").to(dtype)
@@ -100,7 +102,8 @@ def calls(libs, b, n, h, dh, dtype, masked, seed=0):
         bias = fa._key_bias(keep).contiguous()
     scale, elem = dh**-0.5, qkv.element_size()
     out_f, out_b = torch.empty(b, n, h * dh, device="cuda", dtype=dtype), torch.empty_like(qkv)
-    stats = torch.empty((b, h, n, 3), dtype=torch.float32, device="cuda")
+    # f32 scratch for either tree: (m, l, D) a query, or (m, 1 / l, D, 0) a query padded to 16
+    stats = torch.empty((b, h, (n + 15) // 16 * 16, 4), dtype=torch.float32, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     bp = None if bias is None else bias.data_ptr()
 
@@ -116,13 +119,13 @@ def calls(libs, b, n, h, dh, dtype, masked, seed=0):
             raise RuntimeError("backward launch failed")
         return out_b
 
-    def fwd_err_over_tol(out):
+    def bwd_err_over_tol(out):
         mask = None if bias is None else bias == 0
-        ref = fa.flash_attention_qkv_reference(qkv, h, key_mask=mask)
-        tol = fa.flash_attention_qkv_tolerance(qkv, h, ref, key_mask=mask)
+        ref = fa.flash_attention_qkv_bwd_reference(qkv, cot, h, key_mask=mask)
+        tol = fa.flash_attention_qkv_bwd_tolerance(qkv, cot, h, ref, key_mask=mask)
         return ((out.float() - ref.float()).abs() / tol).max().item()
 
-    return fwd, bwd, fwd_err_over_tol
+    return fwd, bwd, bwd_err_over_tol
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -137,27 +140,27 @@ def main(argv: list[str] | None = None) -> int:
     other = load_other(Path(args[0]))
     this = {name: load_library(name, sigs) for name, sigs in NAMES.items()}
     same = True
-    for b, n, h, dh in SHAPES + BF16_ONLY:
-        for dtype in (torch.bfloat16,) if (b, n, h, dh) in BF16_ONLY else (torch.bfloat16, torch.float32):
+    for b, n, h, dh in SHAPES + MOVED:
+        for dtype in (torch.bfloat16,) if (b, n, h, dh) in MOVED else (torch.bfloat16, torch.float32):
             for masked in (False, True):
                 (this_f, this_b, ratio), (other_f, other_b, _) = (calls(libs, b, n, h, dh, dtype, masked) for libs in (this, other))
-                if dtype == torch.float32:
-                    ok = torch.equal(this_f(), other_f())
-                    line = f"forward {'bit-equal' if ok else 'DIFFERENT'}"
+                fwd_ok = torch.equal(this_f(), other_f())
+                line = f"forward {'bit-equal' if fwd_ok else 'DIFFERENT'}"
+                if (b, n, h, dh) in MOVED:
+                    this_r, other_r = ratio(this_b()), ratio(other_b())
+                    bwd_ok = this_r <= 1.0 and other_r <= 1.0
+                    line += f", backward max err/tol this {this_r:.3f}, other {other_r:.3f}{'' if bwd_ok else ' OUT OF BOUND'}"
                 else:
-                    this_r, other_r = ratio(this_f()), ratio(other_f())
-                    ok = this_r <= 1.0 and other_r <= 1.0
-                    line = f"forward max err/tol this {this_r:.3f}, other {other_r:.3f}{'' if ok else ' OUT OF BOUND'}"
-                bwd_ok = torch.equal(this_b(), other_b())
-                line += f", backward {'bit-equal' if bwd_ok else 'DIFFERENT'}"
-                same &= ok and bwd_ok
+                    bwd_ok = torch.equal(this_b(), other_b())
+                    line += f", backward {'bit-equal' if bwd_ok else 'DIFFERENT'}"
+                same &= fwd_ok and bwd_ok
                 print(f"  B={b} N={n} H={h} Dh={dh} {str(dtype)[6:]} mask={masked}: {line}")
     for n in (192, 10):
         (this_f, this_b, _), (other_f, other_b, _) = (calls(libs, 512, n, 4, 64, torch.bfloat16, False, seed=101) for libs in (this, other))
         for kind, mine, theirs in (("forward", this_f, other_f), ("backward", this_b, other_b)):
             turns = [("other", cuda_ms(theirs)), ("this", cuda_ms(mine)), ("this", cuda_ms(mine)), ("other", cuda_ms(theirs))]
             print(f"  N={n} {kind} ms: " + ", ".join(f"{tree} {ms:.4f}" for tree, ms in turns))
-    print("kept outputs bit-equal, changed ones within bound" if same else "SOME OUTPUTS DIFFER OR LEAVE THEIR BOUND")
+    print("outputs bit-equal, moved ones within bound" if same else "SOME OUTPUTS DIFFER OR LEAVE THEIR BOUND")
     return 0 if same else 1
 
 

@@ -9,9 +9,8 @@
 //   dq, dk, dv (B*H, N, Dh), each rounded once to the input type
 //
 // The bodies are the packed backward's, chosen by the same rule (bwd_body in
-// flash_attention_bwd_mma.cuh): bf16 on the tensor cores, one block per batch row B*H; f32 and
-// bf16 heads past that body's shared memory on the CUDA-core passes, grid (ceil(N / 32), 1, B*H)
-// with an f32 (B*H, N, 3) scratch for (m, l, D). This file gives them the split addressing
+// flash_attention_bwd_mma.cuh): bf16 on the tensor cores, one block per batch row B*H; f32 on
+// the CUDA-core passes, grid (ceil(N / 32), 1, B*H) with an f32 (B*H, N, 3) scratch for (m, l, D). This file gives them the split addressing
 // "batch B*H, heads 1, row stride Dh". Every result equals the packed backward's on the same
 // numbers, bit for bit.
 //
@@ -24,16 +23,18 @@
 
 extern "C" {
 
-// The body a launch at this shape takes: 1 the tensor-core body, 0 the CUDA-core passes.
-int m3l_flash_bwd_body(int n, int dh, int elem_bytes) { return m3l::bwd_body(n, dh, elem_bytes); }
+// The body a launch of this element size takes: 1 the tensor-core body (bf16), 0 the CUDA-core passes (f32).
+int m3l_flash_bwd_body(int elem_bytes) { return m3l::bwd_body(elem_bytes); }
 
-// Dynamic shared memory that body needs, in bytes.
-size_t m3l_flash_bwd_smem_bytes(int n, int dh, int elem_bytes) { return m3l::bwd_smem_bytes(n, dh, elem_bytes); }
+// The f32 scratch a launch at this shape needs, in floats (0: none).
+size_t m3l_flash_bwd_scratch_floats(int bh, int n, int dh, int elem_bytes) {
+  return m3l::bwd_scratch_floats(bh, 1, n, dh, elem_bytes);
+}
 
 // Launches the backward on `stream`; returns cudaGetLastError() (0 on success). `bias` (bh, n)
-// may be null. `stats` is f32 scratch of bh * n * 3 values, which only the CUDA-core body reads
-// (it may be null when m3l_flash_bwd_body is 1). The caller checks shapes: dh a multiple of 8
-// and at most 128, contiguous 16-byte aligned q, k, v, g, dq, dk and dv.
+// may be null. `stats` is 16-byte aligned f32 scratch of m3l_flash_bwd_scratch_floats values
+// (null when that is 0). The caller checks shapes: dh a multiple of 8 and at most 128,
+// contiguous 16-byte aligned q, k, v, g, dq, dk and dv.
 int m3l_flash_bwd(const void* q, const void* k, const void* v, const void* bias, const void* g, void* dq, void* dk,
                   void* dv, void* stats, int bh, int n, int dh, float scale, int elem_bytes, void* stream) {
   if (!m3l::valid_shape(bh, n, 1, dh, elem_bytes)) return (int)cudaErrorInvalidValue;

@@ -1,7 +1,8 @@
 // Element access and warp reductions shared by the attention kernels (flash_attention_kernels.cuh).
 //
-// The kernels read and write the packed rows as 32-bit words: one f32, or two bf16 of which the
-// element at the lower address sits in the low half. All arithmetic is in f32.
+// The CUDA-core bodies read and write head rows as 32-bit words through Elem<T>, written for
+// the element types they take: f32 only, since every bf16 input runs the tensor-core bodies.
+// All arithmetic is in f32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -18,21 +19,6 @@ struct Elem<float> {
   __device__ static void unpack(uint32_t w, float* f) { f[0] = __uint_as_float(w); }
   __device__ static uint32_t pack(const float* f) { return __float_as_uint(f[0]); }
   __device__ static float round(float x) { return x; }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static constexpr int kPerWord = 2;
-  // a bf16 is the high half of an f32
-  __device__ static void unpack(uint32_t w, float* f) {
-    f[0] = __uint_as_float(w << 16);
-    f[1] = __uint_as_float(w & 0xffff0000u);
-  }
-  __device__ static uint32_t pack(const float* f) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(f[0], f[1]);
-    return *reinterpret_cast<const uint32_t*>(&h);
-  }
-  __device__ static float round(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 };
 
 __device__ __forceinline__ float warp_max(float x) {

@@ -27,11 +27,8 @@
 
 extern "C" {
 
-// The body a launch at this shape takes: 1 the tensor-core body, 0 the CUDA-core body.
-int m3l_flash_fwd_body(int n, int dh, int elem_bytes) { return m3l::fwd_body(elem_bytes); }
-
-// Dynamic shared memory that body needs, in bytes.
-size_t m3l_flash_fwd_smem_bytes(int n, int dh, int elem_bytes) { return m3l::fwd_smem_bytes(n, dh, elem_bytes); }
+// The body a launch of this element size takes: 1 the tensor-core body (bf16), 0 the CUDA-core body (f32).
+int m3l_flash_fwd_body(int elem_bytes) { return m3l::fwd_body(elem_bytes); }
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success). `bias` (bh, n) may be null.
 // The caller checks shapes: dh a multiple of 8 and at most 128, contiguous 16-byte aligned

@@ -16,19 +16,22 @@
 //
 // Layout: grid (ceil(strips / W), heads, batch), W <= 4 warps a block, each warp one strip of
 // 16 queries whose Q fragments it reads straight from global memory into registers. Each block
-// stages K and V of its (b, h) in shared memory (cp.async, 16 bytes a load; the layout of
-// flash_attention_mma.cuh) with the key bias; padded keys get the bias -inf, so they join neither
-// the max nor the sum, and a fully masked row stays uniform over its real keys (bias -1e30, as in
-// the plain version). Padded query rows compute on zeros and are never written. The first key
+// streams K and V of its (b, h) through shared memory (cp.async, 16 bytes a load; the layout of
+// flash_attention_mma.cuh) with the key bias: the whole head as one tile where it fits the
+// shared memory a block can opt in to (N <= 784 at Dh = 64, N <= 416 at Dh = 128), else tiles of
+// kFwdKeyTile keys in two buffers, the next tile's copies in flight while the warps sweep the
+// current one. The sweep visits the keys 16 at a time in the same order whatever the tiling, and
+// the online max and sum carry over from tile to tile, so a head gives the same bits in one tile
+// or many. Padded keys (in the last, ragged tile only) get the bias -inf, so they join neither
+// the max nor the sum, and a fully masked row stays uniform over its real keys (bias -1e30, as
+// in the plain version). Padded query rows compute on zeros and are never written. The first key
 // chunk holds key 0, which is real, so the running max is finite after it and every later
 // correction exp(m_old - m_new) is a number, 1 where nothing changed. The score tile never
 // leaves registers: the two m16n8 accumulator tiles of a chunk's scores are re-packed as the
 // m16k16 A operand of e V.
 //
 // Shared memory is K and V only, 292 bytes a key at Dh = 64 (four blocks an SM at N = 192) and
-// 548 at Dh = 128, always less than the CUDA-core body needs for the same bf16 head (388 and 644
-// bytes a key), so every bf16 shape that body took fits here: bf16 has one forward body, f32 the
-// other (fwd_body).
+// 548 at Dh = 128. bf16 has one forward body, f32 the other (fwd_body).
 #pragma once
 
 #include "flash_attention_mma.cuh"
@@ -36,64 +39,55 @@
 namespace m3l {
 namespace {
 
-constexpr int kFwdMmaWarps = 4;  // warps (16-query strips) per block, fewer when N < 64
+constexpr int kFwdMmaWarps = 4;   // warps (16-query strips) per block, fewer when N < 64
+constexpr int kFwdKeyTile = 128;  // keys per staged tile of a head too long to stage whole
 
-// Shared memory of the tensor-core forward in bytes: K and V as bf16 tables of np rows of ld
-// values (np = N rounded up to 16, ld = Dh rounded up to 16, plus 8) and the key bias (np f32).
+// Shared memory of one staged key: its K and V rows (bf16, Dh rounded up to 16, plus 8) and its
+// key bias (f32).
+inline size_t fwd_mma_key_bytes(int dh) { return 4 * ((dh + 15) / 16 * 16 + 8) + 4; }
+
+// Keys per staged tile: the whole head (N rounded up to 16) where it fits, else kFwdKeyTile.
+inline int fwd_mma_tile(int n, int dh) {
+  const int np = (n + 15) / 16 * 16;
+  return np * fwd_mma_key_bytes(dh) <= kSmemOptin ? np : kFwdKeyTile;
+}
+
+// Shared memory of the tensor-core forward in bytes: one whole-head tile, or two buffers of a tile.
 inline size_t fwd_mma_smem_bytes(int n, int dh) {
-  const size_t np = (n + 15) / 16 * 16, ld = (dh + 15) / 16 * 16 + 8;
-  return 4 * np * ld + 4 * np;
+  const int kt = fwd_mma_tile(n, dh);
+  return (kt == (n + 15) / 16 * 16 ? 1 : 2) * kt * fwd_mma_key_bytes(dh);
 }
 
 inline int fwd_body(int elem_bytes) { return elem_bytes == 2 ? kTensorCore : kCudaCore; }
 
-// Dynamic shared memory of the body fwd_body picks, in bytes.
-inline size_t fwd_smem_bytes(int n, int dh, int elem_bytes) {
-  if (fwd_body(elem_bytes) == kTensorCore) return fwd_mma_smem_bytes(n, dh);
-  return (size_t)fwd_layout(n, dh, elem_bytes).words * 4;
-}
-
 template <int KD>  // head dim padded to 16 * KD
 __global__ void __launch_bounds__(kFwdMmaWarps * 32, KD <= 4 ? 4 : 2)
-fwd_mma_kernel(In q, In k, In v, const float* __restrict__ bias, Out out, int n, int dh, float scale) {
-  constexpr int DHP = 16 * KD, LD = DHP + 8, VECS = DHP / 8;
+fwd_mma_kernel(In q, In k, In v, const float* __restrict__ bias, Out out, int n, int dh, float scale, int kt) {
+  constexpr int LD = 16 * KD + 8;
   extern __shared__ __align__(16) uint32_t smem[];
-  const int np = (n + 15) / 16 * 16;
-  __nv_bfloat16* const ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* const vs = ks + np * LD;
-  float* const bs = reinterpret_cast<float*>(vs + np * LD);
+  const int np = (n + 15) / 16 * 16, tiles = (np + kt - 1) / kt;
+  // buffer s: K (kt rows), V (kt rows), the key bias (kt f32)
+  const size_t buf_bytes = (size_t)kt * (4 * LD + 4);
+  auto ks_of = [&](int s) { return reinterpret_cast<__nv_bfloat16*>(reinterpret_cast<char*>(smem) + s * buf_bytes); };
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int i0 = (blockIdx.x * (blockDim.x / 32) + warp) * 16;  // this warp's strip
-
-  // stage K and V of (b, h), zeros past N and past Dh; the copies run while Q is read
-  const uint32_t* kb = k.at(b, h);
-  const uint32_t* vb = v.at(b, h);
-  for (int i = threadIdx.x; i < np * VECS; i += blockDim.x) {
-    const int j = i / VECS, c = i % VECS;
-    const bool real = j < n && c * 8 < dh;
-    cp_async16(ks + j * LD + c * 8, real ? kb + (size_t)j * k.row + c * 4 : kb, real);
-    cp_async16(vs + j * LD + c * 8, real ? vb + (size_t)j * v.row + c * 4 : vb, real);
-  }
+  const bool active = i0 < np;  // warp-uniform: a warp past the last strip only helps stage
   const float* bias_b = bias ? bias + (size_t)b * n : nullptr;
-  for (int j = threadIdx.x; j < np; j += blockDim.x) bs[j] = j < n ? (bias_b ? bias_b[j] : 0.f) : -INFINITY;
 
-  // this warp's Q strip as m16k16 A fragments: a[r] holds row lane / 4 (+ 8 for odd r), columns
-  // 2 * (lane % 4) (+ 8 for r >= 2) and the next one, of each 16-column block kk
+  // tile t of K, V and the key bias into buffer t % 2, as one cp.async group
+  auto stage = [&](int t) {
+    __nv_bfloat16* ks = ks_of(t % 2);
+    const int t0 = t * kt, rows = min(kt, np - t0);
+    stage_rows<KD>(ks, k, ks + kt * LD, v, b, h, t0, rows, n, dh);
+    stage_bias(reinterpret_cast<float*>(ks + 2 * kt * LD), bias_b, t0, rows, n);
+    cp_async_commit();
+  };
+  stage(0);  // the copies run while Q is read
+
   uint32_t qa[KD][4];
-  const uint32_t* qb = q.at(b, h);
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = i0 + lane / 4 + 8 * (r % 2), w = kk * 8 + lane % 4 + 4 * (r / 2);
-      qa[kk][r] = row < n && 2 * w < dh ? qb[(size_t)row * q.row + w] : 0u;
-    }
-  }
-  cp_async_wait_all();
-  __syncthreads();
-  if (i0 >= np) return;  // warp-uniform; no barrier follows
+  load_a_strip<KD>(qa, q, b, h, i0, n, dh, lane);
 
   // this lane's ldmatrix offsets: K as the B operand (two 8-key halves as the two n-tiles, two
   // column halves as k); V through .trans (keys as k)
@@ -108,48 +102,63 @@ fwd_mma_kernel(In q, In k, In v, const float* __restrict__ bias, Out out, int n,
     for (int e = 0; e < 4; ++e) o[t][e] = 0.f;
   }
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows lane / 4 and lane / 4 + 8
-  for (int j0 = 0; j0 < np; j0 += 16) {
-    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t bk[4];
-      ldsm4(bk, ks + j0 * LD + boff + kk * 16);
-      mma16816(s[0], qa[kk], bk[0], bk[1]);
-      mma16816(s[1], qa[kk], bk[2], bk[3]);
+  for (int t = 0; t < tiles; ++t) {
+    if (t + 1 < tiles) {
+      stage(t + 1);  // into the other buffer, which every warp left at the end of tile t - 1
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    float mc[2] = {m[0], m[1]};
+    __syncthreads();
+    const __nv_bfloat16* ks = ks_of(t % 2);
+    const __nv_bfloat16* vs = ks + kt * LD;
+    const float* bs = reinterpret_cast<const float*>(ks + 2 * kt * LD);
+    const int rows = min(kt, np - t * kt);
+    for (int j0 = 0; active && j0 < rows; j0 += 16) {
+      float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-    for (int t = 0; t < 2; ++t) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[t][e] = fmaf(s[t][e], scale, bs[j0 + 8 * t + col + e % 2]);
-        mc[e / 2] = fmaxf(mc[e / 2], s[t][e]);
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t bk[4];
+        ldsm4(bk, ks + j0 * LD + boff + kk * 16);
+        mma16816(s[0], qa[kk], bk[0], bk[1]);
+        mma16816(s[1], qa[kk], bk[2], bk[3]);
       }
-    }
+      float mc[2] = {m[0], m[1]};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mc[r] = quad_max(mc[r]);
-      const float corr = expf(m[r] - mc[r]);  // 0 on the first chunk, whose key 0 is real
-      l[r] *= corr;
+      for (int t2 = 0; t2 < 2; ++t2) {
 #pragma unroll
-      for (int t = 0; t < 2 * KD; ++t) {
-        o[t][2 * r] *= corr;
-        o[t][2 * r + 1] *= corr;
+        for (int e = 0; e < 4; ++e) {
+          s[t2][e] = fmaf(s[t2][e], scale, bs[j0 + 8 * t2 + col + e % 2]);
+          mc[e / 2] = fmaxf(mc[e / 2], s[t2][e]);
+        }
       }
-      m[r] = mc[r];
-    }
 #pragma unroll
-    for (int t = 0; t < 2; ++t) {
+      for (int r = 0; r < 2; ++r) {
+        mc[r] = quad_max(mc[r]);
+        const float corr = expf(m[r] - mc[r]);  // 0 on the first chunk, whose key 0 is real
+        l[r] *= corr;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[t][e] = expf(s[t][e] - m[e / 2]);
-        l[e / 2] += s[t][e];
+        for (int t2 = 0; t2 < 2 * KD; ++t2) {
+          o[t2][2 * r] *= corr;
+          o[t2][2 * r + 1] *= corr;
+        }
+        m[r] = mc[r];
       }
+#pragma unroll
+      for (int t2 = 0; t2 < 2; ++t2) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[t2][e] = expf(s[t2][e] - m[e / 2]);
+          l[e / 2] += s[t2][e];
+        }
+      }
+      uint32_t pa[1][4];
+      split_a(s, pa);  // e rounded once to bf16
+      accumulate<KD>(o, pa, vs + j0 * LD, toff);
     }
-    uint32_t pa[1][4];
-    split_a(s, pa);  // e rounded once to bf16
-    accumulate<KD>(o, pa, vs + j0 * LD, toff);
+    if (t + 2 < tiles) __syncthreads();  // tile t + 2 is staged into this buffer next
   }
+  if (!active) return;
 #pragma unroll
   for (int r = 0; r < 2; ++r) l[r] = 1.f / quad_sum(l[r]);
 #pragma unroll
@@ -168,7 +177,7 @@ int launch_fwd_mma_t(In q, In k, In v, const float* bias, Out out, int batch, in
   if (err) return err;
   const int strips = (n + 15) / 16, warps = strips < kFwdMmaWarps ? strips : kFwdMmaWarps;
   const dim3 grid((strips + warps - 1) / warps, heads, batch);
-  fwd_mma_kernel<KD><<<grid, warps * 32, smem, stream>>>(q, k, v, bias, out, n, dh, scale);
+  fwd_mma_kernel<KD><<<grid, warps * 32, smem, stream>>>(q, k, v, bias, out, n, dh, scale, fwd_mma_tile(n, dh));
   return (int)cudaGetLastError();
 }
 

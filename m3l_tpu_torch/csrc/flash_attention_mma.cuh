@@ -1,9 +1,9 @@
 // Tensor-core building blocks shared by the bf16 attention bodies (sm_90a): the forward
 // (flash_attention_fwd_mma.cuh) and the backward (flash_attention_bwd_mma.cuh).
 //
-// Both keep head tables in shared memory as bf16, rows padded with zeros to a multiple of 16,
-// a head dim padded with zeros to DHP = 16 * KD, and each row LD = DHP + 8 values long, so that
-// the 8 row addresses of an ldmatrix fall on distinct banks. Products are mma.sync.m16n8k16
+// Both keep head tables (a whole head, or a tile of its rows) in shared memory as bf16, rows past
+// N zeros up to a multiple of 16, a head dim padded with zeros to DHP = 16 * KD, and each row
+// LD = DHP + 8 values long, so that the 8 row addresses of an ldmatrix fall on distinct banks. Products are mma.sync.m16n8k16
 // (bf16 in, f32 accumulate) on fragments in registers: a 16 x 16 A tile as four 32-bit
 // registers, a 16 x 8 accumulator tile c[4] holding rows lane / 4 (c[0], c[1]) and lane / 4 + 8
 // (c[2], c[3]) at columns 2 * (lane % 4) and the next one.
@@ -13,8 +13,6 @@
 
 namespace m3l {
 namespace {
-
-constexpr size_t kSmemOptin = 232448;  // sm_90: the most dynamic shared memory of one block
 
 enum Body { kCudaCore = 0, kTensorCore = 1 };
 
@@ -66,6 +64,51 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
 }
 
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Wait until at most N committed groups of this thread's copies are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
+// Rows r0 .. r0 + rows - 1 of operands x and y (head (b, h)) into the bf16 tables tx and ty (rows
+// of LD values) by cp.async, zeros past n and past dh; the block's threads share the copies.
+template <int KD>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* tx, const In& x, __nv_bfloat16* ty, const In& y, int b, int h,
+                                           int r0, int rows, int n, int dh) {
+  constexpr int LD = 16 * KD + 8, VECS = 2 * KD;
+  const uint32_t* xs = x.at(b, h);
+  const uint32_t* ys = y.at(b, h);
+  for (int i = threadIdx.x; i < rows * VECS; i += blockDim.x) {
+    const int j = i / VECS, c = i % VECS, row = r0 + j;
+    const bool real = row < n && c * 8 < dh;
+    cp_async16(tx + j * LD + c * 8, real ? xs + (size_t)row * x.row + c * 4 : xs, real);
+    cp_async16(ty + j * LD + c * 8, real ? ys + (size_t)row * y.row + c * 4 : ys, real);
+  }
+}
+
+// The key bias of keys j0 .. j0 + rows - 1 into bs: 0 or the caller's bias for real keys (-1e30 on
+// masked ones), -inf for the padding past n, which so joins neither a row max nor a sum.
+__device__ __forceinline__ void stage_bias(float* bs, const float* bias_b, int j0, int rows, int n) {
+  for (int j = threadIdx.x; j < rows; j += blockDim.x) bs[j] = j0 + j < n ? (bias_b ? bias_b[j0 + j] : 0.f) : -INFINITY;
+}
+
+// Rows r0 .. r0 + 15 of operand x (head (b, h)) as m16k16 A fragments straight from global
+// memory: a[kk][r] holds row r0 + lane / 4 (+ 8 for odd r), columns 16 kk + 2 (lane % 4) (+ 8 for
+// r >= 2) and the next one; zeros past n and past dh. The same values ldmatrix gives from a table.
+template <int KD>
+__device__ __forceinline__ void load_a_strip(uint32_t (&a)[KD][4], const In& x, int b, int h, int r0, int n, int dh,
+                                             int lane) {
+  const uint32_t* xb = x.at(b, h);
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = r0 + lane / 4 + 8 * (r % 2), w = kk * 8 + lane % 4 + 4 * (r / 2);
+      a[kk][r] = row < n && 2 * w < dh ? xb[(size_t)row * x.row + w] : 0u;
+    }
+  }
+}
 
 // f32 accumulator tiles c[t] (rows x keys j0 + 8t .. + 7, m16n8 layout) -> the A operand of the
 // next product over those 16 keys, as T bf16 terms: a[0] = bf16(c), a[1] = bf16(c - a[0]), ...

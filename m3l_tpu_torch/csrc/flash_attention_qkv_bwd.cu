@@ -11,15 +11,16 @@
 // Every sum is in f32 (the forward rounds A to the input type before A.V; the backward, like the
 // TPU kernel, uses the unrounded A). The bias gets no gradient.
 //
-// Two bodies, chosen by dtype and shape before launch (bwd_body, flash_attention_bwd_mma.cuh),
+// Two bodies, chosen by dtype before launch (bwd_body, flash_attention_bwd_mma.cuh),
 // both shared with the split-head backward (flash_attention_bwd.cu); this file gives them the
 // packed addressing: q, k, v and dq, dk, dv at their column offsets of the packed rows.
 //   bf16: `bwd_mma_kernel`, one block per (head, batch row) on the tensor cores (mma.sync
-//     m16n8k16), the whole head staged once in shared memory, A and dS entering their products
-//     as two bf16 terms (hi + lo), no global scratch.
-//   f32, and bf16 heads past that body's shared memory (N > 384 at Dh = 64): the CUDA-core
-//     passes `bwd_dq_kernel` and `bwd_dkv_kernel` (flash_attention_kernels.cuh), grid
-//     (ceil(N / 32), H, B), with an f32 (B, H, N, 3) scratch for (m, l, D).
+//     m16n8k16), the whole head staged once in shared memory where it fits (N <= 384 at
+//     Dh = 64), else streamed in tiles of 128 rows with (m, 1 / l, D) in an f32 (B, H, N16, 4)
+//     scratch; A and dS enter their products as two bf16 terms (hi + lo).
+//   f32: the CUDA-core passes `bwd_dq_kernel` and `bwd_dkv_kernel` (flash_attention_kernels.cuh),
+//     grid (ceil(N / 32), H, B), with an f32 (B, H, N, 3) scratch for (m, l, D).
+// Neither has a length limit.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense). At the training shape B = 512,
 // N = 192, H = 4, Dh = 64 in bf16 the function must read qkv (151.0 MB) and g (50.3 MB) and
@@ -33,16 +34,18 @@
 
 extern "C" {
 
-// The body a launch at this shape takes: 1 the tensor-core body, 0 the CUDA-core passes.
-int m3l_flash_qkv_bwd_body(int n, int dh, int elem_bytes) { return m3l::bwd_body(n, dh, elem_bytes); }
+// The body a launch of this element size takes: 1 the tensor-core body (bf16), 0 the CUDA-core passes (f32).
+int m3l_flash_qkv_bwd_body(int elem_bytes) { return m3l::bwd_body(elem_bytes); }
 
-// Dynamic shared memory that body needs, in bytes.
-size_t m3l_flash_qkv_bwd_smem_bytes(int n, int dh, int elem_bytes) { return m3l::bwd_smem_bytes(n, dh, elem_bytes); }
+// The f32 scratch a launch at this shape needs, in floats (0: none).
+size_t m3l_flash_qkv_bwd_scratch_floats(int b, int n, int heads, int dh, int elem_bytes) {
+  return m3l::bwd_scratch_floats(b, heads, n, dh, elem_bytes);
+}
 
 // Launches the backward on `stream`; returns cudaGetLastError() (0 on success). `bias` may be
-// null. `stats` is f32 scratch of b * heads * n * 3 values, which only the CUDA-core body reads
-// (it may be null when m3l_flash_qkv_bwd_body is 1). The caller checks shapes: dh a multiple of
-// 8 and at most 128, contiguous 16-byte aligned qkv, g and dqkv.
+// null. `stats` is 16-byte aligned f32 scratch of m3l_flash_qkv_bwd_scratch_floats values (null
+// when that is 0). The caller checks shapes: dh a multiple of 8 and at most 128, contiguous
+// 16-byte aligned qkv, g and dqkv.
 int m3l_flash_qkv_bwd(const void* qkv, const void* bias, const void* g, void* dqkv, void* stats, int b, int n,
                       int heads, int dh, float scale, int elem_bytes, void* stream) {
   if (!m3l::valid_shape(b, n, heads, dh, elem_bytes)) return (int)cudaErrorInvalidValue;

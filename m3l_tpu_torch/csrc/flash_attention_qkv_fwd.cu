@@ -14,10 +14,12 @@
 // addressing: q, k and v read straight from their column offsets of the packed rows (no
 // head-split transpose through device memory), the output written at its head's offset.
 //   bf16: `fwd_mma_kernel`, grid (ceil(N / 64), H, B) of up to 4 warps, each warp a 16-query
-//     strip on the tensor cores (mma.sync m16n8k16), K and V of (b, h) staged in shared memory,
-//     one pass over the keys with an online softmax; the scores never leave registers.
+//     strip on the tensor cores (mma.sync m16n8k16), K and V of (b, h) streamed through shared
+//     memory (the whole head, or tiles of 128 keys), one pass over the keys with an online
+//     softmax; the scores never leave registers.
 //   f32: `fwd_kernel` (flash_attention_kernels.cuh), grid (ceil(N / 32), H, B), scores, softmax
-//     and A.V on the CUDA cores.
+//     and A.V on the CUDA cores (the whole head, or tiles of 64 keys swept three times).
+// Neither has a length limit.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense). At the serving and training shape
 // B = 512, N = 192, H = 4, Dh = 64 in bf16 the kernel must read qkv once (512*192*768*2 B =
@@ -33,11 +35,8 @@
 
 extern "C" {
 
-// The body a launch at this shape takes: 1 the tensor-core body, 0 the CUDA-core body.
-int m3l_flash_qkv_fwd_body(int n, int dh, int elem_bytes) { return m3l::fwd_body(elem_bytes); }
-
-// Dynamic shared memory that body needs, in bytes.
-size_t m3l_flash_qkv_fwd_smem_bytes(int n, int dh, int elem_bytes) { return m3l::fwd_smem_bytes(n, dh, elem_bytes); }
+// The body a launch of this element size takes: 1 the tensor-core body (bf16), 0 the CUDA-core body (f32).
+int m3l_flash_qkv_fwd_body(int elem_bytes) { return m3l::fwd_body(elem_bytes); }
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success). `bias` may be null.
 // The caller checks shapes: dh a multiple of 8 and at most 128, 16-byte aligned contiguous rows.

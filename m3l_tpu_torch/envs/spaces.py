@@ -1,7 +1,8 @@
 """The few parts of ``gymnasium.spaces`` the port reads, so that it needs no gymnasium.
 
-``Box`` keeps ``low``, ``high`` (arrays of ``shape`` in ``dtype``), ``shape`` and ``dtype``;
-``Dict`` keeps ``spaces`` and indexes them by key.
+``Box`` keeps ``low``, ``high`` (arrays of ``shape`` in ``dtype``), ``shape`` and ``dtype``, and
+samples a bounded box uniformly from a caller's numpy ``Generator``; ``Dict`` keeps ``spaces``
+and indexes them by key.
 """
 from __future__ import annotations
 
@@ -14,6 +15,13 @@ class Box:
         self.shape = tuple(np.shape(low) if shape is None else shape)
         self.low = np.broadcast_to(np.asarray(low, self.dtype), self.shape).copy()
         self.high = np.broadcast_to(np.asarray(high, self.dtype), self.shape).copy()
+
+    def sample(self, rng: np.random.Generator) -> np.ndarray:
+        """A point drawn uniformly from [low, high] with ``rng`` (gymnasium's rule for a bounded
+        box; its draws come from the space's own generator, so the two never match bit for bit)."""
+        if not (np.isfinite(self.low).all() and np.isfinite(self.high).all()):
+            raise ValueError("Box.sample: only a bounded box can be sampled")
+        return rng.uniform(self.low, self.high, self.shape).astype(self.dtype)
 
 
 class Dict:

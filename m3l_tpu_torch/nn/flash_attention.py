@@ -9,11 +9,11 @@
   and ``_bwd_kernel`` behind ``_flash``; here ``csrc/flash_attention_fwd.cu`` and ``_bwd.cu``.
 
 Both pairs compute one function and share their kernel bodies (bf16 on the tensor cores:
-``csrc/flash_attention_fwd_mma.cuh`` and ``csrc/flash_attention_bwd_mma.cuh``; f32, and bf16
-heads past the tensor-core backward's shared memory, on the CUDA cores:
-``csrc/flash_attention_kernels.cuh``), so the split-head interface is the packed one with batch
-B*H and one head: its plain versions are the packed ones on ``cat([q, k, v], -1)``, and so are its
-tolerances. Each interface routes through one ``torch.autograd.Function`` on every device: on a
+``csrc/flash_attention_fwd_mma.cuh`` and ``csrc/flash_attention_bwd_mma.cuh``; f32 on the CUDA
+cores: ``csrc/flash_attention_kernels.cuh``), which take heads of any length (a head too long
+for shared memory streams through it in tiles). So the split-head interface is the packed one
+with batch B*H and one head: its plain versions are the packed ones on ``cat([q, k, v], -1)``,
+and so are its tolerances. Each interface routes through one ``torch.autograd.Function`` on every device: on a
 CUDA tensor it launches the kernels or raises; on a CPU tensor it runs the plain versions
 (:func:`flash_attention_qkv_reference`, :func:`flash_attention_qkv_bwd_reference` and their v1
 counterparts), the same arithmetic in plain PyTorch.
@@ -173,16 +173,15 @@ def _ulp(ref: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 _SIGNATURES = {
-    "m3l_flash_qkv_fwd_body": ([ctypes.c_int] * 3, ctypes.c_int),
-    "m3l_flash_qkv_fwd_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_size_t),
+    "m3l_flash_qkv_fwd_body": ([ctypes.c_int], ctypes.c_int),
     "m3l_flash_qkv_fwd": (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int,
     ),
 }
 _BWD_SIGNATURES = {
-    "m3l_flash_qkv_bwd_body": ([ctypes.c_int] * 3, ctypes.c_int),
-    "m3l_flash_qkv_bwd_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_size_t),
+    "m3l_flash_qkv_bwd_body": ([ctypes.c_int], ctypes.c_int),
+    "m3l_flash_qkv_bwd_scratch_floats": ([ctypes.c_int] * 5, ctypes.c_size_t),
     "m3l_flash_qkv_bwd": (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int,
@@ -207,20 +206,13 @@ def _check(qkv: torch.Tensor, num_heads: int) -> int:
     return dh
 
 
-def _check_smem(smem: int, qkv: torch.Tensor, dh: int) -> None:
-    limit = torch.cuda.get_device_properties(qkv.device).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(f"flash attention: N={qkv.shape[1]}, head_dim={dh} needs {smem} B of shared memory, the card has {limit}")
-
-
 def _launch(qkv: torch.Tensor, num_heads: int, bias: torch.Tensor | None, scale: float) -> torch.Tensor:
     """The forward kernel on ``qkv``, by the body the C side's rule picks (bf16 on the tensor
     cores, f32 on the CUDA cores); ``bias`` is the contiguous f32 (B, N) key bias or None."""
     b, n, thd = qkv.shape
     dh = _check(qkv, num_heads)
     lib = load_library(KERNEL, _SIGNATURES)
-    body = BODIES[lib.m3l_flash_qkv_fwd_body(n, dh, qkv.element_size())]
-    _check_smem(lib.m3l_flash_qkv_fwd_smem_bytes(n, dh, qkv.element_size()), qkv, dh)
+    body = BODIES[lib.m3l_flash_qkv_fwd_body(qkv.element_size())]
     out = torch.empty((b, n, thd // 3), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -235,15 +227,14 @@ def _launch(qkv: torch.Tensor, num_heads: int, bias: torch.Tensor | None, scale:
     return out
 
 
-def _bwd_stats(body: str, shape: tuple, device) -> torch.Tensor | None:
-    """The f32 (..., N, 3) scratch of row max, sum and D that only the CUDA-core body uses."""
-    return torch.empty(shape, dtype=torch.float32, device=device) if body == "cuda_core" else None
+def _bwd_scratch(floats: int, device) -> torch.Tensor | None:
+    """The f32 scratch of row statistics a backward launch needs, as the C side sizes it (None: none)."""
+    return torch.empty(floats, dtype=torch.float32, device=device) if floats else None
 
 
 def _launch_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, bias: torch.Tensor | None, scale: float) -> torch.Tensor:
-    """The backward kernel: packed dqkv for the cotangent ``g``, by the body the C side's shape
-    rule picks (bf16 on the tensor cores where the head fits its shared memory, else the
-    CUDA-core passes)."""
+    """The backward kernel: packed dqkv for the cotangent ``g``, by the body the C side's rule
+    picks (bf16 on the tensor cores, f32 on the CUDA-core passes)."""
     b, n, thd = qkv.shape
     dh = _check(qkv, num_heads)
     if g.shape != (b, n, thd // 3) or g.dtype != qkv.dtype or g.device != qkv.device:
@@ -252,10 +243,9 @@ def _launch_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, bias: torch.
     if g.data_ptr() % 16:
         raise ValueError("flash_attention_qkv backward: cotangent must be 16-byte aligned")
     lib = load_library(BWD_KERNEL, _BWD_SIGNATURES)
-    body = BODIES[lib.m3l_flash_qkv_bwd_body(n, dh, qkv.element_size())]
-    _check_smem(lib.m3l_flash_qkv_bwd_smem_bytes(n, dh, qkv.element_size()), qkv, dh)
+    body = BODIES[lib.m3l_flash_qkv_bwd_body(qkv.element_size())]
     dqkv = torch.empty_like(qkv)
-    stats = _bwd_stats(body, (b, num_heads, n, 3), qkv.device)
+    stats = _bwd_scratch(lib.m3l_flash_qkv_bwd_scratch_floats(b, n, num_heads, dh, qkv.element_size()), qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.m3l_flash_qkv_bwd(
@@ -395,16 +385,15 @@ def flash_attention_bwd_tolerance(
 
 
 _V1_SIGNATURES = {
-    "m3l_flash_fwd_body": ([ctypes.c_int] * 3, ctypes.c_int),
-    "m3l_flash_fwd_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_size_t),
+    "m3l_flash_fwd_body": ([ctypes.c_int], ctypes.c_int),
     "m3l_flash_fwd": (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int,
     ),
 }
 _V1_BWD_SIGNATURES = {
-    "m3l_flash_bwd_body": ([ctypes.c_int] * 3, ctypes.c_int),
-    "m3l_flash_bwd_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_size_t),
+    "m3l_flash_bwd_body": ([ctypes.c_int], ctypes.c_int),
+    "m3l_flash_bwd_scratch_floats": ([ctypes.c_int] * 4, ctypes.c_size_t),
     "m3l_flash_bwd": (
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int,
@@ -435,8 +424,7 @@ def _launch_v1(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Te
     bh, n, _ = q.shape
     dh = _check_v1(q, k, v)
     lib = load_library(V1_KERNEL, _V1_SIGNATURES)
-    body = BODIES[lib.m3l_flash_fwd_body(n, dh, q.element_size())]
-    _check_smem(lib.m3l_flash_fwd_smem_bytes(n, dh, q.element_size()), q, dh)
+    body = BODIES[lib.m3l_flash_fwd_body(q.element_size())]
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -455,15 +443,14 @@ def _launch_v1_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor, bias: torch.Tensor | None, scale: float
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The split-head backward kernel: (dq, dk, dv) for the cotangent ``g``, by the packed
-    backward's bodies and shape rule."""
+    backward's bodies and rule."""
     bh, n, _ = q.shape
     g = g.contiguous()  # an expanded or strided cotangent is copied, not refused
     dh = _check_v1(q, k, v, g)
     lib = load_library(V1_BWD_KERNEL, _V1_BWD_SIGNATURES)
-    body = BODIES[lib.m3l_flash_bwd_body(n, dh, q.element_size())]
-    _check_smem(lib.m3l_flash_bwd_smem_bytes(n, dh, q.element_size()), q, dh)
+    body = BODIES[lib.m3l_flash_bwd_body(q.element_size())]
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    stats = _bwd_stats(body, (bh, n, 3), q.device)
+    stats = _bwd_scratch(lib.m3l_flash_bwd_scratch_floats(bh, n, dh, q.element_size()), q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.m3l_flash_bwd(

@@ -9,6 +9,9 @@ import torch
 from m3l_tpu_torch.cli import train as cli
 from m3l_tpu_torch.envs import FakeInsertionEnv, FrameStack, SharedMemoryVecEnv, SubprocVecEnv, SyncVecEnv, make_env, make_vec_env
 from m3l_tpu_torch.utils.loggers import TensorBoardLogger
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TINY = ["--env", "FakeInsertion", "--n_envs", "2", "--rollout_length", "32", "--batch_size", "16", "--ppo_epochs", "1",
         "--dim_embedding", "64", "--frame_stack", "2", "--mae_batch_size", "8", "--compute_dtype", "float32",

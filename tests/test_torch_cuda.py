@@ -10,8 +10,10 @@ times the sums over |terms|. The split-head (v1) kernels are held to the same bo
 results on the same numbers, bit for bit: both pairs run the same kernel bodies. The bf16
 forward runs on the tensor cores (one pass, the unnormalised probabilities rounded to bf16),
 the f32 forward on the CUDA cores; the bf16 backward runs on the tensor cores (A and dS split
-into two bf16 terms) wherever its head fits that body's shared memory, the f32 backward on the
-CUDA cores. ``FWD_BODY_LAUNCHES`` and ``BWD_BODY_LAUNCHES`` show which body served a launch.
+into two bf16 terms), the f32 backward on the CUDA cores. ``FWD_BODY_LAUNCHES`` and
+``BWD_BODY_LAUNCHES`` show which body served a launch. Every body takes heads of any length: a
+head too long for shared memory streams through it in tiles (``LENGTH_EDGES``: the longest head
+each body staged whole, and one more).
 """
 from collections import Counter
 
@@ -173,15 +175,20 @@ def test_bf16_fwd_past_the_cuda_core_body_shared_memory(card, n, dh):
 
 
 def _bwd_case(card, b, n, h, dh, dtype, mask):
-    """One packed backward launch against its plain version; returns the body that served it."""
+    """One backward launch of each interface against the plain version; the two equal bit for
+    bit. Returns the body that served them."""
     qkv, cot, _ = _inputs(card, b, n, h, dh, dtype, False)
     bodies = Counter(BWD_BODY_LAUNCHES)
     out = fa._launch_bwd(qkv, cot, h, None if mask is None else fa._key_bias(mask), dh**-0.5)
+    q, k, v = _split(qkv, h)
+    bias_v1 = None if mask is None else fa._key_bias(fa._v1_mask(mask, h))
+    grads = fa._launch_v1_bwd(*(fa._collapse(t) for t in (q, k, v, cot.view(b, n, h, dh))), bias_v1, dh**-0.5)
     torch.cuda.synchronize()
-    (body,) = (BWD_BODY_LAUNCHES - bodies).elements()
+    body, other = (BWD_BODY_LAUNCHES - bodies).elements()
     ref = flash_attention_qkv_bwd_reference(qkv, cot, h, key_mask=mask)
     tol = flash_attention_qkv_bwd_tolerance(qkv, cot, h, ref, key_mask=mask)
     assert out.dtype == dtype and torch.isfinite(out).all() and ((out.float() - ref.float()).abs() <= tol).all()
+    assert body == other and torch.equal(torch.cat([fa._uncollapse(t, h).reshape(b, n, h * dh) for t in grads], dim=-1), out)
     return body
 
 
@@ -220,10 +227,62 @@ def test_bwd_body_at_the_model_shapes(card, dtype):
 
 
 @pytest.mark.parametrize("n,dh", [(240, 128), (400, 64)])
-def test_bf16_bwd_past_the_tensor_core_shared_memory_takes_the_cuda_core_body(card, n, dh):
-    """The shape rule: a bf16 head whose staged Q, K, V, g exceed the 227 KB a block can use
-    (N > 208 at Dh = 128, N > 384 at Dh = 64) goes to the CUDA-core passes, still within bound."""
-    assert _bwd_case(card, 2, n, 1, dh, torch.bfloat16, None) == "cuda_core"
+def test_bf16_bwd_past_the_whole_head_shared_memory_stays_on_the_tensor_cores(card, n, dh):
+    """A bf16 head whose staged Q, K, V, g exceed the 227 KB a block can use (N > 208 at Dh = 128,
+    N > 384 at Dh = 64) streams through the tensor-core body in tiles, within bound."""
+    assert _bwd_case(card, 2, n, 1, dh, torch.bfloat16, None) == "tensor_core"
+
+
+# The longest head each body staged whole (in one tile) and one more, per direction, dtype and
+# head dim; the bf16 backward also at the CUDA-core passes' old limit (406 / 253), which took
+# bf16 heads past its own.
+LENGTH_EDGES = [
+    ("fwd", torch.bfloat16, 64, (784, 785)),
+    ("fwd", torch.bfloat16, 128, (416, 417)),
+    ("bwd", torch.bfloat16, 64, (384, 385, 406, 407)),
+    ("bwd", torch.bfloat16, 128, (208, 209, 253, 254)),
+    ("fwd", torch.float32, 64, (348, 349)),
+    ("fwd", torch.float32, 128, (186, 187)),
+    ("bwd", torch.float32, 64, (274, 275)),
+    ("bwd", torch.float32, 128, (153, 154)),
+]
+
+
+def _key_mask(card, n, masked):
+    if not masked:
+        return None
+    mask = torch.rand(2, n, generator=torch.Generator(device=card).manual_seed(2), device=card) > 0.3
+    mask[:, 0] = True
+    return mask
+
+
+@pytest.mark.parametrize("direction,dtype,dh,n", [(d, t, dh, n) for d, t, dh, ns in LENGTH_EDGES for n in ns])
+@pytest.mark.parametrize("masked", [False, True])
+def test_heads_of_any_length(card, direction, dtype, dh, n, masked):
+    """No body has a length limit: each side of each old whole-head limit is within bound, both
+    interfaces agree bit for bit, and bf16 stays on the tensor cores, f32 on the CUDA cores."""
+    case = _fwd_case if direction == "fwd" else _bwd_case
+    body = case(card, 2, n, 2, dh, dtype, _key_mask(card, n, masked))
+    assert body == ("tensor_core" if dtype == torch.bfloat16 else "cuda_core")
+
+
+@pytest.mark.parametrize("dtype,n", [(torch.bfloat16, 784), (torch.float32, 400)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_long_heads_forward_and_backward(card, dtype, n, masked):
+    """N = 784 (8 frames at tubelet 2 on a 14 x 14 grid) in bf16 and N = 400 in f32, four heads of
+    64, through autograd: the forward and the backward within the plain versions' bounds."""
+    b, h, dh = 2, 4, 64
+    qkv, cot, _ = _inputs(card, b, n, h, dh, dtype, False)
+    mask = _key_mask(card, n, masked)
+    x = qkv.clone().requires_grad_(True)
+    out = flash_attention_qkv(x, h, key_mask=mask)
+    (grad,) = torch.autograd.grad(out, x, cot)
+    torch.cuda.synchronize()
+    ref = flash_attention_qkv_reference(qkv, h, key_mask=mask)
+    assert ((out.float() - ref.float()).abs() <= flash_attention_qkv_tolerance(qkv, h, ref, key_mask=mask)).all()
+    ref = flash_attention_qkv_bwd_reference(qkv, cot, h, key_mask=mask)
+    tol = flash_attention_qkv_bwd_tolerance(qkv, cot, h, ref, key_mask=mask)
+    assert torch.isfinite(grad).all() and ((grad.float() - ref.float()).abs() <= tol).all()
 
 
 def test_kernel_refuses_inputs_it_does_not_take(card):

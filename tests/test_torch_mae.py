@@ -20,6 +20,9 @@ from m3l_tpu.ops.masking import ModalMask as JModalMask, gather_tokens as jgathe
 from m3l_tpu_torch.models import VTT, VTMAE, VTTConfig
 from m3l_tpu_torch.ops.masking import gather_tokens, mask_from_indices, random_modal_masking, restore_tokens
 from m3l_tpu_torch.utils.convert import _target, load_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 SIZES, MASKED = [64, 64, 64], [60, 61, 61]  # 95% of 192 tokens, the reference's split

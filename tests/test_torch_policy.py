@@ -18,6 +18,9 @@ from m3l_tpu.rl import ActorCritic as JActorCritic, MAEFeatures as JMAEFeatures
 from m3l_tpu_torch.models import VTTConfig
 from m3l_tpu_torch.serve import PolicyServer, build_policy
 from m3l_tpu_torch.utils.convert import load_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 LOW, HIGH = [-0.05, -1.0, -0.02], [0.05, 1.0, 0.02]

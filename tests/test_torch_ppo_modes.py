@@ -27,6 +27,9 @@ from m3l_tpu_torch.train.checkpoint import latest_checkpoint, load_checkpoint, s
 from m3l_tpu_torch.train.optim import FlatAdam
 from m3l_tpu_torch.utils.convert import load_jax_params
 from test_torch_train_phase import BATCH, EPOCHS, FS, LR, N_ENVS, N_STEPS, TOL, flat_state, jax_policy, port_env, port_policy, rollout
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 MAE_BS = 8
 TARGET_KL = 1e-2  # first update's approx_kl: 0 joint, ~7e-3 separate; second: ~3e-2 and ~7e-2

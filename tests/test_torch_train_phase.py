@@ -28,6 +28,9 @@ from m3l_tpu_torch.ops.masking import mask_from_indices
 from m3l_tpu_torch.rl import PPOMAE
 from m3l_tpu_torch.serve import build_policy
 from m3l_tpu_torch.utils.convert import load_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FS, N_ENVS, N_STEPS, EPOCHS, LR = 2, 2, 8, 2, 1e-4
 BATCH = N_ENVS * N_STEPS
