@@ -57,20 +57,37 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    transitions), learning_starts (512 of 10,000), total_timesteps (a few hundred of 3,000,000)
    and, for speed, 4 envs where the CLI's default is 1; widths, depth, tokens and batches are
    full.
+9. the SSL pretraining slice at full width (config/experiment/mae_vit.yaml: ViT-small, dim 384,
+   12 layers of 6 heads x 64, 196 patches of 16 on 224 x 224 x 6, mask 0.75 so 49 kept; the
+   masked-query decoder, 8 cross-attention blocks at 512 wide; f32; batch 64): (a) one f32 step
+   of the MAEModule on the card against the same weights, batch and masking noise on the CPU,
+   at batch 8 (SSL_F32_TOL); (b) ``cli.pretrain.main`` at the config's defaults on 197 synthetic
+   frames (192 windows at stride 5: 3 steps an epoch) for 2 epochs: finite losses, and every
+   Trainer step launches exactly 12 forward and 12 backward packed kernels on the CUDA-core
+   bodies; steps/s and images/s are printed, the first step excluded; (c) a fresh ``main`` with
+   3 epochs resumes: before it fits, global_step 6, epoch 2, the parameters and AdamW's moments
+   equal the saved ones on the card; (d) the bf16 encoder: 12 + 12 launches a step, all on the
+   tensor cores; (e) the He-style decoder: 20 + 20 launches a step (Dh 32 at N=196 in the
+   decoder); (f) one full-image forward of the encoder (N=196): 12 launches, against the CPU.
+   Cut from the reference workload: the data (197 random frames) and the epochs (2 of 200);
+   widths, depth, tokens and the batch are full. Checkpoints go under ``smoke_checkpoints/``.
 
-Phase 3 also holds both packed kernels to their plain versions on each side of each whole-head
-limit the bodies had before they streamed long heads (LENGTH_CASES, B=2, H=4, with and without a
-key mask: no body has a length limit now), and times bf16 and f32 at B=2, N=784, Dh=64.
+Phase 3 also holds both packed kernels to their plain versions at the SSL slice's shapes
+(SSL_SHAPES: (64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32), f32 and bf16, with and without
+a key mask) and times them; and on each side of each whole-head limit the bodies had before they
+streamed long heads (LENGTH_CASES, B=2, H=4, with and without a key mask: no body has a length
+limit now), and times bf16 and f32 at B=2, N=784, Dh=64.
 
 Each phase after the kernel checks runs with the launch counts set to 0 just before it and read
 just after; phases 4-8 also fail unless every bf16 forward launch, and in phases 5-8 every bf16
-backward launch, took the tensor-core body.
+backward launch, took the tensor-core body; phase 9 holds every launch to its dtype's body.
 The last lines are a {"kernels": [...]} JSON line, {"slice": ...}, {"train": ...},
-{"bench_attention": ...}, {"cli": ...} and {"sac": ...} JSON lines, the card line as nvidia-smi
-prints it, and {"ok": true, "device": {...}}.
+{"bench_attention": ...}, {"cli": ...}, {"sac": ...} and {"ssl": ...} JSON lines, the card line
+as nvidia-smi prints it, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import copy
 import json
 import shutil
 import statistics
@@ -85,6 +102,7 @@ import torch
 import torch.nn.functional as F
 
 from m3l_tpu_torch import bench_attention
+from m3l_tpu_torch.cli import pretrain as pretrain_cli
 from m3l_tpu_torch.cli import train as train_cli
 from m3l_tpu_torch.cli import train_sacmae as sac_cli_module
 from m3l_tpu_torch.envs import SyncVecEnv, make_env
@@ -111,6 +129,9 @@ from m3l_tpu_torch.profile_paths import random_minibatch
 from m3l_tpu_torch.models import VTMAE, VTT, VTTConfig
 from m3l_tpu_torch.rl import PPOMAE, SACMAE, MAEFeatures, SACActorCritic
 from m3l_tpu_torch.serve import PolicyServer, build_policy, random_obs
+from m3l_tpu_torch.ssl import MAEModule
+from m3l_tpu_torch.train import Trainer, load_checkpoint
+from m3l_tpu_torch.utils.config import instantiate, load_config
 
 # H100 SXM data sheet: HBM rate and dense peak rates per compute type
 HBM_BYTES_PER_S = 3.35e12
@@ -146,6 +167,9 @@ SERVE_B, SERVE_N, SERVE_H, SERVE_DH = 512, 192, 4, 64  # attention at the batch-
 TRAIN_N_KEPT = 10  # the MAE encoder's tokens at mask ratio 0.95
 TRAIN_ENVS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_EPOCHS, CHECK_BATCH = 8, 128, 512, 2, 64
 TRAIN_TIMED_UPDATES = 5
+# the packed attention of the SSL slice (ViT-small MAE, batch 64): the masked encoder (49 of 196
+# patches kept), the full-image encoder, and the He-style decoder (512 wide, 16 heads)
+SSL_SHAPES = [(64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32)]
 ALL_KERNELS = (KERNEL, BWD_KERNEL, V1_KERNEL, V1_BWD_KERNEL)
 CKPT_DIR = Path(__file__).resolve().parent / "smoke_checkpoints"
 
@@ -209,7 +233,7 @@ def check_attention() -> dict:
     fwd = [(b, n, 4, 64) for b in (8, 512) for n in (10, 192)] + [(64, 196, 16, 64)]
     bwd = [(512, 192, 4, 64), (512, TRAIN_N_KEPT, 4, 64), (8, 192, 4, 64), (64, 196, 16, 64)]
     errs = {}
-    for kind, shapes in (("forward", fwd), ("backward", bwd), ("v1 forward", bwd), ("v1 backward", bwd)):
+    for kind, shapes in (("forward", fwd + SSL_SHAPES), ("backward", bwd + SSL_SHAPES), ("v1 forward", bwd), ("v1 backward", bwd)):
         cases = [(s, dt, m) for s in shapes for dt in (torch.bfloat16, torch.float32) for m in (False, True)]
         for i, ((b, n, h, dh), dtype, masked) in enumerate(cases):
             qkv, cot, mask = packed_qkv(b, n, h, dh, dtype, masked, seed=i)
@@ -861,6 +885,169 @@ def sac_phase() -> dict:
     out["cli"] = sac_cli()
     return out
 
+SSL_CONFIG = str(Path(__file__).resolve().parent / "config" / "experiment" / "mae_vit.yaml")
+SSL_CHECK_BATCH, SSL_BATCH, SSL_SYNTHETIC = 8, 64, 197  # 197 frames at stride 5: 192 windows, 3 batches of 64
+# One f32 MAE step at full width (ViT-small + the masked-query decoder), card vs CPU (TF32 off), the
+# same weights, batch and masking noise, warm-up 0 so the first step moves the parameters: the
+# loss relative to its magnitude, each parameter's gradient relative to its norm, and each
+# parameter after AdamW relative to the learning rate, beyond the difference of Adam's first
+# steps lr * g / (|g| + eps) that the two gradients imply (the key third of every qkv bias has a
+# gradient that is zero analytically, so f32 noise, and Adam makes it a step of up to lr). On the
+# H100 these seeds gave 0 (the losses equal), 4.454e-7 and 1.186e-3 (one ulp of a parameter near
+# 1, at lr 1e-4): the bounds are about ten ulps of the loss and ~10x the other two.
+SSL_F32_TOL = dict(loss_rel=1e-6, grad_rel=5e-6, param_per_lr=1.2e-2)
+SSL_FULL_TOL = 3e-5  # the full-image encoder's normalised tokens, card vs CPU (f32), absolute: ~10x the 2.921e-6 measured
+
+
+def ssl_models(overrides=()):
+    """The config's encoder and MAEModule (f32, seeded weights), built on the CPU."""
+    cfg = load_config(SSL_CONFIG, list(overrides))
+    return instantiate(cfg["model"]["algorithm"])(instantiate(cfg["model"]["encoder"]))
+
+
+def ssl_step(module: MAEModule, x: torch.Tensor, noise: torch.Tensor):
+    """One MAE step of ``module`` on ``x`` with the masking ``noise``: the loss, every gradient
+    and the parameters after the optimizer's first update."""
+    module.sample_noise = lambda b, g: noise.to(x.device)
+    opt = module.configure_optimizer(3, 2)
+    loss, _ = module.training_loss({"image": x}, None, 0)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in module.named_parameters()}
+    opt.step()
+    return loss.item(), grads, {n: p.detach() for n, p in module.named_parameters()}, opt
+
+
+def ssl_check() -> dict:
+    """(a) One f32 step at full width on the card against the CPU."""
+    cpu = ssl_models(["model.algorithm.warmup_epochs=0"])
+    card = copy.deepcopy(cpu).to("cuda")
+    enc = cpu.encoder
+    x = torch.from_numpy(np.random.default_rng(0).random((SSL_CHECK_BATCH, *enc.img_size, enc.in_chans), dtype=np.float32))
+    noise = torch.rand((SSL_CHECK_BATCH, cpu.num_patches), generator=torch.Generator().manual_seed(0))
+    la, ga, pa, opt = ssl_step(card, x.cuda(), noise)
+    lb, gb, pb, _ = ssl_step(cpu, x, noise)
+    torch.cuda.synchronize()
+    lr, eps = opt.learning_rate(0), opt.adamw.param_groups[0]["eps"]
+    grad_rel, param_per_lr = 0.0, 0.0
+    for name, g in gb.items():
+        a = ga[name].cpu()
+        grad_rel = max(grad_rel, ((a - g).norm() / g.norm()).item())
+        implied = lr * (a / (a.abs() + eps) - g / (g.abs() + eps)).abs()
+        param_per_lr = max(param_per_lr, ((pa[name].cpu() - pb[name]).abs() - implied).max().item() / lr)
+    return dict(loss_rel=abs(la - lb) / abs(lb), grad_rel=grad_rel, param_per_lr=param_per_lr, loss=lb, lr=lr, batch=SSL_CHECK_BATCH)
+
+
+def ssl_run(name: str, overrides: list, layers: int, body: str, ckpt: Path, epochs: int = 2, resume_check=None) -> dict:
+    """``cli.pretrain.main`` on the card at the config's defaults plus ``overrides``: every
+    Trainer step must launch ``layers`` forward and ``layers`` backward packed kernels, all on
+    ``body``. Returns the history, the launches, and the synchronised step times."""
+    steps, train_step, try_resume = [], Trainer.train_step, Trainer._try_resume
+    last_end = [time.perf_counter()]
+
+    def counted_step(self, module, optimizer, batch):
+        start, fwd0, bwd0 = Counter(LAUNCHES), Counter(FWD_BODY_LAUNCHES), Counter(BWD_BODY_LAUNCHES)
+        t0 = time.perf_counter()
+        out = train_step(self, module, optimizer, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        steps.append(dict(step_s=t1 - t0, fetch_s=t0 - last_end[0], launches={k: LAUNCHES[k] - start[k] for k in ALL_KERNELS},
+                          fwd_bodies=dict(FWD_BODY_LAUNCHES - fwd0), bwd_bodies=dict(BWD_BODY_LAUNCHES - bwd0)))
+        last_end[0] = t1
+        return out
+
+    def checked_resume(self, module, optimizer):
+        resumed = try_resume(self, module, optimizer)
+        if resume_check is not None:
+            resume_check(self, module, optimizer, resumed)
+        last_end[0] = time.perf_counter()
+        return resumed
+
+    argv = ["--config", SSL_CONFIG, "--synthetic", str(SSL_SYNTHETIC), f"trainer.max_epochs={epochs}", f"ckpt_dir={ckpt}", *overrides]
+    Trainer.train_step, Trainer._try_resume = counted_step, checked_resume
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        trainer, module, history = pretrain_cli.main(argv)
+    finally:
+        Trainer.train_step, Trainer._try_resume = train_step, try_resume
+    main_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    want = {KERNEL: layers, BWD_KERNEL: layers, V1_KERNEL: 0, V1_BWD_KERNEL: 0}
+    for i, st in enumerate(steps):
+        if st["launches"] != want or st["fwd_bodies"] != {body: layers} or st["bwd_bodies"] != {body: layers}:
+            fail(f"ssl {name}: step {i} launched {st['launches']} on bodies {st['fwd_bodies']} / {st['bwd_bodies']}, expected {want} on {body}")
+    losses = [h["train_loss"] for h in history]
+    if not steps or not all(np.isfinite(losses)) or not all(torch.isfinite(p).all() for p in module.parameters()):
+        fail(f"ssl {name}: {len(steps)} steps, losses {losses}")
+    timed = steps[1:]  # the first step pays cuBLAS set-up and allocation
+    step_s = statistics.mean(st["step_s"] for st in timed)
+    out = dict(main_s=main_s, steps=len(steps), global_step=trainer.global_step, epochs=[h["epoch"] for h in history], losses=losses,
+               launches={k: LAUNCHES[k] for k in ALL_KERNELS}, launches_per_step=dict(want), body=body,
+               step_ms=[st["step_s"] * 1e3 for st in steps], fetch_ms=[st["fetch_s"] * 1e3 for st in steps],
+               steps_per_s=1.0 / step_s, images_per_s=SSL_BATCH / step_s)
+    print(f"  ssl {name}: main() {main_s:.1f} s, {len(steps)} steps, losses {[round(v, 4) for v in losses]}; step "
+          f"{step_s * 1e3:.2f} ms ({out['steps_per_s']:.2f} steps/s, {out['images_per_s']:.1f} images/s, first step excluded); "
+          f"loader + copy {statistics.median(out['fetch_ms'][1:]):.1f} ms median; {layers} + {layers} launches a step on {body}")
+    return dict(out, trainer=trainer, module=module)
+
+
+def ssl_phase() -> dict:
+    """Phase 9: the SSL pretraining slice at full width through cli.pretrain and its Trainer."""
+    out = {}
+    t0 = time.perf_counter()
+    e = out["f32_check"] = ssl_check()
+    print(f"  ssl (a): one f32 step at batch {SSL_CHECK_BATCH}, card vs CPU ({time.perf_counter() - t0:.1f} s): loss rel err "
+          f"{e['loss_rel']:.3e}, grad err/|grad| {e['grad_rel']:.3e}, param err/lr {e['param_per_lr']:.3e}; tol {SSL_F32_TOL}")
+    if any(e[k] > SSL_F32_TOL[k] for k in SSL_F32_TOL):
+        fail("the f32 MAE step on the card disagrees with the CPU")
+    e["tol"] = SSL_F32_TOL
+    ckpt = CKPT_DIR / "ssl"
+    try:
+        runs = {}
+        runs["cli"] = ssl_run("(b) cli f32", [], 12, "cuda_core", ckpt)
+        steps = runs["cli"]["global_step"]  # 2 epochs
+        saved = load_checkpoint(ckpt / "last.ckpt", map_location="cuda")
+        restored = {}
+
+        def resume_check(trainer, module, optimizer, resumed):
+            state = optimizer.adamw.state_dict()["state"]
+            restored.update(resumed=resumed, step=trainer.global_step, epoch=trainer.current_epoch,
+                            model=all(torch.equal(a, saved["model"][k]) and a.is_cuda for k, a in module.state_dict().items()),
+                            moments=all(torch.equal(s[m], saved["opt"]["adamw"]["state"][i][m]) and s[m].is_cuda
+                                        for i, s in state.items() for m in ("exp_avg", "exp_avg_sq")),
+                            count=optimizer.count == saved["opt"]["count"])
+
+        runs["resume"] = ssl_run("(c) resume", [], 12, "cuda_core", ckpt, epochs=3, resume_check=resume_check)
+        if restored != dict(resumed=True, step=steps, epoch=2, model=True, moments=True, count=True) or runs["resume"]["global_step"] != steps * 3 // 2:
+            fail(f"ssl resume: restored {restored}, ended at step {runs['resume']['global_step']}")
+        print(f"  ssl (c): restored global_step {steps} and epoch 2; parameters and AdamW moments equal the saved ones on the card")
+        runs["bf16"] = ssl_run("(d) bf16 encoder", ["model.encoder.compute_dtype=bfloat16"], 12, "tensor_core", ckpt / "bf16")
+        runs["he"] = ssl_run("(e) He-style decoder", ["model.algorithm.decode_masked_only=false"], 20, "cuda_core", ckpt / "he")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    encoder = runs["cli"]["module"].encoder  # f32
+    for r in runs.values():
+        del r["trainer"], r["module"]
+    # (f) the full-image encoder (N = 196): one forward, 12 launches, against the CPU on two images
+    x = torch.from_numpy(np.random.default_rng(1).random((SSL_BATCH, *encoder.img_size, encoder.in_chans), dtype=np.float32)).cuda()
+    reset_launches()
+    with torch.no_grad():
+        feats = encoder.get_intermediate_layers(x, n=4)
+    torch.cuda.synchronize()
+    launches = {k: LAUNCHES[k] for k in ALL_KERNELS}
+    if launches != {KERNEL: 12, BWD_KERNEL: 0, V1_KERNEL: 0, V1_BWD_KERNEL: 0} or dict(FWD_BODY_LAUNCHES) != {"cuda_core": 12}:
+        fail(f"ssl full-image forward launched {launches} on {dict(FWD_BODY_LAUNCHES)}, expected 12 forward on the CUDA cores")
+    with torch.no_grad():
+        ref = copy.deepcopy(encoder).cpu().get_intermediate_layers(x[:2].cpu(), n=4)
+    err = max((a[:2].cpu() - b).abs().max().item() for a, b in zip(feats, ref))
+    shape = (SSL_BATCH, encoder.num_patches, encoder.embed_dim)  # (64, 196, 384)
+    if len(feats) != 4 or any(f.shape != shape or not torch.isfinite(f).all() for f in feats) or err > SSL_FULL_TOL:
+        fail(f"ssl full-image forward: shapes {[tuple(f.shape) for f in feats]}, max err vs CPU {err:.3e} (tol {SSL_FULL_TOL})")
+    print(f"  ssl (f): full-image encoder forward at N={shape[1]}: {launches[KERNEL]} launches; last 4 blocks {shape}; max err vs CPU "
+          f"{err:.3e} (tol {SSL_FULL_TOL})")
+    out.update(runs, full_image=dict(launches=launches, max_abs_err_vs_cpu=err, tol=SSL_FULL_TOL))
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -893,6 +1080,13 @@ def main() -> int:
             print(f"  {kind} B={b} N={n} H={SERVE_H} Dh={SERVE_DH} bf16: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
                   f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bytes']} B, {t['flops']} FLOP)")
 
+    for b, n, h, dh in SSL_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for kind, fn in (("forward", time_attention), ("backward", time_attention_bwd)):
+                t = timed[kind, b, n, h, dh, dtype] = fn(b, n, h, dh, dtype)
+                print(f"  {kind} B={b} N={n} H={h} Dh={dh} {str(dtype)[6:]}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                      f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bytes']} B, {t['flops']} FLOP)")
+
     print("[3b] heads of any length: each side of each old whole-head limit")
     length_worst = check_lengths()
     print(f"  largest err/tol: {json.dumps(length_worst)}")
@@ -922,12 +1116,22 @@ def main() -> int:
     print("[8] SAC+MAE slice")
     sac = sac_phase()
 
+    print("[9] SSL pretraining slice")
+    ssl = ssl_phase()
+
     def by_path(name):
         """The kernel's launches in each path's run (counts set to 0 just before it)."""
         return dict(serve=sl["attention_launches"] if name == KERNEL else 0, train=tr["launches"].get(name, 0),
                     bench_v2=bench["v2"]["launches"].get(name, 0), bench_v1=bench["v1"]["launches"].get(name, 0),
                     **{f"cli_{mode}": cli[mode]["launches"][name] for mode in ("joint", "separate", "plain", "resume")},
-                    **{f"sac_{run}": sac[run]["launches"][name] for run in ("separate_host", "separate_device", "joint_host", "joint_device", "cli")})
+                    **{f"sac_{run}": sac[run]["launches"][name] for run in ("separate_host", "separate_device", "joint_host", "joint_device", "cli")},
+                    **{f"ssl_{run}": ssl[run]["launches"][name] for run in ("cli", "resume", "bf16", "he", "full_image")})
+
+    def ssl_shapes(kind):
+        """The packed kernel of this direction at the SSL slice's shapes, f32 and bf16."""
+        return [dict(B=b, N=n, H=h, Dh=dh, dtype=str(dt)[6:], **{k: timed[kind, b, n, h, dh, dt][k] for k in
+                                                                  ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+                for b, n, h, dh in SSL_SHAPES for dt in (torch.float32, torch.bfloat16)]
 
     def row(name, source, replaces, kind, path, err):
         t, t10 = timed[(kind, *n192)], timed[(kind, *n10)]
@@ -951,21 +1155,26 @@ def main() -> int:
     src, ref = "m3l_tpu_torch/csrc/", "m3l_tpu/nn/flash_attention.py:"
     kernels = [
         dict(row(KERNEL, src + "flash_attention_qkv_fwd.cu", ref + "263", "forward", "train", errs["forward"]),
-             batch8_ms=b8["ms"], batch8_plain_ms=b8["plain_ms"], batch8_library_ms=b8["library_ms"], batch8_bound_ms=b8["bound_ms"]),
-        row(BWD_KERNEL, src + "flash_attention_qkv_bwd.cu", ref + "280", "backward", "train", errs["backward"]),
+             batch8_ms=b8["ms"], batch8_plain_ms=b8["plain_ms"], batch8_library_ms=b8["library_ms"], batch8_bound_ms=b8["bound_ms"],
+             ssl_shapes=ssl_shapes("forward")),
+        dict(row(BWD_KERNEL, src + "flash_attention_qkv_bwd.cu", ref + "280", "backward", "train", errs["backward"]),
+             ssl_shapes=ssl_shapes("backward")),
         row(V1_KERNEL, src + "flash_attention_fwd.cu", ref + "40", "v1 forward", "bench_v1", errs["v1 forward"]),
         row(V1_BWD_KERNEL, src + "flash_attention_bwd.cu", ref + "55", "v1 backward", "bench_v1", errs["v1 backward"]),
     ]
-    # every bf16 launch of phases 3-7 took the tensor-core body of its direction (checked)
+    # every bf16 launch took the tensor-core body of its direction, every f32 launch (phase 9's f32
+    # runs) the CUDA-core body (checked)
     for k, name in zip(kernels, ("_fwd_qkv_kernel", "_bwd_qkv_kernel", "_fwd_kernel", "_bwd_kernel")):
         body_src = "flash_attention_fwd_mma.cuh" if "fwd" in name else "flash_attention_bwd_mma.cuh"
-        k.update(tpu_kernel=name, body="tensor_core", body_source=src + body_src)
+        k.update(tpu_kernel=name, body="tensor_core", body_source=src + body_src, f32_body="cuda_core",
+                 f32_body_source=src + "flash_attention_kernels.cuh")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"slice": sl}))
     print(json.dumps({"train": tr}))
     print(json.dumps({"bench_attention": bench}))
     print(json.dumps({"cli": cli}))
     print(json.dumps({"sac": sac}))
+    print(json.dumps({"ssl": ssl}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

@@ -6,17 +6,21 @@ code is PyTorch; every Pallas kernel of the JAX package becomes a hand-written C
 nothing of ``m3l_tpu``.
 
 Package layout:
-  utils/    device resolution, obs packing (vt_load), JAX-weight conversion, TensorBoard logger
+  utils/    device resolution, obs packing (vt_load), JAX-weight conversion, TensorBoard logger,
+            the YAML config tree with _target_ instantiation
   ops/      positional tables, NHWC patchify, modal masking
   nn/       flax-semantics layers, transformer stack, EarlyCNN, the attention kernel wrappers
-            (packed qkv and split-head v1)
-  models/   VTT, VTMAE (embeddings and the masked-reconstruction loss)
+            (packed qkv and split-head v1), the DINOv2-style ViT layers
+  models/   VTT, VTMAE (embeddings and the masked-reconstruction loss), the ViT zoo
   rl/       ActorCritic policy, PPOMAE (joint, separate and plain-PPO modes, target_kl,
-            checkpoints), GAE, rollout buffer, reward normalizer, callbacks
-  train/    FlatAdam, checkpoint files
+            checkpoints), GAE, rollout buffer, reward normalizer, callbacks; SAC+MAE
+  ssl/      the SSL module protocol and its AdamW, schedules, reconstruction decoders, MAE
+  data/     pickled sensor buffers, the frame-window dataset, the DataLoader (numpy)
+  train/    FlatAdam, checkpoint files, the SSL Trainer and the config builders
   envs/     host-side fake env, FrameStack, SyncVecEnv and the process pools, make_env
             (no gymnasium)
-  cli/      the training entry point (python -m m3l_tpu_torch.cli.train)
+  cli/      the entry points: PPO and SAC training (cli.train, cli.train_sacmae) and SSL
+            pretraining (python -m m3l_tpu_torch.cli.pretrain)
   kernels/  nvcc build + ctypes loading, launch counts
   csrc/     CUDA C++ sources (sm_90a)
   serve.py  build_policy + PolicyServer: raw obs -> actions on the card

@@ -1,0 +1,9 @@
+from .datasets import (  # noqa: F401
+    ArrayDataset,
+    DataLoader,
+    VisionTactileDataset,
+    background_difference,
+    load_pickle_dataset,
+    random_crop_resize,
+    random_flip,
+)

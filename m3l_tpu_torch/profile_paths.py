@@ -1,12 +1,15 @@
 """Where the time goes on the card: the full-width policy's serving requests and training
-minibatch updates under ``torch.profiler``.
+minibatch updates, and the SSL pretraining step, under ``torch.profiler``.
 
     python -m m3l_tpu_torch.profile_paths
 
 Serving, for batch 8 (the CLI's default env count) and batch 512 (the PPO minibatch): the host
 time per request (``PolicyServer.__call__``, raw numpy obs in, numpy actions out). Training:
 one joint PPO+MAE minibatch update (``PPOMAE.minibatch_update``, batch 512, bf16, a rollout
-minibatch already on the device), ending in a synchronise. For each: the host time per call
+minibatch already on the device), ending in a synchronise. SSL pretraining: one
+``Trainer.train_step`` of the MAE of ``config/experiment/mae_vit.yaml`` (ViT-small, f32, batch
+64, a batch already on the device), with the masked-query decoder and with the He-style one,
+ending in a synchronise. For each: the host time per call
 untraced and traced, the device time per call summed over the kernels and copies the profiler
 saw, the device's idle share of the untraced call (1 - device / host), and the top kernels by
 device time. Weights and inputs are random from seed 0; timing does not depend on them. The
@@ -17,6 +20,7 @@ from __future__ import annotations
 import json
 import time
 from collections import defaultdict
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -25,6 +29,8 @@ from torch.profiler import ProfilerActivity, profile
 from .envs import SyncVecEnv, make_env
 from .rl import PPOMAE
 from .serve import PolicyServer, build_policy, random_obs
+from .train import Trainer
+from .utils.config import instantiate, load_config
 
 FRAME_STACK = 4
 ACTION_DIM = 3
@@ -33,6 +39,8 @@ REQUESTS = 5
 TRAIN_BATCH = 512
 UPDATES = 3
 TOP = 12
+SSL_CONFIG = Path(__file__).resolve().parent.parent / "config" / "experiment" / "mae_vit.yaml"
+SSL_BATCH = 64
 
 
 def random_minibatch(rng: np.random.Generator, batch: int, device) -> dict:
@@ -97,6 +105,22 @@ def profile_training(rng: np.random.Generator) -> dict:
     return profiled(update, UPDATES, f"train update batch {TRAIN_BATCH}")
 
 
+def profile_ssl(rng: np.random.Generator, overrides=()) -> dict:
+    cfg = load_config(str(SSL_CONFIG), list(overrides))
+    module = instantiate(cfg["model"]["algorithm"])(instantiate(cfg["model"]["encoder"])).to("cuda")
+    trainer = Trainer(device="cuda", verbose=0)
+    optimizer = module.configure_optimizer(3, 200)
+    enc = module.encoder
+    batch = {"image": torch.from_numpy(rng.random((SSL_BATCH, *enc.img_size, enc.in_chans), dtype=np.float32)).cuda()}
+
+    def step():
+        trainer.train_step(module, optimizer, batch)
+        torch.cuda.synchronize()
+
+    decoder = "masked-query" if module.decode_masked_only else "He-style"
+    return profiled(step, UPDATES, f"ssl step batch {SSL_BATCH}, {decoder} decoder")
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.manual_seed(0)
@@ -104,6 +128,7 @@ def main() -> None:
     rng = np.random.default_rng(0)
     print(f"device: {torch.cuda.get_device_name(0)}")
     results = [profile_serving(server, batch, rng) for batch in BATCHES] + [profile_training(rng)]
+    results += [profile_ssl(rng, ov) for ov in ((), ("model.algorithm.decode_masked_only=false",))]
     for r in results:
         print(f"{r['path']}: host {r['host_ms_per_call']:.3f} ms/call ({r['traced_host_ms_per_call']:.3f} traced), device "
               f"{r['device_ms_per_call']:.3f} ms/call, idle share {r['device_idle_share']:.3f}, {r['device_ops_per_call']:.0f} device ops/call")

@@ -6,6 +6,11 @@ written to a temporary file beside the target and renamed over it, so a reader n
 half-written checkpoint and a save cut short leaves the previous one whole. Loading maps every
 tensor to the device the caller names: a resumed run's parameters and optimizer state stay on
 the model's device (the JAX restore loses device placement; see ``ROADMAP.md``).
+
+The SSL Trainer writes ``last.ckpt``, ``epoch-%04d.ckpt`` ({model: state dict, opt: the
+optimizer's state, global_step, current_epoch}) and ``task-%04d.ckpt`` (the trainable parameters
+only, with the two counts); the RL models write ``model_<steps>_steps.ckpt`` through their
+callbacks. :func:`latest_checkpoint` finds either kind.
 """
 from __future__ import annotations
 

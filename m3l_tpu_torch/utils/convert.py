@@ -7,13 +7,16 @@ the last component is converted by the kind of that submodule:
 
 * ``Linear``: ``kernel`` (in, out) -> ``weight`` (out, in); ``bias`` as is;
 * ``Conv2d``: ``kernel`` HWIO -> ``weight`` OIHW; ``bias`` as is;
+* ``Conv3d``: ``kernel`` (T, H, W, I, O) -> ``weight`` (O, I, T, H, W); ``bias`` as is;
 * ``LayerNorm``: ``scale`` -> ``weight``, ``bias`` -> ``bias``;
 * ``Embedding``: ``embedding`` -> ``weight``;
-* any other leaf (``log_std``, ``mask_token``, ``pos_embedding``) is a parameter of that name
-  and carries over as is.
+* any other leaf (``log_std``, ``mask_token``, ``pos_embedding``, ``register_tokens``, a
+  LayerScale's ``gamma``, a DINOHead's ``last_v`` / ``last_g``) is a parameter of that name and
+  carries over as is.
 
 Every JAX key must be used and every torch parameter set, else it raises. The sin/cos tables
-are not parameters: the port recomputes them.
+(``_pos_table`` of the ViT and the SSL decoders, ``nnx.data`` in JAX) are not parameters: the
+port recomputes them.
 """
 from __future__ import annotations
 
@@ -31,6 +34,8 @@ def _target(module: nn.Module, leaf: str) -> tuple[str, Callable[[np.ndarray], n
         return {"kernel": ("weight", lambda a: a.T), "bias": ("bias", same)}[leaf]
     if isinstance(module, nn.Conv2d):
         return {"kernel": ("weight", lambda a: a.transpose(3, 2, 0, 1)), "bias": ("bias", same)}[leaf]
+    if isinstance(module, nn.Conv3d):
+        return {"kernel": ("weight", lambda a: a.transpose(4, 3, 0, 1, 2)), "bias": ("bias", same)}[leaf]
     if isinstance(module, nn.LayerNorm):
         return {"scale": ("weight", same), "bias": ("bias", same)}[leaf]
     if isinstance(module, nn.Embedding):

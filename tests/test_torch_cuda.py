@@ -15,6 +15,7 @@ into two bf16 terms), the f32 backward on the CUDA cores. ``FWD_BODY_LAUNCHES`` 
 head too long for shared memory streams through it in tiles (``LENGTH_EDGES``: the longest head
 each body staged whole, and one more).
 """
+import copy
 from collections import Counter
 
 import pytest
@@ -342,3 +343,71 @@ def test_v1_kernel_refuses_inputs_it_does_not_take(card):
         fa._launch_v1(x, x, torch.zeros(4, 64, 10, device=card).transpose(1, 2), None, 0.125)
     with pytest.raises(ValueError, match="every operand"):
         fa._launch_v1_bwd(x, x, x, torch.zeros(4, 10, 32, device=card), None, 0.125)
+
+
+# The SSL slice's shapes (ViT-small MAE at batch 64): the masked encoder (49 of 196 patches kept),
+# the full-image encoder, and the He-style decoder (512 wide, 16 heads of 32).
+SSL_SHAPES = [(64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,h,dh", SSL_SHAPES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_packed_pair_at_the_ssl_shapes(card, b, n, h, dh, dtype, masked):
+    """Forward and backward of both interfaces within bound at the SSL shapes, bf16 on the
+    tensor cores (Dh 32: two 16-wide k-steps), f32 on the CUDA cores (16 heads)."""
+    mask = None
+    if masked:
+        mask = torch.rand(b, n, generator=torch.Generator(device=card).manual_seed(2), device=card) > 0.3
+        mask[:, 0] = True
+    want = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+    assert _fwd_case(card, b, n, h, dh, dtype, mask) == want
+    assert _bwd_case(card, b, n, h, dh, dtype, mask) == want
+
+
+def test_f32_mae_step_matches_the_cpu(card):
+    """One f32 step of a small ViT + He-style MAE (both attention layers of the encoder and the
+    decoder's on the kernels) on the card against the same weights, batch and masking noise on
+    the CPU: the loss, each gradient relative to its norm, and the parameters after AdamW beyond
+    the difference of Adam's first steps lr * g / (|g| + eps) the two gradients imply (a gradient
+    that is zero analytically, as the key third of each qkv bias, is f32 noise that Adam turns
+    into a step of up to lr). The same checks as chip_smoke.py phase 9 (a), at 1e-5, 1e-5 and
+    1e-2 * lr."""
+    from m3l_tpu_torch.models.vit import VisionTransformer
+    from m3l_tpu_torch.ssl import MAEModule
+
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the patch conv in f32, as on the CPU
+    try:
+        _mae_step_errors(card, VisionTransformer, MAEModule)
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+
+
+def _mae_step_errors(card, VisionTransformer, MAEModule):
+    torch.manual_seed(0)
+    vit = VisionTransformer(img_size=(64, 64), patch_size=8, in_chans=6, embed_dim=128, depth=2, num_heads=2, pos_embed_fn="sinusoidal")
+    cpu = MAEModule(vit, decoder_embed_dim=64, decoder_depth=1, decoder_num_heads=2, warmup_epochs=0)
+    gpu = copy.deepcopy(cpu).to(card)
+    x = torch.rand(4, 64, 64, 6, generator=torch.Generator().manual_seed(1))
+    noise = torch.rand(4, cpu.num_patches, generator=torch.Generator().manual_seed(2))
+    results = []
+    for m, dev in ((gpu, card), (cpu, torch.device("cpu"))):
+        m.sample_noise = lambda b, g, dev=dev: noise.to(dev)
+        opt = m.configure_optimizer(2, 2)
+        start = Counter(LAUNCHES)
+        loss, _ = m.training_loss({"image": x.to(dev)}, None, 0)
+        loss.backward()
+        grads = {n: p.grad.detach().cpu().clone() for n, p in m.named_parameters()}
+        opt.step()
+        launched = {k: LAUNCHES[k] - start[k] for k in (KERNEL, BWD_KERNEL)}
+        results.append((loss.item(), grads, {n: p.detach().cpu() for n, p in m.named_parameters()}, launched, opt))
+    (la, ga, pa, launched, opt), (lb, gb, pb, _, _) = results
+    assert launched == {KERNEL: 3, BWD_KERNEL: 3}
+    assert abs(la - lb) <= 1e-5 * abs(lb)
+    lr, eps = opt.learning_rate(0), 1e-8
+    for name, g in gb.items():
+        a = ga[name]
+        assert (a - g).norm() <= 1e-5 * g.norm(), name
+        implied = lr * (a / (a.abs() + eps) - g / (g.abs() + eps)).abs()
+        assert ((pa[name] - pb[name]).abs() - implied).max() <= 1e-2 * lr, name

@@ -112,3 +112,17 @@ def test_library_path_is_keyed_on_source_and_flags(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
     (src / "k.cu").write_text("// one")
     assert build.library_path("k") != first
+
+
+def test_ssl_entry_points_default_to_the_card_and_raise_without_one():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default resolves to it")
+    from m3l_tpu_torch.cli import pretrain
+    from m3l_tpu_torch.train import Trainer
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer()
+    assert Trainer(device="cpu").device == torch.device("cpu")
+    # the CLI builds its Trainer first, so it raises before it builds a model
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pretrain.main(["--config", str(PKG.parent / "config" / "experiment" / "mae_vit.yaml"), "--synthetic", "8"])
