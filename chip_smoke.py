@@ -12,8 +12,8 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    the split-head v1 pair, which share their kernel bodies); then each timed beside
    its plain version, its byte/FLOP bound and one PyTorch library call that computes the same
    function (timed as a yardstick only; the port never calls it). Each case prints the body
-   that served it (bf16 on the tensor cores, f32 on the CUDA cores, forward and backward) and
-   fails on another;
+   that served it (bf16 "tensor_core", f32 "tf32x3": both on the tensor cores, forward and
+   backward) and fails on another;
 4. the serving slice: the full-width PPO+MAE policy (dim 256, 4 encoder layers + 1 post layer,
    bf16 compute, random weights from a seed) serves 8 requests of batch 8 and one of batch 512
    through PolicyServer; every forward must launch the attention kernel 5 times, and the
@@ -63,20 +63,22 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    of the MAEModule on the card against the same weights, batch and masking noise on the CPU,
    at batch 8 (SSL_F32_TOL); (b) ``cli.pretrain.main`` at the config's defaults on 197 synthetic
    frames (192 windows at stride 5: 3 steps an epoch) for 2 epochs: finite losses, and every
-   Trainer step launches exactly 12 forward and 12 backward packed kernels on the CUDA-core
+   Trainer step launches exactly 12 forward and 12 backward packed kernels on the 3xTF32
    bodies; steps/s and images/s are printed, the first step excluded; (c) a fresh ``main`` with
    3 epochs resumes: before it fits, global_step 6, epoch 2, the parameters and AdamW's moments
    equal the saved ones on the card; (d) the bf16 encoder: 12 + 12 launches a step, all on the
    tensor cores; (e) the He-style decoder: 20 + 20 launches a step (Dh 32 at N=196 in the
-   decoder); (f) one full-image forward of the encoder (N=196): 12 launches, against the CPU.
+   decoder); (f) one full-image forward of the encoder (N=196): 12 launches, against the CPU,
+   then timed.
    Cut from the reference workload: the data (197 random frames) and the epochs (2 of 200);
    widths, depth, tokens and the batch are full. Checkpoints go under ``smoke_checkpoints/``.
 
 Phase 3 also holds both packed kernels to their plain versions at the SSL slice's shapes
 (SSL_SHAPES: (64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32), f32 and bf16, with and without
-a key mask) and times them; and on each side of each whole-head limit the bodies had before they
-streamed long heads (LENGTH_CASES, B=2, H=4, with and without a key mask: no body has a length
-limit now), and times bf16 and f32 at B=2, N=784, Dh=64.
+a key mask) and times them there and at the training shape (512, 192, 4, 64); and on each side of
+each body's whole-head limit (LENGTH_CASES, B=2, H=4, with and without a key mask: a longer head
+streams in tiles, with the bits it would have staged whole), and times bf16 and f32 at B=2,
+N=784, Dh=64. It prints err/tol for each case.
 
 Each phase after the kernel checks runs with the launch counts set to 0 just before it and read
 just after; phases 4-8 also fail unless every bf16 forward launch, and in phases 5-8 every bf16
@@ -133,9 +135,11 @@ from m3l_tpu_torch.ssl import MAEModule
 from m3l_tpu_torch.train import Trainer, load_checkpoint
 from m3l_tpu_torch.utils.config import instantiate, load_config
 
-# H100 SXM data sheet: HBM rate and dense peak rates per compute type
+# H100 SXM data sheet: HBM rate and dense peak rates per compute type. f32 runs in 3xTF32 (three
+# TF32 tensor-core products for each f32 one), so its least time is 3 x FLOP over the 495 TFLOP/s
+# of TF32; the 67 TFLOP/s of f32 FMA is no bound for it.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 
 # The kernels against their plain versions: the elementwise bounds of
 # flash_attention_qkv_tolerance (f32 1e-5; bf16 one ulp of the output plus one ulp of each
@@ -170,6 +174,7 @@ TRAIN_TIMED_UPDATES = 5
 # the packed attention of the SSL slice (ViT-small MAE, batch 64): the masked encoder (49 of 196
 # patches kept), the full-image encoder, and the He-style decoder (512 wide, 16 heads)
 SSL_SHAPES = [(64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32)]
+TIMED_SHAPES = SSL_SHAPES + [(SERVE_B, SERVE_N, SERVE_H, SERVE_DH)]  # each timed in f32 and bf16
 ALL_KERNELS = (KERNEL, BWD_KERNEL, V1_KERNEL, V1_BWD_KERNEL)
 CKPT_DIR = Path(__file__).resolve().parent / "smoke_checkpoints"
 
@@ -263,7 +268,7 @@ def check_attention() -> dict:
             torch.cuda.synchronize()
             body = ",".join((counter - bodies).elements())
             err = report(kind, b, n, h, dh, dtype, masked, out, ref, tol, body)
-            want = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+            want = "tensor_core" if dtype == torch.bfloat16 else "tf32x3"
             if body != want:
                 fail(f"{kind} at {(b, n, h, dh, dtype, masked)} took the body {body!r}, expected {want!r}")
             if (b, n, h, dh, dtype, masked) == (SERVE_B, SERVE_N, SERVE_H, SERVE_DH, torch.bfloat16, False):
@@ -271,20 +276,21 @@ def check_attention() -> dict:
     return errs
 
 
-# The longest head each body staged whole (in one tile) and one more, per dtype and head dim: the
-# bf16 forward, the bf16 backward (and the old CUDA-core passes' limit, which took longer bf16
-# heads), the f32 forward and the f32 backward. Each runs forward and backward at B=2, H=4.
+# The longest head each body stages whole (in one tile) and one more, per dtype and head dim: the
+# bf16 backward (and the old CUDA-core passes' limit, which took longer bf16 heads), the bf16
+# forward, the f32 backward and the f32 forward (at Dh 128 both f32 limits are 208). Each runs
+# forward and backward at B=2, H=4.
 LENGTH_CASES = {
     (torch.bfloat16, 64): (384, 385, 406, 407, 784, 785),
     (torch.bfloat16, 128): (208, 209, 253, 254, 416, 417),
-    (torch.float32, 64): (274, 275, 348, 349),
-    (torch.float32, 128): (153, 154, 186, 187),
+    (torch.float32, 64): (400, 401, 416, 417),
+    (torch.float32, 128): (208, 209),
 }
 LONG_N = 784  # 8 frames at tubelet 2 on a 14 x 14 patch grid: timed in bf16 and f32
 
 
 def check_lengths() -> dict:
-    """Both packed kernels against their plain versions on each side of each old whole-head limit,
+    """Both packed kernels against their plain versions on each side of each whole-head limit,
     with and without a key mask; fails on a disagreement or a body other than its dtype's. Returns
     the largest err/tol per direction and dtype."""
     worst = {}
@@ -292,7 +298,7 @@ def check_lengths() -> dict:
         for n in ns:
             for masked in (False, True):
                 qkv, cot, mask = packed_qkv(2, n, 4, dh, dtype, masked, seed=n)
-                want = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+                want = "tensor_core" if dtype == torch.bfloat16 else "tf32x3"
                 for kind, counter in (("forward", FWD_BODY_LAUNCHES), ("backward", BWD_BODY_LAUNCHES)):
                     bodies = Counter(counter)
                     if kind == "forward":
@@ -315,11 +321,11 @@ def check_lengths() -> dict:
 
 def tensor_core_only(where: str) -> dict:
     """The forward and backward launches per body since the counts were last set to 0; fails
-    unless every one took the tensor-core body (every model path runs bf16 at shapes that fit it)."""
+    unless every one took the bf16 body (the paths that call this run bf16)."""
     out = {}
     for name, counter, kernels in (("fwd", FWD_BODY_LAUNCHES, (KERNEL, V1_KERNEL)), ("bwd", BWD_BODY_LAUNCHES, (BWD_KERNEL, V1_BWD_KERNEL))):
         bodies = out[name] = dict(counter)
-        if bodies.get("cuda_core", 0) or bodies.get("tensor_core", 0) != sum(LAUNCHES[k] for k in kernels):
+        if set(bodies) - {"tensor_core"} or bodies.get("tensor_core", 0) != sum(LAUNCHES[k] for k in kernels):
             fail(f"{where}: {name} launches by body {bodies}, expected all {dict(LAUNCHES)} on the tensor cores")
     return out
 
@@ -1004,7 +1010,7 @@ def ssl_phase() -> dict:
     ckpt = CKPT_DIR / "ssl"
     try:
         runs = {}
-        runs["cli"] = ssl_run("(b) cli f32", [], 12, "cuda_core", ckpt)
+        runs["cli"] = ssl_run("(b) cli f32", [], 12, "tf32x3", ckpt)
         steps = runs["cli"]["global_step"]  # 2 epochs
         saved = load_checkpoint(ckpt / "last.ckpt", map_location="cuda")
         restored = {}
@@ -1017,12 +1023,12 @@ def ssl_phase() -> dict:
                                         for i, s in state.items() for m in ("exp_avg", "exp_avg_sq")),
                             count=optimizer.count == saved["opt"]["count"])
 
-        runs["resume"] = ssl_run("(c) resume", [], 12, "cuda_core", ckpt, epochs=3, resume_check=resume_check)
+        runs["resume"] = ssl_run("(c) resume", [], 12, "tf32x3", ckpt, epochs=3, resume_check=resume_check)
         if restored != dict(resumed=True, step=steps, epoch=2, model=True, moments=True, count=True) or runs["resume"]["global_step"] != steps * 3 // 2:
             fail(f"ssl resume: restored {restored}, ended at step {runs['resume']['global_step']}")
         print(f"  ssl (c): restored global_step {steps} and epoch 2; parameters and AdamW moments equal the saved ones on the card")
         runs["bf16"] = ssl_run("(d) bf16 encoder", ["model.encoder.compute_dtype=bfloat16"], 12, "tensor_core", ckpt / "bf16")
-        runs["he"] = ssl_run("(e) He-style decoder", ["model.algorithm.decode_masked_only=false"], 20, "cuda_core", ckpt / "he")
+        runs["he"] = ssl_run("(e) He-style decoder", ["model.algorithm.decode_masked_only=false"], 20, "tf32x3", ckpt / "he")
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     encoder = runs["cli"]["module"].encoder  # f32
@@ -1035,17 +1041,24 @@ def ssl_phase() -> dict:
         feats = encoder.get_intermediate_layers(x, n=4)
     torch.cuda.synchronize()
     launches = {k: LAUNCHES[k] for k in ALL_KERNELS}
-    if launches != {KERNEL: 12, BWD_KERNEL: 0, V1_KERNEL: 0, V1_BWD_KERNEL: 0} or dict(FWD_BODY_LAUNCHES) != {"cuda_core": 12}:
-        fail(f"ssl full-image forward launched {launches} on {dict(FWD_BODY_LAUNCHES)}, expected 12 forward on the CUDA cores")
+    if launches != {KERNEL: 12, BWD_KERNEL: 0, V1_KERNEL: 0, V1_BWD_KERNEL: 0} or dict(FWD_BODY_LAUNCHES) != {"tf32x3": 12}:
+        fail(f"ssl full-image forward launched {launches} on {dict(FWD_BODY_LAUNCHES)}, expected 12 forward on the 3xTF32 body")
     with torch.no_grad():
         ref = copy.deepcopy(encoder).cpu().get_intermediate_layers(x[:2].cpu(), n=4)
     err = max((a[:2].cpu() - b).abs().max().item() for a, b in zip(feats, ref))
     shape = (SSL_BATCH, encoder.num_patches, encoder.embed_dim)  # (64, 196, 384)
     if len(feats) != 4 or any(f.shape != shape or not torch.isfinite(f).all() for f in feats) or err > SSL_FULL_TOL:
         fail(f"ssl full-image forward: shapes {[tuple(f.shape) for f in feats]}, max err vs CPU {err:.3e} (tol {SSL_FULL_TOL})")
+    full_ms = []
+    for _ in range(3):  # the synchronised forward, after the checked one
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            encoder.get_intermediate_layers(x, n=4)
+        torch.cuda.synchronize()
+        full_ms.append((time.perf_counter() - t0) * 1e3)
     print(f"  ssl (f): full-image encoder forward at N={shape[1]}: {launches[KERNEL]} launches; last 4 blocks {shape}; max err vs CPU "
-          f"{err:.3e} (tol {SSL_FULL_TOL})")
-    out.update(runs, full_image=dict(launches=launches, max_abs_err_vs_cpu=err, tol=SSL_FULL_TOL))
+          f"{err:.3e} (tol {SSL_FULL_TOL}); {statistics.median(full_ms):.2f} ms a forward (median of {len(full_ms)})")
+    out.update(runs, full_image=dict(launches=launches, max_abs_err_vs_cpu=err, tol=SSL_FULL_TOL, forward_ms=full_ms))
     return out
 
 
@@ -1080,14 +1093,14 @@ def main() -> int:
             print(f"  {kind} B={b} N={n} H={SERVE_H} Dh={SERVE_DH} bf16: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
                   f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bytes']} B, {t['flops']} FLOP)")
 
-    for b, n, h, dh in SSL_SHAPES:
+    for b, n, h, dh in TIMED_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             for kind, fn in (("forward", time_attention), ("backward", time_attention_bwd)):
                 t = timed[kind, b, n, h, dh, dtype] = fn(b, n, h, dh, dtype)
                 print(f"  {kind} B={b} N={n} H={h} Dh={dh} {str(dtype)[6:]}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
                       f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bytes']} B, {t['flops']} FLOP)")
 
-    print("[3b] heads of any length: each side of each old whole-head limit")
+    print("[3b] heads of any length: each side of each whole-head limit")
     length_worst = check_lengths()
     print(f"  largest err/tol: {json.dumps(length_worst)}")
     for dtype in (torch.bfloat16, torch.float32):
@@ -1128,10 +1141,10 @@ def main() -> int:
                     **{f"ssl_{run}": ssl[run]["launches"][name] for run in ("cli", "resume", "bf16", "he", "full_image")})
 
     def ssl_shapes(kind):
-        """The packed kernel of this direction at the SSL slice's shapes, f32 and bf16."""
+        """The packed kernel of this direction at the SSL slice's shapes and the training shape, f32 and bf16."""
         return [dict(B=b, N=n, H=h, Dh=dh, dtype=str(dt)[6:], **{k: timed[kind, b, n, h, dh, dt][k] for k in
                                                                   ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
-                for b, n, h, dh in SSL_SHAPES for dt in (torch.float32, torch.bfloat16)]
+                for b, n, h, dh in TIMED_SHAPES for dt in (torch.float32, torch.bfloat16)]
 
     def row(name, source, replaces, kind, path, err):
         t, t10 = timed[(kind, *n192)], timed[(kind, *n10)]
@@ -1162,12 +1175,12 @@ def main() -> int:
         row(V1_KERNEL, src + "flash_attention_fwd.cu", ref + "40", "v1 forward", "bench_v1", errs["v1 forward"]),
         row(V1_BWD_KERNEL, src + "flash_attention_bwd.cu", ref + "55", "v1 backward", "bench_v1", errs["v1 backward"]),
     ]
-    # every bf16 launch took the tensor-core body of its direction, every f32 launch (phase 9's f32
-    # runs) the CUDA-core body (checked)
+    # every bf16 launch took the bf16 body of its direction, every f32 launch (phase 9's f32 runs)
+    # the 3xTF32 body (checked)
     for k, name in zip(kernels, ("_fwd_qkv_kernel", "_bwd_qkv_kernel", "_fwd_kernel", "_bwd_kernel")):
-        body_src = "flash_attention_fwd_mma.cuh" if "fwd" in name else "flash_attention_bwd_mma.cuh"
-        k.update(tpu_kernel=name, body="tensor_core", body_source=src + body_src, f32_body="cuda_core",
-                 f32_body_source=src + "flash_attention_kernels.cuh")
+        direction = "fwd" if "fwd" in name else "bwd"
+        k.update(tpu_kernel=name, body="tensor_core", body_source=f"{src}flash_attention_{direction}_mma.cuh", f32_body="tf32x3",
+                 f32_body_source=f"{src}flash_attention_{direction}_tf32.cuh")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"slice": sl}))
     print(json.dumps({"train": tr}))

@@ -9,18 +9,21 @@ this tree's nvcc flags into ``kernels/_build/other/``. Both trees' kernels are c
 way, straight through those C entry points on preallocated outputs (the backward's f32 scratch
 sized for either tree), so a time is the kernel's and not the wrapper's.
 
-* At the shapes ``chip_smoke.py`` checks and a few more (``SHAPES``), where both trees run the
-  same body, every output of all four bodies (forward and backward, bf16 and f32) must be
+* At the shapes ``chip_smoke.py`` checks and a few more (``SHAPES``, with and without a key
+  mask), the bf16 bodies, which both trees share, must give every output (forward and backward)
   bitwise equal to the other tree's.
-* ``MOVED``: shapes whose body differs between the trees (a bf16 backward head the other tree
-  sent to the CUDA-core passes); the backward is held in both trees to its plain version's
-  bound, ``flash_attention_qkv_bwd_tolerance``, and max err/tol is printed.
+* ``MOVED``: the dtypes whose body differs between the trees (f32: the other tree's CUDA-core
+  bodies, this tree's 3xTF32 bodies). Both trees' forward and backward are held at every shape
+  to the plain versions' bounds, ``flash_attention_qkv_tolerance`` and
+  ``flash_attention_qkv_bwd_tolerance``, and max err/tol is printed.
 
-Registers, stack and spills of every kernel of both trees are printed (``ptxas -v``); the
-bodies are ``fwd_mma_kernel<KD>`` and ``bwd_mma_kernel<KD>`` for a head dim padded to 16 * KD.
+Registers, stack and spills of every kernel of both trees are printed (``ptxas -v``); this tree's
+bodies are ``fwd_mma_kernel<KD>``, ``bwd_mma_kernel<KD>`` (bf16), ``fwd_tf32_kernel<KD>`` and
+``bwd_tf32_kernel<KD>`` (f32) for a head dim padded to 16 * KD.
 
-Times are CUDA-event means at B=512, H=4, Dh=64 in bf16, in the order other, this, this, other,
-so drift of the card shows. Exits 1 if an output differs or a moved one leaves its bound.
+Times are CUDA-event means in the order other, this, this, other, so drift of the card shows:
+bf16 at B=512, N=192 and 10, H=4, Dh=64; the moved dtype at ``TIMED_MOVED``. Exits 1 if a shared
+body's output differs or a moved one leaves its bound.
 """
 from __future__ import annotations
 
@@ -36,10 +39,11 @@ from .nn import flash_attention as fa
 
 NAMES = {"flash_attention_qkv_fwd": fa._SIGNATURES, "flash_attention_qkv_bwd": fa._BWD_SIGNATURES}
 ENTRY = {"flash_attention_qkv_fwd": "m3l_flash_qkv_fwd", "flash_attention_qkv_bwd": "m3l_flash_qkv_bwd"}
-SHAPES = [(512, 192, 4, 64), (512, 10, 4, 64), (8, 192, 4, 64), (64, 196, 16, 64), (3, 1, 2, 8), (2, 33, 2, 128)]
-# bf16 only: a head past the old tensor-core backward's shared memory, which the other tree (before
-# long heads streamed) sent to the CUDA-core passes
-MOVED = [(2, 400, 1, 64)]
+SHAPES = [(512, 192, 4, 64), (512, 10, 4, 64), (8, 192, 4, 64), (64, 196, 16, 64), (3, 1, 2, 8), (2, 33, 2, 128),
+          (64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32), (2, 784, 4, 64), (2, 417, 2, 64), (2, 209, 2, 128)]
+MOVED = (torch.float32,)  # the dtypes whose body differs between the trees
+# the moved bodies timed in turns: the SSL slice's shapes, the training shape and a long head
+TIMED_MOVED = [(64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32), (512, 192, 4, 64), (2, 784, 4, 64)]
 
 
 def registers(nvcc: str, src: Path) -> list[str]:
@@ -91,7 +95,8 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def calls(libs, b, n, h, dh, dtype, masked, seed=0):
     """The forward and backward of the libraries ``libs`` as argument-free launches on seeded
     inputs, each writing its own preallocated output: both trees are called the same way. The
-    third function gives a backward output's max err/tol against the plain backward."""
+    third function gives the max err/tol of a forward and a backward output against the plain
+    versions."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     qkv = torch.randn(b, n, 3 * h * dh, generator=g, device="cuda").to(dtype)
     cot = torch.randn(b, n, h * dh, generator=g, device="cuda").to(dtype)
@@ -119,13 +124,16 @@ def calls(libs, b, n, h, dh, dtype, masked, seed=0):
             raise RuntimeError("backward launch failed")
         return out_b
 
-    def bwd_err_over_tol(out):
+    def err_over_tol(out_fwd, out_bwd):
         mask = None if bias is None else bias == 0
+        ref = fa.flash_attention_qkv_reference(qkv, h, key_mask=mask)
+        tol = fa.flash_attention_qkv_tolerance(qkv, h, ref, key_mask=mask)
+        fwd_r = ((out_fwd.float() - ref.float()).abs() / tol).max().item()
         ref = fa.flash_attention_qkv_bwd_reference(qkv, cot, h, key_mask=mask)
         tol = fa.flash_attention_qkv_bwd_tolerance(qkv, cot, h, ref, key_mask=mask)
-        return ((out.float() - ref.float()).abs() / tol).max().item()
+        return fwd_r, ((out_bwd.float() - ref.float()).abs() / tol).max().item()
 
-    return fwd, bwd, bwd_err_over_tol
+    return fwd, bwd, err_over_tol
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -140,27 +148,28 @@ def main(argv: list[str] | None = None) -> int:
     other = load_other(Path(args[0]))
     this = {name: load_library(name, sigs) for name, sigs in NAMES.items()}
     same = True
-    for b, n, h, dh in SHAPES + MOVED:
-        for dtype in (torch.bfloat16,) if (b, n, h, dh) in MOVED else (torch.bfloat16, torch.float32):
+    for b, n, h, dh in SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
             for masked in (False, True):
                 (this_f, this_b, ratio), (other_f, other_b, _) = (calls(libs, b, n, h, dh, dtype, masked) for libs in (this, other))
-                fwd_ok = torch.equal(this_f(), other_f())
-                line = f"forward {'bit-equal' if fwd_ok else 'DIFFERENT'}"
-                if (b, n, h, dh) in MOVED:
-                    this_r, other_r = ratio(this_b()), ratio(other_b())
-                    bwd_ok = this_r <= 1.0 and other_r <= 1.0
-                    line += f", backward max err/tol this {this_r:.3f}, other {other_r:.3f}{'' if bwd_ok else ' OUT OF BOUND'}"
+                if dtype in MOVED:
+                    (tf, tb), (of, ob) = ratio(this_f(), this_b()), ratio(other_f(), other_b())
+                    ok = max(tf, tb, of, ob) <= 1.0
+                    line = (f"max err/tol forward this {tf:.3f}, other {of:.3f}; backward this {tb:.3f}, other {ob:.3f}"
+                            f"{'' if ok else ' OUT OF BOUND'}")
                 else:
-                    bwd_ok = torch.equal(this_b(), other_b())
-                    line += f", backward {'bit-equal' if bwd_ok else 'DIFFERENT'}"
-                same &= fwd_ok and bwd_ok
+                    fwd_ok, bwd_ok = torch.equal(this_f(), other_f()), torch.equal(this_b(), other_b())
+                    ok = fwd_ok and bwd_ok
+                    line = f"forward {'bit-equal' if fwd_ok else 'DIFFERENT'}, backward {'bit-equal' if bwd_ok else 'DIFFERENT'}"
+                same &= ok
                 print(f"  B={b} N={n} H={h} Dh={dh} {str(dtype)[6:]} mask={masked}: {line}")
-    for n in (192, 10):
-        (this_f, this_b, _), (other_f, other_b, _) = (calls(libs, 512, n, 4, 64, torch.bfloat16, False, seed=101) for libs in (this, other))
+    timed = [(512, n, 4, 64, torch.bfloat16) for n in (192, 10)] + [(*shape, dt) for shape in TIMED_MOVED for dt in MOVED]
+    for b, n, h, dh, dtype in timed:
+        (this_f, this_b, _), (other_f, other_b, _) = (calls(libs, b, n, h, dh, dtype, False, seed=101) for libs in (this, other))
         for kind, mine, theirs in (("forward", this_f, other_f), ("backward", this_b, other_b)):
             turns = [("other", cuda_ms(theirs)), ("this", cuda_ms(mine)), ("this", cuda_ms(mine)), ("other", cuda_ms(theirs))]
-            print(f"  N={n} {kind} ms: " + ", ".join(f"{tree} {ms:.4f}" for tree, ms in turns))
-    print("outputs bit-equal, moved ones within bound" if same else "SOME OUTPUTS DIFFER OR LEAVE THEIR BOUND")
+            print(f"  B={b} N={n} H={h} Dh={dh} {str(dtype)[6:]} {kind} ms: " + ", ".join(f"{tree} {ms:.4f}" for tree, ms in turns))
+    print("shared bodies bit-equal, moved ones within bound" if same else "SOME OUTPUTS DIFFER OR LEAVE THEIR BOUND")
     return 0 if same else 1
 
 

@@ -9,21 +9,23 @@
 //   dq, dk, dv (B*H, N, Dh), each rounded once to the input type
 //
 // The bodies are the packed backward's, chosen by the same rule (bwd_body in
-// flash_attention_bwd_mma.cuh): bf16 on the tensor cores, one block per batch row B*H; f32 on
-// the CUDA-core passes, grid (ceil(N / 32), 1, B*H) with an f32 (B*H, N, 3) scratch for (m, l, D). This file gives them the split addressing
-// "batch B*H, heads 1, row stride Dh". Every result equals the packed backward's on the same
-// numbers, bit for bit.
+// flash_attention_bwd_mma.cuh), both one block per batch row B*H: bf16 on mma.sync m16n8k16, f32
+// on 3xTF32 mma.sync m16n8k8 (flash_attention_bwd_tf32.cuh); a head too long for shared memory
+// streams with an f32 scratch for (m, 1 / l, D) that m3l_flash_bwd_scratch_floats sizes. This
+// file gives them the split addressing "batch B*H, heads 1, row stride Dh". Every result equals
+// the packed backward's on the same numbers, bit for bit.
 //
 // Bound on an H100 SXM: the same bytes and operations as the packed backward. At B*H = 2048,
 // N = 192, Dh = 64 in bf16 it reads q, k, v (151 MB) and g (50 MB) and writes dq, dk, dv
 // (151 MB): 0.105 ms by bytes, against 0.049 ms for its 48.3 GFLOP at the tensor-core rate (the
-// tensor-core body does 116 GFLOP: 0.117 ms at the dense peak).
+// tensor-core body does 116 GFLOP: 0.117 ms at the dense peak); in f32 three TF32 products for
+// each f32 one (bound as in flash_attention_qkv_bwd.cu).
 
 #include "flash_attention_bwd_mma.cuh"
 
 extern "C" {
 
-// The body a launch of this element size takes: 1 the tensor-core body (bf16), 0 the CUDA-core passes (f32).
+// The body a launch of this element size takes: 1 the bf16 body, 0 the f32 (3xTF32) body.
 int m3l_flash_bwd_body(int elem_bytes) { return m3l::bwd_body(elem_bytes); }
 
 // The f32 scratch a launch at this shape needs, in floats (0: none).

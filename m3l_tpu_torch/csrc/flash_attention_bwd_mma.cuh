@@ -1,7 +1,7 @@
 // The bf16 attention backward on the tensor cores (sm_90a), shared by both interfaces.
 //
-// Replaces, for bf16 inputs, the two CUDA-core passes of flash_attention_kernels.cuh (which stay
-// the f32 body, bit for bit). Same function:
+// The body of bf16 inputs; f32 inputs take bwd_tf32_kernel (flash_attention_bwd_tf32.cuh), which
+// has this body's two phases in 3xTF32. Same function:
 //
 //   S = (Q K^T) * scale + bias[b];  A = exp(S - rowmax) / rowsum                     f32
 //   dV = A^T g;  dA = g V^T;  D = rowsum(dA o A);  dS = (A o (dA - D)) * scale;
@@ -43,10 +43,10 @@
 // function needs 10 * N^2 * Dh.
 //
 // Body rule (bwd_body, read by the Python wrapper through the C entry points' *_bwd_body): bf16
-// inputs take this body at any N, f32 inputs the CUDA-core passes.
+// inputs take this body at any N, f32 inputs the 3xTF32 body.
 #pragma once
 
-#include "flash_attention_mma.cuh"
+#include "flash_attention_bwd_tf32.cuh"  // and flash_attention_mma.cuh
 
 namespace m3l {
 namespace {
@@ -67,12 +67,12 @@ inline int bwd_mma_tile(int n, int dh) {
 
 inline size_t bwd_mma_smem_bytes(int n, int dh) { return bwd_mma_tile(n, dh) * bwd_mma_row_bytes(dh); }
 
-inline int bwd_body(int elem_bytes) { return elem_bytes == 2 ? kTensorCore : kCudaCore; }
+inline int bwd_body(int elem_bytes) { return elem_bytes == 2 ? kTensorCore : kTf32x3; }
 
-// f32 scratch the backward needs, in floats: (m, l, D) of every query for the CUDA-core passes;
-// (m, 1 / l, D, 0) of every padded query for a streamed tensor-core head; else none.
+// f32 scratch the backward needs, in floats: (m, 1 / l, D, 0) of every padded query for a streamed
+// head of either body; none for a head staged whole.
 inline size_t bwd_scratch_floats(int batch, int heads, int n, int dh, int elem_bytes) {
-  if (bwd_body(elem_bytes) == kCudaCore) return (size_t)batch * heads * n * 3;
+  if (bwd_body(elem_bytes) == kTf32x3) return bwd_tf32_scratch_floats(batch, heads, n, dh);
   const int np = (n + 15) / 16 * 16;
   return bwd_mma_tile(n, dh) == np ? 0 : (size_t)batch * heads * np * 4;
 }
@@ -324,10 +324,10 @@ int launch_bwd_mma_t(const BwdOperands& o, const float* bias, float* stats, int 
 // success). `bias` may be null; `stats` is f32 scratch of bwd_scratch_floats values (null when that is 0).
 inline int launch_bwd(const BwdOperands& o, const void* bias, void* stats, int batch, int heads, int n, int dh,
                       float scale, int elem_bytes, void* stream) {
-  if (bwd_body(elem_bytes) == kCudaCore) return launch_bwd_cuda_core(o, bias, stats, batch, heads, n, dh, scale, stream);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bi = static_cast<const float*>(bias);
   float* st = static_cast<float*>(stats);
+  if (bwd_body(elem_bytes) == kTf32x3) return launch_bwd_tf32(o, bi, st, batch, heads, n, dh, scale, s);
   switch ((dh + 15) / 16) {
     case 1: return launch_bwd_mma_t<1>(o, bi, st, batch, heads, n, dh, scale, s);
     case 2: return launch_bwd_mma_t<2>(o, bi, st, batch, heads, n, dh, scale, s);

@@ -1,7 +1,7 @@
 // The bf16 attention forward on the tensor cores (sm_90a), shared by both interfaces.
 //
-// Replaces, for bf16 inputs, the CUDA-core body `fwd_kernel` of flash_attention_kernels.cuh
-// (which stays the f32 body, bit for bit). Same function:
+// The body of bf16 inputs; f32 inputs take fwd_tf32_kernel (flash_attention_fwd_tf32.cuh), which
+// has this body's layout in 3xTF32. Same function:
 //
 //   S = (Q K^T) * scale + bias[b];  A = exp(S - rowmax) / rowsum;  O = round_bf16(A) V
 //
@@ -34,7 +34,7 @@
 // 548 at Dh = 128. bf16 has one forward body, f32 the other (fwd_body).
 #pragma once
 
-#include "flash_attention_mma.cuh"
+#include "flash_attention_fwd_tf32.cuh"  // and flash_attention_mma.cuh
 
 namespace m3l {
 namespace {
@@ -58,7 +58,7 @@ inline size_t fwd_mma_smem_bytes(int n, int dh) {
   return (kt == (n + 15) / 16 * 16 ? 1 : 2) * kt * fwd_mma_key_bytes(dh);
 }
 
-inline int fwd_body(int elem_bytes) { return elem_bytes == 2 ? kTensorCore : kCudaCore; }
+inline int fwd_body(int elem_bytes) { return elem_bytes == 2 ? kTensorCore : kTf32x3; }
 
 template <int KD>  // head dim padded to 16 * KD
 __global__ void __launch_bounds__(kFwdMmaWarps * 32, KD <= 4 ? 4 : 2)
@@ -187,7 +187,7 @@ inline int launch_fwd(In q, In k, In v, const void* bias, Out out, int batch, in
                       int elem_bytes, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bi = static_cast<const float*>(bias);
-  if (fwd_body(elem_bytes) == kCudaCore) return launch_fwd_t<float>(q, k, v, bi, out, batch, heads, n, dh, scale, s);
+  if (fwd_body(elem_bytes) == kTf32x3) return launch_fwd_tf32(q, k, v, bi, out, batch, heads, n, dh, scale, s);
   switch ((dh + 15) / 16) {
     case 1: return launch_fwd_mma_t<1>(q, k, v, bi, out, batch, heads, n, dh, scale, s);
     case 2: return launch_fwd_mma_t<2>(q, k, v, bi, out, batch, heads, n, dh, scale, s);

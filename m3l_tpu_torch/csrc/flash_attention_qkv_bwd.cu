@@ -18,23 +18,29 @@
 //     m16n8k16), the whole head staged once in shared memory where it fits (N <= 384 at
 //     Dh = 64), else streamed in tiles of 128 rows with (m, 1 / l, D) in an f32 (B, H, N16, 4)
 //     scratch; A and dS enter their products as two bf16 terms (hi + lo).
-//   f32: the CUDA-core passes `bwd_dq_kernel` and `bwd_dkv_kernel` (flash_attention_kernels.cuh),
-//     grid (ceil(N / 32), H, B), with an f32 (B, H, N, 3) scratch for (m, l, D).
+//   f32: `bwd_tf32_kernel` (flash_attention_bwd_tf32.cuh), one block of up to 8 warps per
+//     (head, batch row) in 3xTF32 (mma.sync m16n8k8, each f32 operand split into two TF32 terms,
+//     three products each), the B side of each phase staged as f32 (K and V, then Q and g): the
+//     whole head where it fits (N <= 400 at Dh = 64), else tiles of 128 rows with the same scratch.
 // Neither has a length limit.
 //
-// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense). At the training shape B = 512,
-// N = 192, H = 4, Dh = 64 in bf16 the function must read qkv (151.0 MB) and g (50.3 MB) and
-// write dqkv (151.0 MB): 352 MB, 0.105 ms. Its products are 10*B*H*N*N*Dh = 48.3 GFLOP, 0.049 ms
+// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense, 495 TFLOP/s TF32 dense). At the training
+// shape B = 512, N = 192, H = 4, Dh = 64 in bf16 the function must read qkv (151.0 MB) and g (50.3 MB)
+// and write dqkv (151.0 MB): 352 MB, 0.105 ms. Its products are 10*B*H*N*N*Dh = 48.3 GFLOP, 0.049 ms
 // at the bf16 tensor-core rate, so the bytes bound it. At N = 10 (the MAE encoder on the kept
-// tokens) it moves 18.4 MB, 5.5 us. The tensor-core body recomputes S and dA three times and
-// splits three products in two: 24*B*H*N*N*Dh = 116 GFLOP, 0.117 ms at the dense peak, so at
-// the rate mma.sync reaches it is bound by its operations, not by the bytes.
+// tokens) it moves 18.4 MB, 5.5 us. The bf16 body recomputes S and dA three times and splits
+// three products in two: 24*B*H*N*N*Dh = 116 GFLOP, 0.117 ms at the dense peak, so at the rate
+// mma.sync reaches it is bound by its operations, not by the bytes. In f32 at the SSL shape
+// B = 64, N = 196, H = 6, Dh = 64 the function moves 135 MB (40 us) and needs 9.44 GFLOP, 28.3 GFLOP
+// of TF32 products in 3xTF32 (57 us at the dense TF32 rate): the operations bound it. The f32 body
+// recomputes S and dA as the bf16 one does, 9*B*H*N*N*Dh multiply-adds, so it issues 1.8x the
+// function's products, each as three TF32 mma's: 57 GFLOP of TF32 at that shape (N padded to 208).
 
 #include "flash_attention_bwd_mma.cuh"
 
 extern "C" {
 
-// The body a launch of this element size takes: 1 the tensor-core body (bf16), 0 the CUDA-core passes (f32).
+// The body a launch of this element size takes: 1 the bf16 body, 0 the f32 (3xTF32) body.
 int m3l_flash_qkv_bwd_body(int elem_bytes) { return m3l::bwd_body(elem_bytes); }
 
 // The f32 scratch a launch at this shape needs, in floats (0: none).

@@ -17,25 +17,27 @@
 //     strip on the tensor cores (mma.sync m16n8k16), K and V of (b, h) streamed through shared
 //     memory (the whole head, or tiles of 128 keys), one pass over the keys with an online
 //     softmax; the scores never leave registers.
-//   f32: `fwd_kernel` (flash_attention_kernels.cuh), grid (ceil(N / 32), H, B), scores, softmax
-//     and A.V on the CUDA cores (the whole head, or tiles of 64 keys swept three times).
+//   f32: `fwd_tf32_kernel` (flash_attention_fwd_tf32.cuh), the same layout on the tensor cores in
+//     3xTF32 (mma.sync m16n8k8, each f32 operand split into two TF32 terms, three products each),
+//     K and V staged as f32 (the whole head, or tiles of 64 keys).
 // Neither has a length limit.
 //
-// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense). At the serving and training shape
-// B = 512, N = 192, H = 4, Dh = 64 in bf16 the kernel must read qkv once (512*192*768*2 B =
-// 151 MB) and write the output once (512*192*256*2 B = 50 MB): 201 MB, 60 us at 3.35 TB/s. QK^T
-// and AV are 4*B*H*N*N*Dh = 19.3 GFLOP, 20 us at the bf16 tensor-core rate. So the bound is the
-// bytes, about 60 us. The CUDA-core body needs at least 0.29 ms for the same FLOP at f32's
-// 67 TFLOP/s and measured 2.1 ms, held back by its score tile in shared memory; the tensor-core
-// body does the products at the bf16 rate and keeps the scores in registers, so what is left is
-// the bytes, the N^2 exp a head and the staging of K and V (once per block of 64 queries, from
-// L2 after the first block of a head).
+// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense, 495 TFLOP/s TF32 dense). At the serving
+// and training shape B = 512, N = 192, H = 4, Dh = 64 in bf16 the kernel must read qkv once
+// (512*192*768*2 B = 151 MB) and write the output once (512*192*256*2 B = 50 MB): 201 MB, 60 us at
+// 3.35 TB/s. QK^T and AV are 4*B*H*N*N*Dh = 19.3 GFLOP, 20 us at the bf16 tensor-core rate. So the
+// bound is the bytes, about 60 us. In f32 at the SSL shape B = 64, N = 196, H = 6, Dh = 64 it
+// moves 77 MB (23 us) and does 3.78 GFLOP, which 3xTF32 runs as 11.3 GFLOP of TF32 products: 23 us
+// at the dense TF32 rate, so bytes and operations bound it alike. (The 67 TFLOP/s of f32 FMA is no
+// least time for this body.) Both bodies keep the scores in registers and stage K and V once per
+// block of 64 queries (from L2 after the first block of a head); what is left is the N^2 exp a
+// head, the online rescale of O and, in f32, the split of each B fragment as it is read.
 
 #include "flash_attention_fwd_mma.cuh"
 
 extern "C" {
 
-// The body a launch of this element size takes: 1 the tensor-core body (bf16), 0 the CUDA-core body (f32).
+// The body a launch of this element size takes: 1 the bf16 body, 0 the f32 (3xTF32) body.
 int m3l_flash_qkv_fwd_body(int elem_bytes) { return m3l::fwd_body(elem_bytes); }
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success). `bias` may be null.

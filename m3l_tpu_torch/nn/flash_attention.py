@@ -8,9 +8,10 @@
   into heads through device memory as JAX's ``collapse`` does; the Pallas kernels ``_fwd_kernel``
   and ``_bwd_kernel`` behind ``_flash``; here ``csrc/flash_attention_fwd.cu`` and ``_bwd.cu``.
 
-Both pairs compute one function and share their kernel bodies (bf16 on the tensor cores:
-``csrc/flash_attention_fwd_mma.cuh`` and ``csrc/flash_attention_bwd_mma.cuh``; f32 on the CUDA
-cores: ``csrc/flash_attention_kernels.cuh``), which take heads of any length (a head too long
+Both pairs compute one function and share their kernel bodies, all on the tensor cores (bf16:
+``csrc/flash_attention_fwd_mma.cuh`` and ``csrc/flash_attention_bwd_mma.cuh``; f32 in 3xTF32,
+each operand split into two TF32 terms: ``csrc/flash_attention_fwd_tf32.cuh`` and
+``csrc/flash_attention_bwd_tf32.cuh``), which take heads of any length (a head too long
 for shared memory streams through it in tiles). So the split-head interface is the packed one
 with batch B*H and one head: its plain versions are the packed ones on ``cat([q, k, v], -1)``,
 and so are its tolerances. Each interface routes through one ``torch.autograd.Function`` on every device: on a
@@ -32,7 +33,7 @@ BWD_KERNEL = "flash_attention_qkv_bwd"
 V1_KERNEL = "flash_attention_fwd"
 V1_BWD_KERNEL = "flash_attention_bwd"
 MAX_HEAD_DIM = 128
-BODIES = ("cuda_core", "tensor_core")  # indexed by the C entry points' *_fwd_body and *_bwd_body
+BODIES = ("tf32x3", "tensor_core")  # f32, bf16: indexed by the C entry points' *_fwd_body and *_bwd_body
 BWD_F32_TOL = 2e-5  # see flash_attention_qkv_bwd_tolerance
 
 
@@ -126,12 +127,18 @@ def flash_attention_qkv_tolerance(
 ) -> torch.Tensor:
     """Elementwise bound on |kernel - plain| for ``qkv``, given the plain result ``ref`` (f32).
 
-    float32: 1e-5; both compute the same f32 products, exp and division, and differ only in
-    summation order. Lower precision: the two agree to ~1e-6 relative in f32, then each rounds
-    twice to the input type, and either rounding can land them on adjacent values. Rounding the
-    output costs at most one ulp of |ref|. Rounding a probability p_j costs at most one ulp of
-    p_j, at most eps * p_j, so at most eps * sum_j p_j |v_j| on an output: the plain version run
-    with |v|. The second term keeps outputs near 0, whose ulp is tiny, inside the bound."""
+    float32: 1e-5. The plain version forms f32 products; the kernel forms each from two TF32 terms
+    per operand (3xTF32: lo hi + hi lo + hi hi, each exact, the dropped lo lo below 2^-22 of the
+    product), so a product errs by about 2^-21 of its size where f32 errs by 2^-24, and the tensor
+    cores sum in their own order and rounding. Emulated on the CPU
+    (``tests/test_torch_attention_f32_mma.py``) the split forward reaches err/tol 0.12 at the SSL
+    shapes, against 47-97 for one TF32 product; on the H100 the kernel reaches 0.33
+    (``compare_kernels``), the rest being the tensor cores' own sums, each over one chunk of 16
+    keys. Lower precision: the two agree to ~1e-6 relative in f32, then each rounds twice to the
+    input type, and either rounding can land them on adjacent values. Rounding the output costs at
+    most one ulp of |ref|. Rounding a probability p_j costs at most one ulp of p_j, at most eps *
+    p_j, so at most eps * sum_j p_j |v_j| on an output: the plain version run with |v|. The second
+    term keeps outputs near 0, whose ulp is tiny, inside the bound."""
     if qkv.dtype == torch.float32:
         return torch.full(ref.shape, 1e-5, device=ref.device)
     eps = torch.finfo(qkv.dtype).eps
@@ -147,18 +154,21 @@ def flash_attention_qkv_bwd_tolerance(
 ) -> torch.Tensor:
     """Elementwise bound on |kernel - plain| for the backward, given the plain dqkv ``ref``.
 
-    Both compute the same f32 products, exp and division and differ in summation order only.
-    An f32 sum of m terms is within m * eps32/2 * sum|terms| of the exact sum, and each output
-    here sums at most N + Dh + a few terms along its chain (N for the sums over keys or queries,
-    Dh for the scores and dA that feed them), so two such implementations differ by at most
-    (N + Dh + 8) * eps32 * M, where M is the same sums over |terms| (``_bwd_plain`` with
-    ``magnitude``). That worst case is loose: against float64 at the checked shapes the plain
-    f32 backward errs by at most ~1.5e-6 (``tests/test_torch_flash_attention.py`` holds it
-    under ``BWD_F32_TOL / 8``), so float32 gets the absolute ``BWD_F32_TOL`` = 2e-5. Lower
-    precision: one ulp of |ref|, for the final rounding that can land the two on adjacent
-    values, plus the worst-case f32 term. That term matters near zero: dS = A o (dA - D)
-    cancels, so an output can be far smaller than the terms it sums, and a pure ulp-of-output
-    bound would fail there."""
+    Both compute the same exp and division and sum in f32 in different orders. The kernel forms each
+    f32 product from two TF32 terms per operand (3xTF32, about 2^-21 of the product), and a bf16
+    product from the exact bf16 inputs with A and dS as two bf16 terms. An f32 sum of m terms is
+    within m * eps32/2 * sum|terms| of the exact sum, and each output here sums at most N + Dh + a
+    few terms along its chain (N for the sums over keys or queries, Dh for the scores and dA that
+    feed them), so two such implementations differ by at most (N + Dh + 8) * eps32 * M, where M is
+    the same sums over |terms| (``_bwd_plain`` with ``magnitude``). That worst case is loose:
+    against float64 at the checked shapes the plain f32 backward errs by at most ~1.5e-6
+    (``tests/test_torch_flash_attention.py`` holds it under ``BWD_F32_TOL / 8``), so float32 gets
+    the absolute ``BWD_F32_TOL`` = 2e-5. The split products stay inside it: emulated on the CPU
+    (``tests/test_torch_attention_f32_mma.py``) the f32 backward reaches err/tol 0.11 at the SSL
+    shapes, against 22-101 for one TF32 product, and the kernel 0.48 on the H100. Lower precision:
+    one ulp of |ref|, for the final rounding that can land the two on adjacent values, plus the
+    worst-case f32 term. That term matters near zero: dS = A o (dA - D) cancels, so an output can be
+    far smaller than the terms it sums, and a pure ulp-of-output bound would fail there."""
     if qkv.dtype == torch.float32:
         return torch.full(ref.shape, BWD_F32_TOL, device=ref.device)
     n, dh = qkv.shape[1], qkv.shape[-1] // (3 * num_heads)
@@ -207,8 +217,8 @@ def _check(qkv: torch.Tensor, num_heads: int) -> int:
 
 
 def _launch(qkv: torch.Tensor, num_heads: int, bias: torch.Tensor | None, scale: float) -> torch.Tensor:
-    """The forward kernel on ``qkv``, by the body the C side's rule picks (bf16 on the tensor
-    cores, f32 on the CUDA cores); ``bias`` is the contiguous f32 (B, N) key bias or None."""
+    """The forward kernel on ``qkv``, by the body the C side's rule picks (bf16 or f32 in
+    3xTF32); ``bias`` is the contiguous f32 (B, N) key bias or None."""
     b, n, thd = qkv.shape
     dh = _check(qkv, num_heads)
     lib = load_library(KERNEL, _SIGNATURES)
@@ -234,7 +244,7 @@ def _bwd_scratch(floats: int, device) -> torch.Tensor | None:
 
 def _launch_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, bias: torch.Tensor | None, scale: float) -> torch.Tensor:
     """The backward kernel: packed dqkv for the cotangent ``g``, by the body the C side's rule
-    picks (bf16 on the tensor cores, f32 on the CUDA-core passes)."""
+    picks (bf16 or f32 in 3xTF32)."""
     b, n, thd = qkv.shape
     dh = _check(qkv, num_heads)
     if g.shape != (b, n, thd // 3) or g.dtype != qkv.dtype or g.device != qkv.device:

@@ -7,10 +7,10 @@ Tolerances: the elementwise bounds of ``flash_attention_qkv_tolerance`` and
 2e-5; bf16 one ulp of dqkv plus the worst-case f32 summation-order term (N + Dh + 8) * eps32
 times the sums over |terms|. The split-head (v1) kernels are held to the same bounds
 (``flash_attention_tolerance``, ``flash_attention_bwd_tolerance``), and to the packed kernels'
-results on the same numbers, bit for bit: both pairs run the same kernel bodies. The bf16
-forward runs on the tensor cores (one pass, the unnormalised probabilities rounded to bf16),
-the f32 forward on the CUDA cores; the bf16 backward runs on the tensor cores (A and dS split
-into two bf16 terms), the f32 backward on the CUDA cores. ``FWD_BODY_LAUNCHES`` and
+results on the same numbers, bit for bit: both pairs run the same kernel bodies. Every body
+runs on the tensor cores: the bf16 forward (one pass, the unnormalised probabilities rounded to
+bf16) and backward (A and dS split into two bf16 terms) as ``"tensor_core"``, the f32 forward
+and backward in 3xTF32 (every operand split into two TF32 terms) as ``"tf32x3"``. ``FWD_BODY_LAUNCHES`` and
 ``BWD_BODY_LAUNCHES`` show which body served a launch. Every body takes heads of any length: a
 head too long for shared memory streams through it in tiles (``LENGTH_EDGES``: the longest head
 each body staged whole, and one more).
@@ -155,15 +155,15 @@ def test_fwd_with_a_fully_masked_row(card, dtype):
     mask[1] = False
     mask[2, 20:] = False
     body = _fwd_case(card, 3, 40, 2, 64, dtype, mask)
-    assert body == ("tensor_core" if dtype == torch.bfloat16 else "cuda_core")
+    assert body == ("tensor_core" if dtype == torch.bfloat16 else "tf32x3")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fwd_body_at_the_model_shapes(card, dtype):
     """Every bf16 forward at the model shapes (N = 192 and the 10 kept tokens, H = 4, Dh = 64;
-    the SSL encoder's N = 196, H = 16) takes the tensor-core body, every f32 one the CUDA-core
-    body, in both interfaces."""
-    want = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+    the SSL encoder's N = 196, H = 16) takes the bf16 body, every f32 one the 3xTF32 body, in
+    both interfaces."""
+    want = "tensor_core" if dtype == torch.bfloat16 else "tf32x3"
     for b, n, h in ((8, 192, 4), (8, 10, 4), (2, 196, 16)):
         assert _fwd_case(card, b, n, h, 64, dtype, None) == want
 
@@ -211,14 +211,14 @@ def test_bwd_with_a_fully_masked_row(card, dtype):
     mask[1] = False
     mask[2, 20:] = False
     body = _bwd_case(card, 3, 40, 2, 64, dtype, mask)
-    assert body == ("tensor_core" if dtype == torch.bfloat16 else "cuda_core")
+    assert body == ("tensor_core" if dtype == torch.bfloat16 else "tf32x3")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bwd_body_at_the_model_shapes(card, dtype):
     """Every bf16 backward at the model shapes (N = 192 and the 10 kept tokens, H = 4, Dh = 64)
-    takes the tensor-core body, every f32 one the CUDA-core body, in both interfaces."""
-    want = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+    takes the bf16 body, every f32 one the 3xTF32 body, in both interfaces."""
+    want = "tensor_core" if dtype == torch.bfloat16 else "tf32x3"
     for n in (192, 10):
         assert _bwd_case(card, 8, n, 4, 64, dtype, None) == want
         x = torch.zeros(32, n, 64, device=card, dtype=dtype)
@@ -234,18 +234,18 @@ def test_bf16_bwd_past_the_whole_head_shared_memory_stays_on_the_tensor_cores(ca
     assert _bwd_case(card, 2, n, 1, dh, torch.bfloat16, None) == "tensor_core"
 
 
-# The longest head each body staged whole (in one tile) and one more, per direction, dtype and
-# head dim; the bf16 backward also at the CUDA-core passes' old limit (406 / 253), which took
+# The longest head each body stages whole (in one tile) and one more, per direction, dtype and
+# head dim; the bf16 backward also at the old CUDA-core passes' limit (406 / 253), which took
 # bf16 heads past its own.
 LENGTH_EDGES = [
     ("fwd", torch.bfloat16, 64, (784, 785)),
     ("fwd", torch.bfloat16, 128, (416, 417)),
     ("bwd", torch.bfloat16, 64, (384, 385, 406, 407)),
     ("bwd", torch.bfloat16, 128, (208, 209, 253, 254)),
-    ("fwd", torch.float32, 64, (348, 349)),
-    ("fwd", torch.float32, 128, (186, 187)),
-    ("bwd", torch.float32, 64, (274, 275)),
-    ("bwd", torch.float32, 128, (153, 154)),
+    ("fwd", torch.float32, 64, (416, 417)),
+    ("fwd", torch.float32, 128, (208, 209)),
+    ("bwd", torch.float32, 64, (400, 401)),
+    ("bwd", torch.float32, 128, (208, 209)),
 ]
 
 
@@ -261,10 +261,10 @@ def _key_mask(card, n, masked):
 @pytest.mark.parametrize("masked", [False, True])
 def test_heads_of_any_length(card, direction, dtype, dh, n, masked):
     """No body has a length limit: each side of each old whole-head limit is within bound, both
-    interfaces agree bit for bit, and bf16 stays on the tensor cores, f32 on the CUDA cores."""
+    interfaces agree bit for bit, and each dtype stays on its body."""
     case = _fwd_case if direction == "fwd" else _bwd_case
     body = case(card, 2, n, 2, dh, dtype, _key_mask(card, n, masked))
-    assert body == ("tensor_core" if dtype == torch.bfloat16 else "cuda_core")
+    assert body == ("tensor_core" if dtype == torch.bfloat16 else "tf32x3")
 
 
 @pytest.mark.parametrize("dtype,n", [(torch.bfloat16, 784), (torch.float32, 400)])
@@ -355,12 +355,12 @@ SSL_SHAPES = [(64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32)]
 @pytest.mark.parametrize("masked", [False, True])
 def test_packed_pair_at_the_ssl_shapes(card, b, n, h, dh, dtype, masked):
     """Forward and backward of both interfaces within bound at the SSL shapes, bf16 on the
-    tensor cores (Dh 32: two 16-wide k-steps), f32 on the CUDA cores (16 heads)."""
+    bf16 body (Dh 32: two 16-wide k-steps), f32 on the 3xTF32 body (16 heads)."""
     mask = None
     if masked:
         mask = torch.rand(b, n, generator=torch.Generator(device=card).manual_seed(2), device=card) > 0.3
         mask[:, 0] = True
-    want = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+    want = "tensor_core" if dtype == torch.bfloat16 else "tf32x3"
     assert _fwd_case(card, b, n, h, dh, dtype, mask) == want
     assert _bwd_case(card, b, n, h, dh, dtype, mask) == want
 
