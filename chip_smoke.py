@@ -72,20 +72,39 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    then timed.
    Cut from the reference workload: the data (197 random frames) and the epochs (2 of 200);
    widths, depth, tokens and the batch are full. Checkpoints go under ``smoke_checkpoints/``.
+10. self-distillation and latent-prediction pretraining at full width through the same CLI and
+   Trainer, f32, batch 64, on the packed pair with key masks (the 3xTF32 bodies): (a) one DINO
+   step (config/experiment/dino_vit.yaml: ViT-small, 1 register token so N = 197, 1 global + 4
+   local block masks, dino_out_dim 65536, the reconstruction probe) on the card against the same
+   weights, batch, masks and temperature on the CPU at batch 8 (DISTILL_F32_TOL: the loss, the
+   trainable gradients, the parameters after AdamW, the teachers after the EMA, the center); (b)
+   ``cli.pretrain.main`` on dino_vit.yaml at its defaults, 197 frames, 2 epochs: finite losses and
+   exactly 50 forward + 26 backward launches a step (36 + 24 with a key mask), all on the tf32x3
+   bodies (DISTILL_LAUNCHES); (c) a resume: the teachers, the center, the student and AdamW's
+   moments bit-equal on the card; (d) DINOv2 (dinov2_vit.yaml: 2 global + 4 local, centering,
+   batch 64, no cut) and I-JEPA (ijepa_vit.yaml: no registers, predictor depth 6 at 384 wide,
+   12 heads x 32, 4 target masks, N = 392 in the predictor) through the CLI for 2 epochs each, at
+   their exact launch counts. Each run prints steps/s, images/s (first step excluded) and
+   torch.cuda.max_memory_allocated. Cut as phase 9: the data and the epochs.
 
-Phase 3 also holds both packed kernels to their plain versions at the SSL slice's shapes
-(SSL_SHAPES: (64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32), f32 and bf16, with and without
-a key mask) and times them there and at the training shape (512, 192, 4, 64); and on each side of
-each body's whole-head limit (LENGTH_CASES, B=2, H=4, with and without a key mask: a longer head
-streams in tiles, with the bits it would have staged whole), and times bf16 and f32 at B=2,
-N=784, Dh=64. It prints err/tol for each case.
+Phase 3 also holds both packed kernels to their plain versions at the SSL slices' shapes
+(SSL_SHAPES: (64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32), (64, 197, 6, 64), (64, 392,
+12, 32), f32 and bf16, with and without a random key mask) and times them there and at the
+training shape (512, 192, 4, 64); on each side of each body's whole-head limit (LENGTH_CASES,
+B=2, H=4, with and without a key mask: a longer head streams in tiles, with the bits it would
+have staged whole), timing bf16 and f32 at B=2, N=784, Dh=64 (3b); and under the key masks of
+phase 10's paths (3c, DISTILL_MASKED: DINO's global block at (64, 197, 6, 64), its local blocks
+at (256, 197, 6, 64), I-JEPA's cut context at (64, 392, 12, 32)), f32 and bf16, each timed
+beside SDPA under the same mask, its bound counting only the kept keys. It prints err/tol for
+each case.
 
 Each phase after the kernel checks runs with the launch counts set to 0 just before it and read
 just after; phases 4-8 also fail unless every bf16 forward launch, and in phases 5-8 every bf16
-backward launch, took the tensor-core body; phase 9 holds every launch to its dtype's body.
+backward launch, took the tensor-core body; phases 9-10 hold every launch to its dtype's body
+and count the launches with a key mask (``MASKED_LAUNCHES``).
 The last lines are a {"kernels": [...]} JSON line, {"slice": ...}, {"train": ...},
-{"bench_attention": ...}, {"cli": ...}, {"sac": ...} and {"ssl": ...} JSON lines, the card line
-as nvidia-smi prints it, and {"ok": true, "device": {...}}.
+{"bench_attention": ...}, {"cli": ...}, {"sac": ...}, {"ssl": ...} and {"ssl_distill": ...} JSON
+lines, the card line as nvidia-smi prints it, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -108,7 +127,7 @@ from m3l_tpu_torch.cli import pretrain as pretrain_cli
 from m3l_tpu_torch.cli import train as train_cli
 from m3l_tpu_torch.cli import train_sacmae as sac_cli_module
 from m3l_tpu_torch.envs import SyncVecEnv, make_env
-from m3l_tpu_torch.kernels import BWD_BODY_LAUNCHES, FWD_BODY_LAUNCHES, LAUNCHES, reset_launches
+from m3l_tpu_torch.kernels import BWD_BODY_LAUNCHES, FWD_BODY_LAUNCHES, LAUNCHES, MASKED_LAUNCHES, reset_launches
 from m3l_tpu_torch.kernels.build import build_all
 from m3l_tpu_torch.nn import flash_attention as fa
 from m3l_tpu_torch.nn.flash_attention import (
@@ -131,7 +150,8 @@ from m3l_tpu_torch.profile_paths import random_minibatch
 from m3l_tpu_torch.models import VTMAE, VTT, VTTConfig
 from m3l_tpu_torch.rl import PPOMAE, SACMAE, MAEFeatures, SACActorCritic
 from m3l_tpu_torch.serve import PolicyServer, build_policy, random_obs
-from m3l_tpu_torch.ssl import MAEModule
+from m3l_tpu_torch.ssl import MAEModule, sample_block_masks, sample_block_masks_constrained
+from m3l_tpu_torch.ssl.ijepa import cut_context
 from m3l_tpu_torch.train import Trainer, load_checkpoint
 from m3l_tpu_torch.utils.config import instantiate, load_config
 
@@ -171,9 +191,13 @@ SERVE_B, SERVE_N, SERVE_H, SERVE_DH = 512, 192, 4, 64  # attention at the batch-
 TRAIN_N_KEPT = 10  # the MAE encoder's tokens at mask ratio 0.95
 TRAIN_ENVS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_EPOCHS, CHECK_BATCH = 8, 128, 512, 2, 64
 TRAIN_TIMED_UPDATES = 5
-# the packed attention of the SSL slice (ViT-small MAE, batch 64): the masked encoder (49 of 196
-# patches kept), the full-image encoder, and the He-style decoder (512 wide, 16 heads)
-SSL_SHAPES = [(64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32)]
+# the packed attention of the SSL slices at batch 64: MAE's masked encoder (49 of 196 patches kept),
+# the full-image encoder, and the He-style decoder (512 wide, 16 heads); DINO's global view (196
+# patches + 1 register) and the I-JEPA predictor (196 context + 196 mask tokens, 12 heads of 32)
+SSL_SHAPES = [(64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32), (64, 197, 6, 64), (64, 392, 12, 32)]
+# the same kernels under the key masks the phase-10 paths give them (distill_mask): DINO's global
+# view and its four local views at once, and the I-JEPA predictor's context
+DISTILL_MASKED = [("global block", (64, 197, 6, 64)), ("local blocks", (256, 197, 6, 64)), ("context", (64, 392, 12, 32))]
 TIMED_SHAPES = SSL_SHAPES + [(SERVE_B, SERVE_N, SERVE_H, SERVE_DH)]  # each timed in f32 and bf16
 ALL_KERNELS = (KERNEL, BWD_KERNEL, V1_KERNEL, V1_BWD_KERNEL)
 CKPT_DIR = Path(__file__).resolve().parent / "smoke_checkpoints"
@@ -207,6 +231,52 @@ def packed_qkv(b, n, h, dh, dtype, masked, seed):
         mask = torch.rand(b, n, generator=g, device="cuda") > 0.3
         mask[:, 0] = True
     return qkv, cot, mask
+
+
+def distill_mask(kind: str, b: int, seed: int) -> torch.Tensor:
+    """A key mask of the phase-10 paths on the 14 x 14 patch grid, drawn by the port's samplers:
+    "global block", the register key and one global block avoiding four local ones (DINO, (B,
+    197)); "local blocks", the register key and local blocks, 4 per sample (B / 4 samples); and
+    "context", the I-JEPA context block cut by four target blocks, then 196 visible mask tokens
+    (the predictor, (B, 392))."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    grid, ones = (14, 14), torch.ones(b, 1, dtype=torch.bool, device="cuda")
+    if kind == "global block":
+        local = sample_block_masks(g, b, grid, (0.2, 0.8), 4)
+        return torch.cat([ones, sample_block_masks_constrained(g, b, grid, (0.2, 0.8), 1, local.any(0), 4)[0]], dim=1)
+    if kind == "local blocks":
+        return torch.cat([ones, sample_block_masks(g, b // 4, grid, (0.2, 0.8), 4).reshape(b, 196)], dim=1)
+    tgt = sample_block_masks(g, b, grid, (0.15, 0.2), 4)
+    ctx = cut_context(sample_block_masks(g, b, grid, (0.85, 1.0), 1)[0], tgt)
+    return torch.cat([ctx, ones.expand(b, 196)], dim=1)
+
+
+def check_distill_masks() -> dict:
+    """Both packed kernels against their plain versions under the phase-10 key masks, f32 and
+    bf16; returns err/tol by case."""
+    worst = {}
+    for i, (kind, (b, n, h, dh)) in enumerate(DISTILL_MASKED):
+        mask = distill_mask(kind, b, seed=i)
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv, cot, _ = packed_qkv(b, n, h, dh, dtype, False, seed=200 + i)
+            want = "tensor_core" if dtype == torch.bfloat16 else "tf32x3"
+            for direction, counter in (("forward", FWD_BODY_LAUNCHES), ("backward", BWD_BODY_LAUNCHES)):
+                bodies = Counter(counter)
+                if direction == "forward":
+                    out = flash_attention_qkv(qkv, h, key_mask=mask)
+                    ref = flash_attention_qkv_reference(qkv, h, key_mask=mask)
+                    tol = flash_attention_qkv_tolerance(qkv, h, ref, key_mask=mask)
+                else:
+                    out = fa._launch_bwd(qkv, cot, h, fa._key_bias(mask), dh**-0.5)
+                    ref = flash_attention_qkv_bwd_reference(qkv, cot, h, key_mask=mask)
+                    tol = flash_attention_qkv_bwd_tolerance(qkv, cot, h, ref, key_mask=mask)
+                torch.cuda.synchronize()
+                body = ",".join((counter - bodies).elements())
+                report(f"{direction} ({kind})", b, n, h, dh, dtype, kind, out, ref, tol, body)
+                if body != want:
+                    fail(f"{direction} ({kind}) {dtype} took the body {body!r}, expected {want!r}")
+                worst[f"{direction} {kind} {str(dtype)[6:]}"] = ((out.float() - ref.float()).abs() / tol).max().item()
+    return worst
 
 
 def report(kind, b, n, h, dh, dtype, masked, out, ref, tol, body="") -> float:
@@ -335,8 +405,17 @@ def bound(nbytes: int, flops: int, dtype) -> dict:
     return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=nbytes, flops=flops)
 
 
-def time_attention(b, n, h, dh, dtype, split=False) -> dict:
-    """The forward kernel, packed (``split`` False) or split-head on the collapsed operands."""
+def mask_cost(b: int, n: int, mask) -> tuple[int, int]:
+    """(bytes of the f32 key bias, query-key pairs the function needs per head): a masked key
+    needs no product."""
+    if mask is None:
+        return 0, b * n * n
+    return 4 * b * n, n * int(mask.sum().item())
+
+
+def time_attention(b, n, h, dh, dtype, split=False, mask=None) -> dict:
+    """The forward kernel, packed (``split`` False) or split-head on the collapsed operands; with
+    ``mask`` (packed only), under that key mask (SDPA takes it as a boolean attention mask)."""
     qkv, _, _ = packed_qkv(b, n, h, dh, dtype, False, seed=100)
     q, k, v = (t.contiguous() for t in qkv.view(b, n, 3, h, dh).permute(2, 0, 3, 1, 4))  # (B, H, N, Dh)
     if split:
@@ -344,16 +423,20 @@ def time_attention(b, n, h, dh, dtype, split=False) -> dict:
         ms = cuda_ms(lambda: fa._launch_v1(cq, ck, cv, None, dh**-0.5))
         plain_ms = cuda_ms(lambda: fa._v1_fwd_plain(cq, ck, cv, None, dh**-0.5))
     else:
-        ms = cuda_ms(lambda: flash_attention_qkv(qkv, h))
-        plain_ms = cuda_ms(lambda: flash_attention_qkv_reference(qkv, h))
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        ms = cuda_ms(lambda: flash_attention_qkv(qkv, h, key_mask=mask))
+        plain_ms = cuda_ms(lambda: flash_attention_qkv_reference(qkv, h, key_mask=mask))
+    attn_mask = None if mask is None else mask[:, None, None, :]
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask))
     elem = qkv.element_size()
-    # q, k, v read once, output written once; QK^T and AV
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound(qkv.numel() * elem + b * n * h * dh * elem, 4 * b * h * n * n * dh, dtype))
+    mask_bytes, pairs = mask_cost(b, n, mask)
+    # q, k, v (and the key bias) read once, output written once; QK^T and AV over the kept keys
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                **bound(qkv.numel() * elem + b * n * h * dh * elem + mask_bytes, 4 * h * pairs * dh, dtype))
 
 
-def time_attention_bwd(b, n, h, dh, dtype, split=False) -> dict:
-    """The backward kernel, packed (``split`` False) or split-head on the collapsed operands."""
+def time_attention_bwd(b, n, h, dh, dtype, split=False, mask=None) -> dict:
+    """The backward kernel, packed (``split`` False) or split-head on the collapsed operands; with
+    ``mask`` (packed only), under that key mask."""
     qkv, cot, _ = packed_qkv(b, n, h, dh, dtype, False, seed=101)
     scale = dh**-0.5
     g = cot.view(b, n, h, dh).permute(0, 2, 1, 3).contiguous()  # (B, H, N, Dh)
@@ -363,16 +446,18 @@ def time_attention_bwd(b, n, h, dh, dtype, split=False) -> dict:
         ms = cuda_ms(lambda: fa._launch_v1_bwd(cq, ck, cv, cg, None, scale))
         plain_ms = cuda_ms(lambda: fa._v1_bwd_plain(cq, ck, cv, cg, None, scale))
     else:
-        ms = cuda_ms(lambda: fa._launch_bwd(qkv, cot, h, None, scale))
-        plain_ms = cuda_ms(lambda: flash_attention_qkv_bwd_reference(qkv, cot, h))
+        bias = None if mask is None else fa._key_bias(mask)
+        ms = cuda_ms(lambda: fa._launch_bwd(qkv, cot, h, bias, scale))
+        plain_ms = cuda_ms(lambda: flash_attention_qkv_bwd_reference(qkv, cot, h, key_mask=mask))
     # the library yardstick: SDPA's backward through autograd, on the same q, k, v and cotangent
     q, k, v = (t.contiguous().requires_grad_(True) for t in qkv.view(b, n, 3, h, dh).permute(2, 0, 3, 1, 4))
-    out = F.scaled_dot_product_attention(q, k, v)
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=None if mask is None else mask[:, None, None, :])
     library_ms = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True))
     elem = qkv.element_size()
-    # q, k, v and g read once, dq, dk, dv written once; S, dV, dA, dQ, dK
-    nbytes = (2 * qkv.numel() + cot.numel()) * elem
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound(nbytes, 10 * b * h * n * n * dh, dtype))
+    mask_bytes, pairs = mask_cost(b, n, mask)
+    # q, k, v, g (and the key bias) read once, dq, dk, dv written once; S, dV, dA, dQ, dK over the kept keys
+    nbytes = (2 * qkv.numel() + cot.numel()) * elem + mask_bytes
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound(nbytes, 10 * h * pairs * dh, dtype))
 
 
 def serve_slice() -> dict:
@@ -943,20 +1028,23 @@ def ssl_check() -> dict:
     return dict(loss_rel=abs(la - lb) / abs(lb), grad_rel=grad_rel, param_per_lr=param_per_lr, loss=lb, lr=lr, batch=SSL_CHECK_BATCH)
 
 
-def ssl_run(name: str, overrides: list, layers: int, body: str, ckpt: Path, epochs: int = 2, resume_check=None) -> dict:
-    """``cli.pretrain.main`` on the card at the config's defaults plus ``overrides``: every
-    Trainer step must launch ``layers`` forward and ``layers`` backward packed kernels, all on
-    ``body``. Returns the history, the launches, and the synchronised step times."""
+def ssl_run(name: str, overrides: list, launches: tuple[int, int], body: str, ckpt: Path, epochs: int = 2, resume_check=None,
+            config: str = SSL_CONFIG, masked: tuple[int, int] = (0, 0)) -> dict:
+    """``cli.pretrain.main`` on the card at ``config``'s defaults plus ``overrides``: every Trainer
+    step must launch ``launches`` (forward, backward) packed kernels, all on ``body``, of which
+    ``masked`` carry a key mask. Returns the history, the launches, the synchronised step times
+    and the peak device memory."""
     steps, train_step, try_resume = [], Trainer.train_step, Trainer._try_resume
     last_end = [time.perf_counter()]
 
     def counted_step(self, module, optimizer, batch):
-        start, fwd0, bwd0 = Counter(LAUNCHES), Counter(FWD_BODY_LAUNCHES), Counter(BWD_BODY_LAUNCHES)
+        start, fwd0, bwd0, masked0 = Counter(LAUNCHES), Counter(FWD_BODY_LAUNCHES), Counter(BWD_BODY_LAUNCHES), Counter(MASKED_LAUNCHES)
         t0 = time.perf_counter()
         out = train_step(self, module, optimizer, batch)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         steps.append(dict(step_s=t1 - t0, fetch_s=t0 - last_end[0], launches={k: LAUNCHES[k] - start[k] for k in ALL_KERNELS},
+                          masked={k: MASKED_LAUNCHES[k] - masked0[k] for k in (KERNEL, BWD_KERNEL)},
                           fwd_bodies=dict(FWD_BODY_LAUNCHES - fwd0), bwd_bodies=dict(BWD_BODY_LAUNCHES - bwd0)))
         last_end[0] = t1
         return out
@@ -968,9 +1056,10 @@ def ssl_run(name: str, overrides: list, layers: int, body: str, ckpt: Path, epoc
         last_end[0] = time.perf_counter()
         return resumed
 
-    argv = ["--config", SSL_CONFIG, "--synthetic", str(SSL_SYNTHETIC), f"trainer.max_epochs={epochs}", f"ckpt_dir={ckpt}", *overrides]
+    argv = ["--config", config, "--synthetic", str(SSL_SYNTHETIC), f"trainer.max_epochs={epochs}", f"ckpt_dir={ckpt}", *overrides]
     Trainer.train_step, Trainer._try_resume = counted_step, checked_resume
     reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
         trainer, module, history = pretrain_cli.main(argv)
@@ -978,23 +1067,44 @@ def ssl_run(name: str, overrides: list, layers: int, body: str, ckpt: Path, epoc
         Trainer.train_step, Trainer._try_resume = train_step, try_resume
     main_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    want = {KERNEL: layers, BWD_KERNEL: layers, V1_KERNEL: 0, V1_BWD_KERNEL: 0}
+    peak = torch.cuda.max_memory_allocated()
+    fwd, bwd = launches
+    want = {KERNEL: fwd, BWD_KERNEL: bwd, V1_KERNEL: 0, V1_BWD_KERNEL: 0}
+    want_masked = {KERNEL: masked[0], BWD_KERNEL: masked[1]}
     for i, st in enumerate(steps):
-        if st["launches"] != want or st["fwd_bodies"] != {body: layers} or st["bwd_bodies"] != {body: layers}:
-            fail(f"ssl {name}: step {i} launched {st['launches']} on bodies {st['fwd_bodies']} / {st['bwd_bodies']}, expected {want} on {body}")
+        if (st["launches"] != want or st["fwd_bodies"] != {body: fwd} or st["bwd_bodies"] != {body: bwd}
+                or st["masked"] != want_masked):
+            fail(f"ssl {name}: step {i} launched {st['launches']} ({st['masked']} with a key mask) on bodies {st['fwd_bodies']} / "
+                 f"{st['bwd_bodies']}, expected {want} ({want_masked}) on {body}")
     losses = [h["train_loss"] for h in history]
     if not steps or not all(np.isfinite(losses)) or not all(torch.isfinite(p).all() for p in module.parameters()):
         fail(f"ssl {name}: {len(steps)} steps, losses {losses}")
     timed = steps[1:]  # the first step pays cuBLAS set-up and allocation
     step_s = statistics.mean(st["step_s"] for st in timed)
     out = dict(main_s=main_s, steps=len(steps), global_step=trainer.global_step, epochs=[h["epoch"] for h in history], losses=losses,
-               launches={k: LAUNCHES[k] for k in ALL_KERNELS}, launches_per_step=dict(want), body=body,
+               launches={k: LAUNCHES[k] for k in ALL_KERNELS}, launches_per_step=dict(want), masked_per_step=want_masked, body=body,
                step_ms=[st["step_s"] * 1e3 for st in steps], fetch_ms=[st["fetch_s"] * 1e3 for st in steps],
-               steps_per_s=1.0 / step_s, images_per_s=SSL_BATCH / step_s)
+               steps_per_s=1.0 / step_s, images_per_s=SSL_BATCH / step_s, batch=SSL_BATCH, max_memory_allocated=peak)
     print(f"  ssl {name}: main() {main_s:.1f} s, {len(steps)} steps, losses {[round(v, 4) for v in losses]}; step "
-          f"{step_s * 1e3:.2f} ms ({out['steps_per_s']:.2f} steps/s, {out['images_per_s']:.1f} images/s, first step excluded); "
-          f"loader + copy {statistics.median(out['fetch_ms'][1:]):.1f} ms median; {layers} + {layers} launches a step on {body}")
+          f"{step_s * 1e3:.2f} ms ({out['steps_per_s']:.2f} steps/s, {out['images_per_s']:.1f} images/s at batch {SSL_BATCH}, first step "
+          f"excluded); loader + copy {statistics.median(out['fetch_ms'][1:]):.1f} ms median; {fwd} + {bwd} launches a step on {body}, "
+          f"{masked[0]} + {masked[1]} with a key mask; peak memory {peak / 2**30:.2f} GiB")
     return dict(out, trainer=trainer, module=module)
+
+
+def resume_checker(saved: dict, restored: dict):
+    """A ``resume_check`` for ``ssl_run``: records in ``restored`` whether the resumed Trainer
+    step, epoch, module state (parameters and buffers) and AdamW's moments and count equal
+    ``saved`` (a loaded ``last.ckpt``) bit for bit on the card."""
+    def check(trainer, module, optimizer, resumed):
+        state = optimizer.adamw.state_dict()["state"]
+        restored.update(resumed=resumed, step=trainer.global_step, epoch=trainer.current_epoch,
+                        model=all(torch.equal(a, saved["model"][k]) and a.is_cuda for k, a in module.state_dict().items()),
+                        moments=all(torch.equal(s[m], saved["opt"]["adamw"]["state"][i][m]) and s[m].is_cuda
+                                    for i, s in state.items() for m in ("exp_avg", "exp_avg_sq")),
+                        count=optimizer.count == saved["opt"]["count"])
+
+    return check
 
 
 def ssl_phase() -> dict:
@@ -1010,25 +1120,16 @@ def ssl_phase() -> dict:
     ckpt = CKPT_DIR / "ssl"
     try:
         runs = {}
-        runs["cli"] = ssl_run("(b) cli f32", [], 12, "tf32x3", ckpt)
+        runs["cli"] = ssl_run("(b) cli f32", [], (12, 12), "tf32x3", ckpt)
         steps = runs["cli"]["global_step"]  # 2 epochs
         saved = load_checkpoint(ckpt / "last.ckpt", map_location="cuda")
         restored = {}
-
-        def resume_check(trainer, module, optimizer, resumed):
-            state = optimizer.adamw.state_dict()["state"]
-            restored.update(resumed=resumed, step=trainer.global_step, epoch=trainer.current_epoch,
-                            model=all(torch.equal(a, saved["model"][k]) and a.is_cuda for k, a in module.state_dict().items()),
-                            moments=all(torch.equal(s[m], saved["opt"]["adamw"]["state"][i][m]) and s[m].is_cuda
-                                        for i, s in state.items() for m in ("exp_avg", "exp_avg_sq")),
-                            count=optimizer.count == saved["opt"]["count"])
-
-        runs["resume"] = ssl_run("(c) resume", [], 12, "tf32x3", ckpt, epochs=3, resume_check=resume_check)
+        runs["resume"] = ssl_run("(c) resume", [], (12, 12), "tf32x3", ckpt, epochs=3, resume_check=resume_checker(saved, restored))
         if restored != dict(resumed=True, step=steps, epoch=2, model=True, moments=True, count=True) or runs["resume"]["global_step"] != steps * 3 // 2:
             fail(f"ssl resume: restored {restored}, ended at step {runs['resume']['global_step']}")
         print(f"  ssl (c): restored global_step {steps} and epoch 2; parameters and AdamW moments equal the saved ones on the card")
-        runs["bf16"] = ssl_run("(d) bf16 encoder", ["model.encoder.compute_dtype=bfloat16"], 12, "tensor_core", ckpt / "bf16")
-        runs["he"] = ssl_run("(e) He-style decoder", ["model.algorithm.decode_masked_only=false"], 20, "tf32x3", ckpt / "he")
+        runs["bf16"] = ssl_run("(d) bf16 encoder", ["model.encoder.compute_dtype=bfloat16"], (12, 12), "tensor_core", ckpt / "bf16")
+        runs["he"] = ssl_run("(e) He-style decoder", ["model.algorithm.decode_masked_only=false"], (20, 20), "tf32x3", ckpt / "he")
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     encoder = runs["cli"]["module"].encoder  # f32
@@ -1059,6 +1160,124 @@ def ssl_phase() -> dict:
     print(f"  ssl (f): full-image encoder forward at N={shape[1]}: {launches[KERNEL]} launches; last 4 blocks {shape}; max err vs CPU "
           f"{err:.3e} (tol {SSL_FULL_TOL}); {statistics.median(full_ms):.2f} ms a forward (median of {len(full_ms)})")
     out.update(runs, full_image=dict(launches=launches, max_abs_err_vs_cpu=err, tol=SSL_FULL_TOL, forward_ms=full_ms))
+    return out
+
+
+EXPERIMENTS = Path(__file__).resolve().parent / "config" / "experiment"
+DISTILL_CHECK_BATCH = 8
+# Packed launches per Trainer step at the configs' depths (forward, backward), and of those the
+# ones with a key mask. DINO and DINOv2: forward, the student's global and local passes, the
+# teacher's global pass and the probe's full teacher pass (12 each) and the probe decoder (2);
+# backward, the student's two passes (12 each) and the probe decoder; every pass but the probe's
+# is key-masked. I-JEPA: forward, the context encoder (key-masked), the target encoder and four
+# predictor passes of 6 layers (key-masked); backward, the context encoder and the predictor.
+DISTILL_LAUNCHES = {"dino": ((50, 26), (36, 24)), "dinov2": ((50, 26), (36, 24)), "ijepa": ((48, 36), (36, 36))}
+# One f32 DINO step at full width (ViT-small, 1 register, dino_out_dim 65536, the probe), card vs
+# CPU (TF32 off), the same weights, batch, masks and temperature: the loss relative to its
+# magnitude, each trainable gradient relative to its norm, each trainable parameter after AdamW
+# relative to the learning rate beyond the difference of Adam's first steps that the two
+# gradients imply, each teacher parameter after the EMA beyond (1 - momentum) times that
+# difference, relative to the learning rate, and the center after its EMA, absolute. On the H100
+# these seeds gave 7.241e-8 (about one ulp of the loss), 1.934e-6, 1.190e-3 (one ulp of a
+# parameter near 1, at lr 1e-4), 7.294e-5 and 1.211e-8 (|center| up to 2.6e-2): the same f32
+# arithmetic in another summation order; each bound is about 10x its value.
+DISTILL_F32_TOL = dict(loss_rel=1e-6, grad_rel=2e-5, param_per_lr=1.2e-2, teacher_per_lr=7e-4, center_abs=1.2e-7)
+
+
+def distill_models(name: str, overrides=()):
+    """The experiment config's encoder and algorithm (f32, seeded weights), built on the CPU."""
+    cfg = load_config(str(EXPERIMENTS / f"{name}_vit.yaml"), list(overrides))
+    return instantiate(cfg["model"]["algorithm"])(instantiate(cfg["model"]["encoder"]))
+
+
+def dino_step(module, x: torch.Tensor, masks: tuple):
+    """One Trainer step of the DINO ``module`` by hand (loss, backward, AdamW, the post-update
+    hook) on ``x`` under ``masks`` at step 0: the loss, the trainable gradients, and the state
+    after it."""
+    module.setup_schedules(3, 2)
+    module.sample_masks = lambda generator, batch: tuple(m.to(x.device) for m in masks)
+    opt = module.configure_optimizer(3, 2)
+    loss, aux = module.training_loss({"image": x}, None, 0)
+    loss.backward()
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().clone() for n, p in module.trainable_parameters().items()}
+    opt.step()
+    module.on_train_batch_end(aux, 0)
+    return loss.item(), grads, {n: v.detach() for n, v in module.state_dict().items()}, opt
+
+
+def distill_check() -> dict:
+    """(a) One f32 DINO step at full width on the card against the CPU."""
+    cpu = distill_models("dino", ["model.algorithm.warmup_epochs=0"])
+    card = copy.deepcopy(cpu).to("cuda")
+    enc = cpu.student_backbone
+    x = torch.from_numpy(np.random.default_rng(2).random((DISTILL_CHECK_BATCH, *enc.img_size, enc.in_chans), dtype=np.float32))
+    masks = cpu.sample_masks(torch.Generator().manual_seed(3), DISTILL_CHECK_BATCH)
+    reset_launches()
+    la, ga, sa, opt = dino_step(card, x.cuda(), masks)
+    torch.cuda.synchronize()
+    launches = {k: LAUNCHES[k] for k in (KERNEL, BWD_KERNEL)}
+    if launches != dict(zip((KERNEL, BWD_KERNEL), DISTILL_LAUNCHES["dino"][0])):
+        fail(f"the DINO check step launched {launches}, expected {DISTILL_LAUNCHES['dino'][0]}")
+    lb, gb, sb, _ = dino_step(cpu, x, masks)
+    lr, eps = opt.learning_rate(0), opt.adamw.param_groups[0]["eps"]
+    momentum = cpu._momentum_fn(0)
+    implied, grad_rel, param_per_lr = {}, 0.0, 0.0
+    for name, g in gb.items():
+        a = ga[name].cpu()
+        grad_rel = max(grad_rel, ((a - g).norm() / g.norm()).item())
+        implied[name] = lr * (a / (a.abs() + eps) - g / (g.abs() + eps)).abs()
+        param_per_lr = max(param_per_lr, ((sa[name].cpu() - sb[name]).abs() - implied[name]).max().item() / lr)
+    teacher_per_lr = 0.0
+    for name in sb:
+        if name.startswith("teacher_"):
+            step = (1.0 - momentum) * implied["student_" + name[len("teacher_"):]]
+            teacher_per_lr = max(teacher_per_lr, ((sa[name].cpu() - sb[name]).abs() - step).max().item() / lr)
+    center_abs = (sa["center"].cpu() - sb["center"]).abs().max().item()
+    return dict(loss_rel=abs(la - lb) / abs(lb), grad_rel=grad_rel, param_per_lr=param_per_lr, teacher_per_lr=teacher_per_lr,
+                center_abs=center_abs, center_max=sb["center"].abs().max().item(), loss=lb, lr=lr, momentum=momentum,
+                batch=DISTILL_CHECK_BATCH, launches=launches)
+
+
+def distill_phase() -> dict:
+    """Phase 10: DINO, DINOv2 and I-JEPA at full width through cli.pretrain and its Trainer."""
+    out = {}
+    t0 = time.perf_counter()
+    e = out["f32_check"] = distill_check()
+    print(f"  distill (a): one f32 DINO step at batch {DISTILL_CHECK_BATCH}, card vs CPU ({time.perf_counter() - t0:.1f} s): loss rel err "
+          f"{e['loss_rel']:.3e}, grad err/|grad| {e['grad_rel']:.3e}, param err/lr {e['param_per_lr']:.3e}, teacher err/lr "
+          f"{e['teacher_per_lr']:.3e}, center abs err {e['center_abs']:.3e} (|center| max {e['center_max']:.3e}); tol {DISTILL_F32_TOL}")
+    if any(e[k] > DISTILL_F32_TOL[k] for k in DISTILL_F32_TOL):
+        fail("the f32 DINO step on the card disagrees with the CPU")
+    e["tol"] = DISTILL_F32_TOL
+    ckpt = CKPT_DIR / "distill"
+
+    def run(label, name, path, **kw):
+        launches, masked = DISTILL_LAUNCHES[name]
+        r = ssl_run(label, [], launches, "tf32x3", path, config=str(EXPERIMENTS / f"{name}_vit.yaml"), masked=masked, **kw)
+        del r["trainer"], r["module"]
+        torch.cuda.empty_cache()
+        return r
+
+    try:
+        runs = {}
+        runs["dino"] = run("(b) DINO", "dino", ckpt)
+        steps = runs["dino"]["global_step"]  # 2 epochs
+        saved = load_checkpoint(ckpt / "last.ckpt", map_location="cuda")
+        if not any(k.startswith("teacher_backbone.") for k in saved["model"]) or "center" not in saved["model"]:
+            fail("the DINO checkpoint lacks the teacher or the center")
+        restored = {}
+        runs["dino_resume"] = run("(c) DINO resume", "dino", ckpt, epochs=3, resume_check=resume_checker(saved, restored))
+        del saved
+        if restored != dict(resumed=True, step=steps, epoch=2, model=True, moments=True, count=True) or runs["dino_resume"]["global_step"] != steps * 3 // 2:
+            fail(f"DINO resume: restored {restored}, ended at step {runs['dino_resume']['global_step']}")
+        print(f"  distill (c): restored global_step {steps} and epoch 2; teachers, center, student and AdamW moments equal the saved ones on the card")
+        # batch 64 holds the iBOT logits, (2 x 64, 196, 65536) f32 (6.6 GB a copy), several times:
+        # 59.6 GiB at the peak on the H100, so the config's batch fits and is not cut
+        runs["dinov2"] = run("(d) DINOv2", "dinov2", ckpt / "dinov2")
+        runs["ijepa"] = run("(d) I-JEPA", "ijepa", ckpt / "ijepa")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    out.update(runs)
     return out
 
 
@@ -1109,6 +1328,18 @@ def main() -> int:
             print(f"  {kind} B=2 N={LONG_N} H={SERVE_H} Dh={SERVE_DH} {str(dtype)[6:]}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
                   f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bytes']} B, {t['flops']} FLOP)")
 
+    print("[3c] the phase-10 key masks")
+    distill_worst = check_distill_masks()
+    print(f"  largest err/tol: {json.dumps(distill_worst)}")
+    for i, (kind, (b, n, h, dh)) in enumerate(DISTILL_MASKED):
+        mask = distill_mask(kind, b, seed=i)
+        for dtype in (torch.float32, torch.bfloat16):
+            for direction, fn in (("forward", time_attention), ("backward", time_attention_bwd)):
+                t = timed[direction, kind, dtype] = fn(b, n, h, dh, dtype, mask=mask)
+                print(f"  {direction} ({kind}) B={b} N={n} H={h} Dh={dh} {str(dtype)[6:]}, {mask.float().mean().item():.3f} of keys kept: "
+                      f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
+                      f"bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bytes']} B, {t['flops']} FLOP)")
+
     print("[4] serving slice")
     sl = serve_slice()
     print(f"  batch 8: p50 {sl['batch8_latency_ms_p50']:.3f} ms per request; batch 512: {sl['batch512_ms']:.3f} ms, "
@@ -1132,19 +1363,27 @@ def main() -> int:
     print("[9] SSL pretraining slice")
     ssl = ssl_phase()
 
+    print("[10] self-distillation and latent-prediction pretraining (DINO, DINOv2, I-JEPA)")
+    distill = distill_phase()
+
     def by_path(name):
         """The kernel's launches in each path's run (counts set to 0 just before it)."""
         return dict(serve=sl["attention_launches"] if name == KERNEL else 0, train=tr["launches"].get(name, 0),
                     bench_v2=bench["v2"]["launches"].get(name, 0), bench_v1=bench["v1"]["launches"].get(name, 0),
                     **{f"cli_{mode}": cli[mode]["launches"][name] for mode in ("joint", "separate", "plain", "resume")},
                     **{f"sac_{run}": sac[run]["launches"][name] for run in ("separate_host", "separate_device", "joint_host", "joint_device", "cli")},
-                    **{f"ssl_{run}": ssl[run]["launches"][name] for run in ("cli", "resume", "bf16", "he", "full_image")})
+                    **{f"ssl_{run}": ssl[run]["launches"][name] for run in ("cli", "resume", "bf16", "he", "full_image")},
+                    **{f"distill_{run}": distill[run]["launches"][name] for run in ("dino", "dino_resume", "dinov2", "ijepa")})
 
     def ssl_shapes(kind):
-        """The packed kernel of this direction at the SSL slice's shapes and the training shape, f32 and bf16."""
-        return [dict(B=b, N=n, H=h, Dh=dh, dtype=str(dt)[6:], **{k: timed[kind, b, n, h, dh, dt][k] for k in
-                                                                  ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
-                for b, n, h, dh in TIMED_SHAPES for dt in (torch.float32, torch.bfloat16)]
+        """The packed kernel of this direction at the SSL slices' shapes and the training shape, f32
+        and bf16, with no mask; then under the phase-10 key masks."""
+        keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+        return [dict(B=b, N=n, H=h, Dh=dh, dtype=str(dt)[6:], mask=None, **{k: timed[kind, b, n, h, dh, dt][k] for k in keys})
+                for b, n, h, dh in TIMED_SHAPES for dt in (torch.float32, torch.bfloat16)] + [
+                dict(B=b, N=n, H=h, Dh=dh, dtype=str(dt)[6:], mask=mk, err_per_tol=distill_worst[f"{kind} {mk} {str(dt)[6:]}"],
+                     **{k: timed[kind, mk, dt][k] for k in keys})
+                for mk, (b, n, h, dh) in DISTILL_MASKED for dt in (torch.float32, torch.bfloat16)]
 
     def row(name, source, replaces, kind, path, err):
         t, t10 = timed[(kind, *n192)], timed[(kind, *n10)]
@@ -1188,6 +1427,7 @@ def main() -> int:
     print(json.dumps({"cli": cli}))
     print(json.dumps({"sac": sac}))
     print(json.dumps({"ssl": ssl}))
+    print(json.dumps({"ssl_distill": distill}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

@@ -21,6 +21,11 @@ Registers, stack and spills of every kernel of both trees are printed (``ptxas -
 bodies are ``fwd_mma_kernel<KD>``, ``bwd_mma_kernel<KD>`` (bf16), ``fwd_tf32_kernel<KD>`` and
 ``bwd_tf32_kernel<KD>`` (f32) for a head dim padded to 16 * KD.
 
+``BLOCK_SHAPES``: the moved backward under a block key mask as DINO's global view draws it (the
+register key and one block of the 14 x 14 patch grid, 6 to ~120 of 197 keys), where a few kept
+keys take all the attention and dK and dV grow large: both trees' err/tol, and the largest error
+of dQ, dK and dV of each tree and of the plain version against the same function in float64.
+
 Times are CUDA-event means in the order other, this, this, other, so drift of the card shows:
 bf16 at B=512, N=192 and 10, H=4, Dh=64; the moved dtype at ``TIMED_MOVED``. Exits 1 if a shared
 body's output differs or a moved one leaves its bound.
@@ -36,14 +41,18 @@ import torch
 
 from .kernels.build import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, build_all, find_nvcc, load_library
 from .nn import flash_attention as fa
+from .ssl.masks import sample_block_masks, sample_block_masks_constrained
 
 NAMES = {"flash_attention_qkv_fwd": fa._SIGNATURES, "flash_attention_qkv_bwd": fa._BWD_SIGNATURES}
 ENTRY = {"flash_attention_qkv_fwd": "m3l_flash_qkv_fwd", "flash_attention_qkv_bwd": "m3l_flash_qkv_bwd"}
 SHAPES = [(512, 192, 4, 64), (512, 10, 4, 64), (8, 192, 4, 64), (64, 196, 16, 64), (3, 1, 2, 8), (2, 33, 2, 128),
-          (64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32), (2, 784, 4, 64), (2, 417, 2, 64), (2, 209, 2, 128)]
+          (64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32), (2, 784, 4, 64), (2, 417, 2, 64), (2, 209, 2, 128),
+          (64, 197, 6, 64), (64, 392, 12, 32)]
 MOVED = (torch.float32,)  # the dtypes whose body differs between the trees
-# the moved bodies timed in turns: the SSL slice's shapes, the training shape and a long head
-TIMED_MOVED = [(64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32), (512, 192, 4, 64), (2, 784, 4, 64)]
+# the moved bodies timed in turns: the SSL slices' shapes, the training shape and a long head
+BLOCK_SHAPES = [(64, 197, 6, 64)]
+TIMED_MOVED = [(64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32), (512, 192, 4, 64), (2, 784, 4, 64), (64, 197, 6, 64),
+               (256, 197, 6, 64), (64, 392, 12, 32)]
 
 
 def registers(nvcc: str, src: Path) -> list[str]:
@@ -92,16 +101,39 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def block_keep(b: int, seed: int) -> torch.Tensor:
+    """(B, 197) DINO global-view keep-masks: the register key and one block avoiding four local ones."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    local = sample_block_masks(g, b, (14, 14), (0.2, 0.8), 4)
+    glob = sample_block_masks_constrained(g, b, (14, 14), (0.2, 0.8), 1, local.any(0), 4)[0]
+    return torch.cat([torch.ones(b, 1, dtype=torch.bool, device="cuda"), glob], dim=1)
+
+
+def bwd_f64(qkv, g, h, bias, scale) -> torch.Tensor:
+    """The packed dqkv of the function in float64."""
+    q, k, v = (x.double() for x in fa._split_heads(qkv.double(), h, 3))
+    go = fa._split_heads(g.double(), h, 1)[0].double()
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.double()[:, None, None, :]
+    a = torch.softmax(s, dim=-1)
+    da = torch.matmul(go, v.transpose(-1, -2))
+    ds = a * (da - (da * a).sum(-1, keepdim=True)) * scale
+    return torch.cat([fa._merge_heads(x) for x in (torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q), torch.matmul(a.transpose(-1, -2), go))], -1)
+
+
 def calls(libs, b, n, h, dh, dtype, masked, seed=0):
     """The forward and backward of the libraries ``libs`` as argument-free launches on seeded
     inputs, each writing its own preallocated output: both trees are called the same way. The
     third function gives the max err/tol of a forward and a backward output against the plain
-    versions."""
+    versions. ``masked``: False, True (a random key mask, 0.7 kept) or "block" (``block_keep``)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     qkv = torch.randn(b, n, 3 * h * dh, generator=g, device="cuda").to(dtype)
     cot = torch.randn(b, n, h * dh, generator=g, device="cuda").to(dtype)
     bias = None
-    if masked:
+    if masked == "block":
+        bias = fa._key_bias(block_keep(b, seed)).contiguous()
+    elif masked:
         keep = torch.rand(b, n, generator=g, device="cuda") > 0.3
         keep[:, 0] = True
         bias = fa._key_bias(keep).contiguous()
@@ -123,6 +155,8 @@ def calls(libs, b, n, h, dh, dtype, masked, seed=0):
         ):
             raise RuntimeError("backward launch failed")
         return out_b
+
+    bwd.inputs = (qkv, cot, h, bias, scale)
 
     def err_over_tol(out_fwd, out_bwd):
         mask = None if bias is None else bias == 0
@@ -163,6 +197,20 @@ def main(argv: list[str] | None = None) -> int:
                     line = f"forward {'bit-equal' if fwd_ok else 'DIFFERENT'}, backward {'bit-equal' if bwd_ok else 'DIFFERENT'}"
                 same &= ok
                 print(f"  B={b} N={n} H={h} Dh={dh} {str(dtype)[6:]} mask={masked}: {line}")
+    for b, n, h, dh in BLOCK_SHAPES:
+        for dtype in MOVED:
+            (this_f, this_b, ratio), (other_f, other_b, _) = (calls(libs, b, n, h, dh, dtype, "block") for libs in (this, other))
+            (_, tb), (_, ob) = ratio(this_f(), this_b()), ratio(other_f(), other_b())
+            qkv, cot, _, bias, scale = this_b.inputs
+            truth = bwd_f64(*this_b.inputs)
+            plain = fa.flash_attention_qkv_bwd_reference(qkv, cot, h, key_mask=bias == 0)
+            errs = {tree: [(out[..., i * h * dh:(i + 1) * h * dh].double() - truth[..., i * h * dh:(i + 1) * h * dh]).abs().max().item()
+                           for i in range(3)] for tree, out in (("this", this_b()), ("other", other_b()), ("plain", plain))}
+            same &= tb <= 1.0  # this tree's; the other's is shown
+            print(f"  block mask B={b} N={n} H={h} Dh={dh} {str(dtype)[6:]} backward: max err/tol this {tb:.3f}, other {ob:.3f}; "
+                  f"max |dq|, |dk|, |dv| {[round(x.abs().max().item(), 3) for x in truth.split(h * dh, -1)]}; against float64 (dq, dk, dv): "
+                  + "; ".join(f"{tree} " + ", ".join(f"{e:.3e}" for e in v) for tree, v in errs.items())
+                  + ("" if tb <= 1.0 else " OUT OF BOUND") + ("" if ob <= 1.0 else " (the other tree out of bound)"))
     timed = [(512, n, 4, 64, torch.bfloat16) for n in (192, 10)] + [(*shape, dt) for shape in TIMED_MOVED for dt in MOVED]
     for b, n, h, dh, dtype in timed:
         (this_f, this_b, _), (other_f, other_b, _) = (calls(libs, b, n, h, dh, dtype, False, seed=101) for libs in (this, other))

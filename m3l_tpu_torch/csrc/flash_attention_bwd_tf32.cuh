@@ -9,7 +9,13 @@
 // Precision ("3xTF32", flash_attention_mma.cuh): every product is three mma.sync.m16n8k8 TF32
 // products of split operands into one f32 accumulator, S, dA, dQ, dK and dV alike, each held to
 // about 2^-21 of its size, far inside flash_attention_qkv_bwd_tolerance's 2e-5 (emulated on the
-// CPU in tests/test_torch_attention_f32_mma.py).
+// CPU in tests/test_torch_attention_f32_mma.py). dQ, dK and dV sum over a whole sweep, and the
+// tensor cores round a running sum worse than an f32 add (their errors pile up in one direction):
+// summed in the accumulators themselves, dK and dV erred by ~2e-6 of the sum of |terms|, 3-4x the
+// plain version, and under DINO's block key masks, where a few kept keys take all the attention
+// (|dV| to 13), by 2.6e-5 on the H100, past the bound. So each 8-key (phase 1) or 8-query (phase 2) step
+// sums its products in an accumulator of its own, started at zero, and adds it to dQ, dK or dV
+// in f32, as the forward adds each chunk's e V to O.
 //
 // Layout: one block per (head, batch row), W <= 8 warps (as many as make the rounds of strips
 // even: 7 for the 13 strips of N = 196), running both phases; a streamed head (below) runs
@@ -220,8 +226,15 @@ bwd_tf32_kernel(BwdOperands o, const float* __restrict__ bias, float4* __restric
           split_c_as_a(da[nt], sh, sl);
           const float* kr = xs + (j0 + 8 * nt + 2 * t4) * LD + g;  // keys 2t and 2t + 1, column g
 #pragma unroll
-          for (int c = 0; c < KS; c += 2)
-            mma3_pair(dq[c], sh, sl, kr[8 * c], kr[LD + 8 * c], dq[c + 1], sh, sl, kr[8 * c + 8], kr[LD + 8 * c + 8]);
+          for (int c = 0; c < KS; c += 2) {
+            float p0[4] = {0.f, 0.f, 0.f, 0.f}, p1[4] = {0.f, 0.f, 0.f, 0.f};  // these 8 keys' dS K
+            mma3_pair(p0, sh, sl, kr[8 * c], kr[LD + 8 * c], p1, sh, sl, kr[8 * c + 8], kr[LD + 8 * c + 8]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              dq[c][e] += p0[e];
+              dq[c + 1][e] += p1[e];
+            }
+          }
         }
       }
     }
@@ -267,8 +280,15 @@ bwd_tf32_kernel(BwdOperands o, const float* __restrict__ bias, float4* __restric
         split_c_as_a(da[0], sh, sl);
         const int off = (i0 + 2 * t4) * LD + g;  // queries 2t and 2t + 1, column g
 #pragma unroll
-        for (int c = 0; c < KS; ++c)
-          mma3_pair(dv[c], ph, pl, ys[off + 8 * c], ys[off + LD + 8 * c], dk[c], sh, sl, xs[off + 8 * c], xs[off + LD + 8 * c]);
+        for (int c = 0; c < KS; ++c) {
+          float pv[4] = {0.f, 0.f, 0.f, 0.f}, pk[4] = {0.f, 0.f, 0.f, 0.f};  // these 8 queries' A^T g and dS^T Q
+          mma3_pair(pv, ph, pl, ys[off + 8 * c], ys[off + LD + 8 * c], pk, sh, sl, xs[off + 8 * c], xs[off + LD + 8 * c]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            dv[c][e] += pv[e];
+            dk[c][e] += pk[e];
+          }
+        }
       }
     }
     if (active) {

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..nn.layers import LayerNorm
+from ..nn.layers import LayerNorm, Linear
 from ..nn.vit_layers import LN_EPS, Block, PatchEmbed, PatchEmbed3D
 from ..ops.posenc import sincos_nd
 
@@ -228,6 +228,62 @@ class VisionTransformer(nn.Module):
         return self.forward_features(x, **kwargs)["x_norm_patchtokens"]
 
 
+class VisionTransformerPredictor(VisionTransformer):
+    """Narrow predictor over context tokens + mask tokens (I-JEPA style): inputs projected from
+    ``input_dim`` to the predictor's width, outputs back, and a bank of ``num_mask_tokens`` learned
+    mask tokens (``mask_tokens``, one (1, D) parameter each)."""
+
+    def __init__(self, *, input_dim: int, num_mask_tokens: int = 1, zero_init_mask_tokens: bool = False, **kwargs):
+        kwargs.setdefault("pos_embed_fn", "sinusoidal")
+        super().__init__(**kwargs)
+        self.input_dim = input_dim
+        self.num_mask_tokens = num_mask_tokens
+        self.input_projection = Linear(input_dim, self.embed_dim, dtype=self.dtype)
+        self.output_projection = Linear(self.embed_dim, input_dim, dtype=self.dtype)
+
+        def init():
+            t = torch.zeros(1, self.embed_dim)
+            return t if zero_init_mask_tokens else nn.init.trunc_normal_(t, std=1.0, a=-2.0, b=2.0) * 0.02
+
+        self.mask_tokens = nn.ParameterList([nn.Parameter(init()) for _ in range(num_mask_tokens)])
+
+    def _pos(self, b: int) -> torch.Tensor:
+        """The (N, D) position table at the model's own input size."""
+        if self.is_video:
+            return self.pos_encoding((b, self.num_frames, *self.img_size, self.in_chans))
+        return self.pos_encoding((b, *self.img_size, self.in_chans))
+
+    def _mask_token(self, mask_index: int) -> torch.Tensor:
+        return self.mask_tokens[mask_index % self.num_mask_tokens]
+
+    def predict(self, context_tokens: torch.Tensor, context_indices: torch.Tensor, target_indices: torch.Tensor, mask_index: int = 1):
+        """context_tokens: (B, Kc, input_dim) encoder latents at ``context_indices`` (B, Kc);
+        returns predicted latents (B, Kt, input_dim) at ``target_indices`` (B, Kt)."""
+        b, kc, _ = context_tokens.shape
+        x = self.input_projection(context_tokens.to(self.dtype))
+        pos = self._pos(b)
+        pos_b = pos[None].expand(b, -1, -1)
+        x = x + torch.take_along_dim(pos_b, context_indices[:, :, None], dim=1).to(x.dtype)
+        pred = self._mask_token(mask_index)[None].expand(b, target_indices.shape[1], -1).to(x.dtype)
+        pred = pred + torch.take_along_dim(pos_b, target_indices[:, :, None], dim=1).to(x.dtype)
+        x = self._run_blocks(torch.cat([x, pred], dim=1))
+        return self.output_projection(self.norm(x)[:, kc:])
+
+    def predict_padded(self, context_tokens: torch.Tensor, context_mask: torch.Tensor, mask_index: int = 0):
+        """Pad-and-mask form: full-length context tokens (B, N, input_dim) with a (B, N) bool
+        keep-mask, followed by N mask tokens; returns predictions (B, N, input_dim) at every
+        position (the caller weights its loss by its target mask). The context's masked tokens
+        are masked as attention keys; the mask tokens are always visible."""
+        b, n, _ = context_tokens.shape
+        x = self.input_projection(context_tokens.to(self.dtype))
+        pos = self._pos(b)[None].to(x.dtype)
+        x = x + pos
+        pred = self._mask_token(mask_index)[None].expand(b, n, -1).to(x.dtype) + pos
+        km = torch.cat([context_mask, torch.ones(b, n, dtype=torch.bool, device=context_mask.device)], dim=1)
+        out = self._run_blocks(torch.cat([x, pred], dim=1), km)
+        return self.output_projection(self.norm(out)[:, n:])
+
+
 def _factory(embed_dim, depth, num_heads):
     def make(patch_size=16, num_register_tokens=0, **kwargs):
         return VisionTransformer(
@@ -248,3 +304,16 @@ vit_small = _factory(384, 12, 6)
 vit_base = _factory(768, 12, 12)
 vit_large = _factory(1024, 24, 16)
 vit_giant2 = _factory(1536, 40, 24)
+
+
+def vit_predictor(input_dim: int, patch_size=16, num_register_tokens=0, embed_dim=384, depth=6, num_heads=12, **kwargs):
+    return VisionTransformerPredictor(
+        input_dim=input_dim,
+        patch_size=patch_size,
+        embed_dim=embed_dim,
+        depth=depth,
+        num_heads=num_heads,
+        mlp_ratio=4.0,
+        num_register_tokens=num_register_tokens,
+        **kwargs,
+    )

@@ -2,8 +2,8 @@
 ``m3l_tpu/train/builders.py``): plain scalars and a seed in, the port's modules out.
 
 Each builder draws its initial weights from its own ``seed`` (torch's global generator is left as
-it was). The builders of the algorithms not ported yet (DINO, DINOv2, I-JEPA, V-JEPA, the
-downstream tasks) are absent, so their config targets fail to import.
+it was). The builders of what is not ported yet (V-JEPA and the downstream tasks) are absent, so
+their config targets fail to import.
 """
 from __future__ import annotations
 
@@ -50,10 +50,47 @@ def build_vit(
     return _seeded(seed, lambda: factory(patch_size=patch_size, num_register_tokens=num_register_tokens, **kwargs))
 
 
+def build_predictor(encoder, *, embed_dim: int = 384, depth: int = 6, num_heads: int = 12, num_mask_tokens: int = 1, seed: int = 1):
+    return _seeded(
+        seed,
+        lambda: vit_zoo.vit_predictor(
+            input_dim=encoder.embed_dim,
+            patch_size=encoder.patch_size,
+            embed_dim=embed_dim,
+            depth=depth,
+            num_heads=num_heads,
+            img_size=encoder.img_size,
+            in_chans=encoder.in_chans,
+            num_frames=encoder.num_frames,
+            tubelet_size=encoder.tubelet_size,
+            num_mask_tokens=num_mask_tokens,
+        ),
+    )
+
+
 def build_mae(encoder, *, seed: int = 1, **kwargs):
     from ..ssl import MAEModule
 
     return _seeded(seed, lambda: MAEModule(encoder, **kwargs))
+
+
+def build_dino(encoder, *, seed: int = 1, **kwargs):
+    from ..ssl import DINOModule
+
+    return _seeded(seed, lambda: DINOModule(encoder, **kwargs))
+
+
+def build_dinov2(encoder, *, seed: int = 1, **kwargs):
+    from ..ssl import DINOv2Module
+
+    return _seeded(seed, lambda: DINOv2Module(encoder, **kwargs))
+
+
+def build_ijepa(encoder, *, predictor_depth: int = 6, predictor_dim: int = 384, num_target_masks: int = 4, seed: int = 1, **kwargs):
+    from ..ssl import IJEPAModule
+
+    predictor = build_predictor(encoder, embed_dim=predictor_dim, depth=predictor_depth, num_mask_tokens=num_target_masks, seed=seed + 1)
+    return _seeded(seed, lambda: IJEPAModule(encoder, predictor, num_target_masks=num_target_masks, **kwargs))
 
 
 def build_trainer(**kwargs):

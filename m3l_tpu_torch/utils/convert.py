@@ -11,12 +11,15 @@ the last component is converted by the kind of that submodule:
 * ``LayerNorm``: ``scale`` -> ``weight``, ``bias`` -> ``bias``;
 * ``Embedding``: ``embedding`` -> ``weight``;
 * any other leaf (``log_std``, ``mask_token``, ``pos_embedding``, ``register_tokens``, a
-  LayerScale's ``gamma``, a DINOHead's ``last_v`` / ``last_g``) is a parameter of that name and
-  carries over as is.
+  LayerScale's ``gamma``, a DINOHead's ``last_v`` / ``last_g``, an ``nnx.List`` of parameters'
+  ``mask_tokens/0``, an ``nn.ParameterList`` entry here) is a parameter of that name and carries
+  over as is;
+* a leaf that names a registered buffer (the DINO modules' ``center`` and ``ibot_center``,
+  non-``Param`` nnx variables in JAX) carries over into it as is.
 
-Every JAX key must be used and every torch parameter set, else it raises. The sin/cos tables
-(``_pos_table`` of the ViT and the SSL decoders, ``nnx.data`` in JAX) are not parameters: the
-port recomputes them.
+Every JAX key must be used and every torch parameter and persistent buffer set, else it raises.
+The sin/cos tables (``_pos_table`` of the ViT and the SSL decoders, ``nnx.data`` in JAX) are
+non-persistent buffers: the port recomputes them.
 """
 from __future__ import annotations
 
@@ -40,15 +43,18 @@ def _target(module: nn.Module, leaf: str) -> tuple[str, Callable[[np.ndarray], n
         return {"scale": ("weight", same), "bias": ("bias", same)}[leaf]
     if isinstance(module, nn.Embedding):
         return {"embedding": ("weight", same)}[leaf]
-    if isinstance(getattr(module, leaf, None), nn.Parameter):
+    if isinstance(getattr(module, leaf, None), nn.Parameter) or (leaf in module._buffers and leaf not in module._non_persistent_buffers_set):
         return leaf, same
     raise KeyError(leaf)
 
 
 @torch.no_grad()
 def load_jax_params(module: nn.Module, flat: dict[str, np.ndarray]) -> None:
-    """Copy every entry of ``flat`` into ``module``'s parameters (in place, on their device)."""
+    """Copy every entry of ``flat`` into ``module``'s parameters and buffers (in place, on their
+    device)."""
     params = dict(module.named_parameters())
+    persistent = set(module.state_dict())
+    params.update((n, b) for n, b in module.named_buffers() if n in persistent)
     unused, set_names = [], set()
     for key, value in flat.items():
         *path, leaf = key.split("/")
@@ -67,4 +73,4 @@ def load_jax_params(module: nn.Module, flat: dict[str, np.ndarray]) -> None:
         set_names.add(full)
     missing = sorted(set(params) - set_names)
     if unused or missing:
-        raise KeyError(f"load_jax_params: JAX keys left unused {sorted(unused)}; torch parameters left unset {missing}")
+        raise KeyError(f"load_jax_params: JAX keys left unused {sorted(unused)}; torch parameters or buffers left unset {missing}")

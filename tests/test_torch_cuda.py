@@ -345,9 +345,10 @@ def test_v1_kernel_refuses_inputs_it_does_not_take(card):
         fa._launch_v1_bwd(x, x, x, torch.zeros(4, 10, 32, device=card), None, 0.125)
 
 
-# The SSL slice's shapes (ViT-small MAE at batch 64): the masked encoder (49 of 196 patches kept),
-# the full-image encoder, and the He-style decoder (512 wide, 16 heads of 32).
-SSL_SHAPES = [(64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32)]
+# The SSL slices' shapes at batch 64: MAE's masked encoder (49 of 196 patches kept), the full-image
+# encoder, and the He-style decoder (512 wide, 16 heads of 32); DINO's views (196 patches + 1
+# register) and the I-JEPA predictor (196 context + 196 mask tokens, 12 heads of 32).
+SSL_SHAPES = [(64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32), (64, 197, 6, 64), (64, 392, 12, 32)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -411,3 +412,57 @@ def _mae_step_errors(card, VisionTransformer, MAEModule):
         assert (a - g).norm() <= 1e-5 * g.norm(), name
         implied = lr * (a / (a.abs() + eps) - g / (g.abs() + eps)).abs()
         assert ((pa[name] - pb[name]).abs() - implied).max() <= 1e-2 * lr, name
+
+
+def test_f32_dino_step_matches_the_cpu(card):
+    """One f32 step of a small ViT (one register token) + DINO with the probe on the card against
+    the same weights, batch, masks and temperature on the CPU, every attention layer on the
+    kernels with a key mask but the probe's: the loss, each trainable gradient relative to its
+    norm, the parameters after AdamW beyond the difference of Adam's first steps that the two
+    gradients imply, the teachers after the EMA beyond (1 - momentum) times it, and the center.
+    The checks of chip_smoke.py phase 10 (a), at 1e-5, 1e-5, 1e-2 * lr, 1e-2 * lr and 1e-6."""
+    from m3l_tpu_torch.kernels import MASKED_LAUNCHES
+    from m3l_tpu_torch.models.vit import VisionTransformer
+    from m3l_tpu_torch.ssl import DINOModule
+
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the patch conv in f32, as on the CPU
+    try:
+        torch.manual_seed(0)
+        vit = VisionTransformer(img_size=(64, 64), patch_size=8, in_chans=6, embed_dim=128, depth=2, num_heads=2,
+                                pos_embed_fn="sinusoidal", num_register_tokens=1)
+        cpu = DINOModule(vit, dino_out_dim=256, dino_hidden_dim=128, dino_bottleneck_dim=64, warmup_epochs=0,
+                         moving_average_decay=(0.99, 1.0))
+        gpu = copy.deepcopy(cpu).to(card)
+        x = torch.rand(4, 64, 64, 6, generator=torch.Generator().manual_seed(1))
+        masks = cpu.sample_masks(torch.Generator().manual_seed(2), 4)
+        results = []
+        for m, dev in ((gpu, card), (cpu, torch.device("cpu"))):
+            m.setup_schedules(2, 2)
+            m.sample_masks = lambda g, b, dev=dev: tuple(k.to(dev) for k in masks)
+            opt = m.configure_optimizer(2, 2)
+            start, masked0 = Counter(LAUNCHES), Counter(MASKED_LAUNCHES)
+            loss, aux = m.training_loss({"image": x.to(dev)}, None, 0)
+            loss.backward()
+            grads = {n: p.grad.detach().cpu().clone() for n, p in m.trainable_parameters().items()}
+            opt.step()
+            m.on_train_batch_end(aux, 0)
+            launched = {k: (LAUNCHES[k] - start[k], MASKED_LAUNCHES[k] - masked0[k]) for k in (KERNEL, BWD_KERNEL)}
+            results.append((loss.item(), grads, {n: v.detach().cpu() for n, v in m.state_dict().items()}, launched, opt))
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    (la, ga, sa, launched, opt), (lb, gb, sb, _, _) = results
+    assert launched == {KERNEL: (10, 6), BWD_KERNEL: (6, 4)}
+    assert abs(la - lb) <= 1e-5 * abs(lb)
+    lr, eps, momentum = opt.learning_rate(0), 1e-8, cpu._momentum_fn(0)
+    implied = {}
+    for name, g in gb.items():
+        a = ga[name]
+        assert (a - g).norm() <= 1e-5 * g.norm(), name
+        implied[name] = lr * (a / (a.abs() + eps) - g / (g.abs() + eps)).abs()
+        assert ((sa[name] - sb[name]).abs() - implied[name]).max() <= 1e-2 * lr, name
+    for name in sb:
+        if name.startswith("teacher_"):
+            step = (1.0 - momentum) * implied["student_" + name[len("teacher_"):]]
+            assert ((sa[name] - sb[name]).abs() - step).max() <= 1e-2 * lr, name
+    assert (sa["center"] - sb["center"]).abs().max() <= 1e-6

@@ -1,10 +1,11 @@
 """The port's SSL pretraining path against the JAX package on the CPU: the config loader
 (utils/config.py), the datasets (data/datasets.py), the Trainer (train/trainer.py) with its
-checkpoints, and the pretrain CLI (cli/pretrain.py).
+checkpoints, and the pretrain CLI (cli/pretrain.py), for MAE, DINO, DINOv2 and I-JEPA.
 
-Tiny widths (ViT depth 2, dim 64, 2 heads x 32, 32x32 images, patch 8; decoder depth 1). The
-Trainer epoch runs the JAX Trainer's masking noise (its key chain from the same seed) through
-MAEModule.sample_noise. f32 with the patch conv on the path: rtol 2e-4.
+Tiny widths (ViT depth 2, dim 64, 2 heads x 32, 32x32 images, patch 8; decoder depth 1; DINO
+heads 32 wide). The Trainer epochs run the JAX Trainer's masking draws (its key chain from the
+same seed) through MAEModule.sample_noise and DINOModule.sample_masks. f32 with the patch conv on
+the path: rtol 2e-4.
 """
 import pathlib
 import subprocess
@@ -15,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from jax_params import CONV_TOL, MAE, VIT, carry, images, mae_pair
+from jax_params import CONV_TOL, MAE, VIT, carry, dino_pair, dino_twin, flat_variables, images, mae_pair
 from m3l_tpu.data import datasets as jdata
 from m3l_tpu.train import Trainer as JTrainer
 from m3l_tpu.utils.config import load_config as jload_config
@@ -24,6 +25,7 @@ from m3l_tpu_torch.data import DataLoader, VisionTactileDataset, background_diff
 from m3l_tpu_torch.models.vit import VisionTransformer
 from m3l_tpu_torch.ssl import MAEModule
 from m3l_tpu_torch.train import Trainer
+from m3l_tpu_torch.utils.convert import load_jax_params
 from m3l_tpu_torch.train.checkpoint import load_checkpoint
 from m3l_tpu_torch.utils.config import instantiate, load_config, target_path
 from torch_threads import one_torch_thread  # noqa: F401
@@ -32,8 +34,14 @@ pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 EXPERIMENTS = sorted((ROOT / "config" / "experiment").rglob("*.yaml"))
-TINY = ["model.encoder.img_size=[32,32]", "model.encoder.patch_size=8", "model.encoder.depth=1", "model.algorithm.decoder_depth=1",
-        "model.algorithm.decoder_embed_dim=32", "model.algorithm.decoder_num_heads=2", "trainer.log_every_n_steps=1000"]
+ENCODER = ["model.encoder.img_size=[32,32]", "model.encoder.patch_size=8", "model.encoder.depth=1", "trainer.log_every_n_steps=1000"]
+TINY = ENCODER + ["model.algorithm.decoder_depth=1", "model.algorithm.decoder_embed_dim=32", "model.algorithm.decoder_num_heads=2"]
+TINY_BY_CONFIG = {
+    "mae_vit": TINY,
+    "dino_vit": ENCODER + ["model.algorithm.dino_out_dim=32", "model.algorithm.dino_hidden_dim=48", "model.algorithm.dino_bottleneck_dim=16"],
+    "dinov2_vit": ENCODER + ["model.algorithm.dino_out_dim=32", "model.algorithm.dino_hidden_dim=48", "model.algorithm.dino_bottleneck_dim=16"],
+    "ijepa_vit": ENCODER + ["model.algorithm.predictor_depth=1", "model.algorithm.predictor_dim=96"],
+}
 
 
 @pytest.mark.parametrize("path", EXPERIMENTS, ids=lambda p: str(p.relative_to(ROOT / "config")))
@@ -71,8 +79,8 @@ def test_instantiate_builds_the_port_and_imports_no_jax_package():
 
 
 def test_unported_targets_fail_to_import():
-    cfg = load_config(str(ROOT / "config" / "experiment" / "dino_vit.yaml"), TINY)
-    with pytest.raises(AttributeError, match="build_dino"):
+    cfg = load_config(str(ROOT / "config" / "experiment" / "vjepa_vit.yaml"), ENCODER)
+    with pytest.raises(AttributeError, match="build_vjepa"):
         instantiate(cfg["model"]["algorithm"])
 
 
@@ -141,6 +149,89 @@ def test_trainer_epoch_equals_jax(accum, clip):
         if kb is not None:
             outside[kb] = False
         assert outside.sum() <= max(1, outside.size // 1000), (name, int(outside.sum()))
+
+
+def jax_trainer_dino_masks(j, seed, steps, batch):
+    """The masks each step of the JAX Trainer seeded ``seed`` draws for the DINO module ``j``."""
+    key, out = jax.random.PRNGKey(seed), []
+    for _ in range(steps):
+        key, k = jax.random.split(key)
+        g, l = j.sample_masks(jax.random.split(k)[0], batch)
+        out.append((torch.from_numpy(np.array(g)), torch.from_numpy(np.array(l))))
+    return out
+
+
+def test_dino_trainer_epoch_equals_jax():
+    """One Trainer.fit epoch of the tiny DINO with the probe (lr 1e-3, no warm-up, the momentum
+    ramp 0.9 -> 1.0 and the temperature warm-up inside the epoch, 4 batches): the loss history,
+    the center and every parameter after it, students and teachers. Elements that f32 noise
+    under Adam's first steps may move by up to 2 * sum(lr) are allowed as in
+    test_trainer_epoch_equals_jax: every key-bias element, and at most one in a thousand of any
+    other parameter."""
+    kw = dict(base_lr=1e-3, warmup_epochs=0, moving_average_decay=(0.9, 1.0), teacher_warmup_epochs=1)
+    j, p = dino_pair(**kw)
+    batches = [{"image": images((4, 32, 32, 3), seed=70 + i)} for i in range(4)]
+    fit = dict(max_epochs=1, seed=5, verbose=0)
+    masks = jax_trainer_dino_masks(j, 5, len(batches), 4)
+    ref = JTrainer(**fit).fit(j, batches)
+    p.sample_masks = lambda generator, batch: masks.pop(0)
+    hist = Trainer(device="cpu", **fit).fit(p, batches)
+    assert not masks and len(hist) == len(ref) == 1
+    for k in ("train_loss", "train_ssl_loss", "train_reconstruction_loss", "train_teacher_temp"):
+        np.testing.assert_allclose(hist[0][k], ref[0][k], err_msg=k, **CONV_TOL)
+    want = dino_twin(**kw)
+    load_jax_params(want, flat_variables(j))
+    np.testing.assert_allclose(p.center.numpy(), want.center.numpy(), **CONV_TOL)
+    noise_bound = 2 * 1e-3 * len(batches)
+    want = dict(want.named_parameters())
+    for name, q in p.named_parameters():
+        got, exp = q.detach().numpy(), want[name].detach().numpy()
+        outside = np.abs(got - exp) > CONV_TOL["atol"] + CONV_TOL["rtol"] * np.abs(exp)
+        assert np.abs(got - exp)[outside].max(initial=0.0) <= noise_bound, name
+        kb = key_bias(name, q.shape[0] // 3) if name.endswith("attn.qkv.bias") else None
+        if kb is not None:
+            outside[kb] = False
+        assert outside.sum() <= max(1, outside.size // 1000), (name, int(outside.sum()))
+
+
+def test_dino_checkpoints_keep_the_teacher_and_resume(tmp_path):
+    """last.ckpt holds the teachers, the center and AdamW's moments, and a fresh module resumes
+    them exactly; the trainable-only task checkpoint leaves the teachers out."""
+    batches = [{"image": images((2, 32, 32, 3), seed=80 + i)} for i in range(2)]
+    kw = dict(ckpt_dir=str(tmp_path), num_task_checkpoints=1, verbose=0, device="cpu")
+    torch.manual_seed(0)
+    m1 = dino_twin()
+    Trainer(max_epochs=1, **kw).fit(m1, batches)
+    last, task = load_checkpoint(tmp_path / "last.ckpt"), load_checkpoint(tmp_path / "task-0001.ckpt")
+    assert "center" in last["model"] and any(k.startswith("teacher_head.") for k in last["model"])
+    assert sorted(task["model"]) == sorted(m1.trainable_parameters()) and not any(k.startswith("teacher_") for k in task["model"])
+    assert m1.center.abs().sum() > 0
+    torch.manual_seed(1)
+    m2 = dino_twin()
+    second = Trainer(max_epochs=2, **kw)
+    opt = m2.configure_optimizer(2, 2)
+    assert second._try_resume(m2, opt) and second.global_step == 2
+    for (n, a), b in zip(m1.state_dict().items(), m2.state_dict().values()):
+        assert torch.equal(a, b), n
+    for s_, r in zip(last["opt"]["adamw"]["state"].values(), opt.adamw.state_dict()["state"].values()):
+        assert torch.equal(s_["exp_avg"], r["exp_avg"]) and torch.equal(s_["exp_avg_sq"], r["exp_avg_sq"])
+
+
+@pytest.mark.parametrize("config", ["dino_vit", "dinov2_vit", "ijepa_vit"])
+def test_ssl_configs_instantiate_and_train_through_the_cli(tmp_path, config):
+    path = str(ROOT / "config" / "experiment" / f"{config}.yaml")
+    trainer, algorithm, history = pretrain.main(
+        ["--config", path, "--synthetic", "12", "--device", "cpu", *TINY_BY_CONFIG[config], "trainer.max_epochs=1",
+         f"trainer.ckpt_dir={tmp_path}/out", "data.batch_size=4"]
+    )
+    want = {"dino_vit": "DINOModule", "dinov2_vit": "DINOv2Module", "ijepa_vit": "IJEPAModule"}[config]
+    assert type(algorithm).__name__ == want and type(algorithm).__module__.startswith("m3l_tpu_torch.ssl.")
+    assert len(history) == 1 and np.isfinite(history[0]["train_loss"]) and trainer.global_step == 1
+    assert (tmp_path / "out" / "last.ckpt").is_file()
+    if config == "dinov2_vit":
+        assert algorithm.num_global_masks == 2 and algorithm.centering == "centering" and "train_ibot_loss" in history[0]
+    if config == "ijepa_vit":
+        assert algorithm.predictor.num_mask_tokens == 4 and algorithm.target_encoder.num_register_tokens == 0
 
 
 def tiny_mae(**kw):
