@@ -86,11 +86,30 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    12 heads x 32, 4 target masks, N = 392 in the predictor) through the CLI for 2 epochs each, at
    their exact launch counts. Each run prints steps/s, images/s (first step excluded) and
    torch.cuda.max_memory_allocated. Cut as phase 9: the data and the epochs.
+11. V-JEPA pretraining, then the downstream probes over the pretrained ViT-small, at full width:
+   (a) one f32 V-JEPA step (config/experiment/vjepa_vit.yaml: the tubelet ViT-small on two
+   224 x 224 x 3 frames at tubelet 2, 196 tokens, tube masks at 0.75 so the context encoder runs on
+   49 gathered tokens and the predictor, 6 layers at 384 wide with 12 heads of 32, on 49 + 147) on
+   the card against the same weights, batch and tube masks on the CPU at batch 8 (VJEPA_F32_TOL:
+   the loss and its two parts, the trainable gradients, the parameters after AdamW, the target
+   encoder after the EMA); (b) ``cli.pretrain.main`` on vjepa_vit.yaml at its defaults plus
+   ``data.out_format=video``, 197 frames, 2 epochs, batch 64: exactly 30 forward + 18 backward
+   launches a step, none with a key mask, all on the tf32x3 bodies (VJEPA_LAUNCHES); (c) a resume
+   bit-equal with the target encoder, the predictor and AdamW's moments; (d) ``cli.evaluate.main
+   --task force`` on config/experiment/downstream_task/force/digit_mae.yaml with
+   ``task.checkpoint_encoder`` = phase 9's last.ckpt (kept for this phase as MAE_CKPT), 197
+   synthetic frames, 2 epochs, batch 64: the loaded encoder equals the checkpoint's ``encoder.*``
+   bit for bit before and after training, every Trainer step launches 12 forward and no backward,
+   every evaluation batch 12 forward, the metrics are finite; (e) the same with ``--task slip``
+   (slip/digit_mae.yaml) and with force/digit_e2e.yaml (``train_encoder: true``, 12 + 12 a step,
+   the encoder moves); (f) one f32 ForceSLModule step (frozen encoder) card vs CPU at batch 8
+   (PROBE_F32_TOL). Each run prints steps/s, images/s or the probe's steps/s, the loader's ms per
+   batch and the peak memory. Cut as phase 9: the data and the epochs.
 
 Phase 3 also holds both packed kernels to their plain versions at the SSL slices' shapes
 (SSL_SHAPES: (64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32), (64, 197, 6, 64), (64, 392,
-12, 32), f32 and bf16, with and without a random key mask) and times them there and at the
-training shape (512, 192, 4, 64); on each side of each body's whole-head limit (LENGTH_CASES,
+12, 32), (64, 196, 12, 32), f32 and bf16, with and without a random key mask) and times them
+there and at the training shape (512, 192, 4, 64); on each side of each body's whole-head limit (LENGTH_CASES,
 B=2, H=4, with and without a key mask: a longer head streams in tiles, with the bits it would
 have staged whole), timing bf16 and f32 at B=2, N=784, Dh=64 (3b); and under the key masks of
 phase 10's paths (3c, DISTILL_MASKED: DINO's global block at (64, 197, 6, 64), its local blocks
@@ -100,11 +119,12 @@ each case.
 
 Each phase after the kernel checks runs with the launch counts set to 0 just before it and read
 just after; phases 4-8 also fail unless every bf16 forward launch, and in phases 5-8 every bf16
-backward launch, took the tensor-core body; phases 9-10 hold every launch to its dtype's body
+backward launch, took the tensor-core body; phases 9-11 hold every launch to its dtype's body
 and count the launches with a key mask (``MASKED_LAUNCHES``).
 The last lines are a {"kernels": [...]} JSON line, {"slice": ...}, {"train": ...},
-{"bench_attention": ...}, {"cli": ...}, {"sac": ...}, {"ssl": ...} and {"ssl_distill": ...} JSON
-lines, the card line as nvidia-smi prints it, and {"ok": true, "device": {...}}.
+{"bench_attention": ...}, {"cli": ...}, {"sac": ...}, {"ssl": ...}, {"ssl_distill": ...},
+{"ssl_vjepa": ...} and {"evaluate": ...} JSON lines, the card line as nvidia-smi prints it, and
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -123,6 +143,7 @@ import torch
 import torch.nn.functional as F
 
 from m3l_tpu_torch import bench_attention
+from m3l_tpu_torch.cli import evaluate as evaluate_cli
 from m3l_tpu_torch.cli import pretrain as pretrain_cli
 from m3l_tpu_torch.cli import train as train_cli
 from m3l_tpu_torch.cli import train_sacmae as sac_cli_module
@@ -152,7 +173,9 @@ from m3l_tpu_torch.rl import PPOMAE, SACMAE, MAEFeatures, SACActorCritic
 from m3l_tpu_torch.serve import PolicyServer, build_policy, random_obs
 from m3l_tpu_torch.ssl import MAEModule, sample_block_masks, sample_block_masks_constrained
 from m3l_tpu_torch.ssl.ijepa import cut_context
+from m3l_tpu_torch.eval import TestTaskSL
 from m3l_tpu_torch.train import Trainer, load_checkpoint
+from m3l_tpu_torch.train.builders import build_task_module
 from m3l_tpu_torch.utils.config import instantiate, load_config
 
 # H100 SXM data sheet: HBM rate and dense peak rates per compute type. f32 runs in 3xTF32 (three
@@ -193,14 +216,16 @@ TRAIN_ENVS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_EPOCHS, CHECK_BATCH = 8, 128, 512, 2
 TRAIN_TIMED_UPDATES = 5
 # the packed attention of the SSL slices at batch 64: MAE's masked encoder (49 of 196 patches kept),
 # the full-image encoder, and the He-style decoder (512 wide, 16 heads); DINO's global view (196
-# patches + 1 register) and the I-JEPA predictor (196 context + 196 mask tokens, 12 heads of 32)
-SSL_SHAPES = [(64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32), (64, 197, 6, 64), (64, 392, 12, 32)]
+# patches + 1 register), the I-JEPA predictor (196 context + 196 mask tokens, 12 heads of 32) and
+# the V-JEPA predictor (49 context + 147 target tokens, 12 heads of 32)
+SSL_SHAPES = [(64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32), (64, 197, 6, 64), (64, 392, 12, 32), (64, 196, 12, 32)]
 # the same kernels under the key masks the phase-10 paths give them (distill_mask): DINO's global
 # view and its four local views at once, and the I-JEPA predictor's context
 DISTILL_MASKED = [("global block", (64, 197, 6, 64)), ("local blocks", (256, 197, 6, 64)), ("context", (64, 392, 12, 32))]
 TIMED_SHAPES = SSL_SHAPES + [(SERVE_B, SERVE_N, SERVE_H, SERVE_DH)]  # each timed in f32 and bf16
 ALL_KERNELS = (KERNEL, BWD_KERNEL, V1_KERNEL, V1_BWD_KERNEL)
 CKPT_DIR = Path(__file__).resolve().parent / "smoke_checkpoints"
+MAE_CKPT = CKPT_DIR / "mae_vit_last.ckpt"  # phase 9's last.ckpt, kept for phase 11 and removed at the end
 
 
 def fail(msg: str) -> None:
@@ -1028,14 +1053,11 @@ def ssl_check() -> dict:
     return dict(loss_rel=abs(la - lb) / abs(lb), grad_rel=grad_rel, param_per_lr=param_per_lr, loss=lb, lr=lr, batch=SSL_CHECK_BATCH)
 
 
-def ssl_run(name: str, overrides: list, launches: tuple[int, int], body: str, ckpt: Path, epochs: int = 2, resume_check=None,
-            config: str = SSL_CONFIG, masked: tuple[int, int] = (0, 0)) -> dict:
-    """``cli.pretrain.main`` on the card at ``config``'s defaults plus ``overrides``: every Trainer
-    step must launch ``launches`` (forward, backward) packed kernels, all on ``body``, of which
-    ``masked`` carry a key mask. Returns the history, the launches, the synchronised step times
-    and the peak device memory."""
-    steps, train_step, try_resume = [], Trainer.train_step, Trainer._try_resume
-    last_end = [time.perf_counter()]
+def counting_train_step(steps: list, last_end: list):
+    """A ``Trainer.train_step`` that appends each step's synchronised time, the time since the end
+    of the step before (``last_end[0]``: the loader and the copy), and its launches (by kernel, by
+    body, with a key mask) to ``steps``."""
+    train_step = Trainer.train_step
 
     def counted_step(self, module, optimizer, batch):
         start, fwd0, bwd0, masked0 = Counter(LAUNCHES), Counter(FWD_BODY_LAUNCHES), Counter(BWD_BODY_LAUNCHES), Counter(MASKED_LAUNCHES)
@@ -1049,6 +1071,18 @@ def ssl_run(name: str, overrides: list, launches: tuple[int, int], body: str, ck
         last_end[0] = t1
         return out
 
+    return counted_step
+
+
+def ssl_run(name: str, overrides: list, launches: tuple[int, int], body: str, ckpt: Path, epochs: int = 2, resume_check=None,
+            config: str = SSL_CONFIG, masked: tuple[int, int] = (0, 0)) -> dict:
+    """``cli.pretrain.main`` on the card at ``config``'s defaults plus ``overrides``: every Trainer
+    step must launch ``launches`` (forward, backward) packed kernels, all on ``body``, of which
+    ``masked`` carry a key mask. Returns the history, the launches, the synchronised step times
+    and the peak device memory."""
+    steps, train_step, try_resume = [], Trainer.train_step, Trainer._try_resume
+    last_end = [time.perf_counter()]
+
     def checked_resume(self, module, optimizer):
         resumed = try_resume(self, module, optimizer)
         if resume_check is not None:
@@ -1057,7 +1091,7 @@ def ssl_run(name: str, overrides: list, launches: tuple[int, int], body: str, ck
         return resumed
 
     argv = ["--config", config, "--synthetic", str(SSL_SYNTHETIC), f"trainer.max_epochs={epochs}", f"ckpt_dir={ckpt}", *overrides]
-    Trainer.train_step, Trainer._try_resume = counted_step, checked_resume
+    Trainer.train_step, Trainer._try_resume = counting_train_step(steps, last_end), checked_resume
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1128,6 +1162,7 @@ def ssl_phase() -> dict:
         if restored != dict(resumed=True, step=steps, epoch=2, model=True, moments=True, count=True) or runs["resume"]["global_step"] != steps * 3 // 2:
             fail(f"ssl resume: restored {restored}, ended at step {runs['resume']['global_step']}")
         print(f"  ssl (c): restored global_step {steps} and epoch 2; parameters and AdamW moments equal the saved ones on the card")
+        shutil.copy(ckpt / "last.ckpt", MAE_CKPT)  # the pretrained encoder of phase 11's probes
         runs["bf16"] = ssl_run("(d) bf16 encoder", ["model.encoder.compute_dtype=bfloat16"], (12, 12), "tensor_core", ckpt / "bf16")
         runs["he"] = ssl_run("(e) He-style decoder", ["model.algorithm.decode_masked_only=false"], (20, 20), "tf32x3", ckpt / "he")
     finally:
@@ -1280,6 +1315,272 @@ def distill_phase() -> dict:
     out.update(runs)
     return out
 
+VJEPA_CONFIG = str(EXPERIMENTS / "vjepa_vit.yaml")
+VJEPA_OVERRIDES = ["data.out_format=video"]  # the tubelet encoder takes (B, T, H, W, C), not 6-channel images
+VJEPA_CHECK_BATCH = 8
+# Packed launches per V-JEPA Trainer step at the config's depths (forward, backward): the target
+# encoder (12, no gradient), the context encoder on the 49 gathered kept tokens (12 + 12) and the
+# predictor on 49 + 147 tokens (6 + 6); the token counts are fixed, so no launch carries a key mask.
+VJEPA_LAUNCHES = (30, 18)
+# One f32 V-JEPA step at full width, card vs CPU (TF32 off), the same weights, batch and tube
+# masks: the loss and its two parts relative to their magnitudes, each trainable gradient relative
+# to its norm, each trainable parameter after AdamW relative to the learning rate beyond the
+# difference of Adam's first steps that the two gradients imply, and the target encoder after
+# the EMA beyond (1 - momentum) times that difference, relative to the learning rate. The L1 loss
+# differentiates to sign(z - h): an element of z within f32 noise of its target would flip its
+# sign and move the gradients far more than the noise does; these seeds flip none (the gradients
+# agree to f32 noise). On the H100 these seeds gave 7.211e-8 (about one ulp of the loss),
+# 4.123e-7, 1.192e-3 (one ulp of a parameter near 1, at lr 1e-4) and 3.725e-5: the same f32
+# arithmetic in another summation order; each bound is about 10x its value.
+VJEPA_F32_TOL = dict(loss_rel=1e-6, grad_rel=4e-6, param_per_lr=1.2e-2, target_per_lr=4e-4)
+DOWNSTREAM = EXPERIMENTS / "downstream_task"
+PROBE_CHECK_BATCH = 8
+# One f32 ForceSLModule step at full width (the frozen ViT-small of phase 9's checkpoint, the
+# attentive probe), card vs CPU (TF32 off), the same weights and batch: the loss and the three
+# RMSEs relative to their magnitudes, each probe gradient relative to its norm, each probe
+# parameter after AdamW relative to the learning rate beyond the difference of Adam's first steps
+# that the two gradients imply. On the H100 these seeds gave 1.131e-7, 0 (the RMSEs equal),
+# 6.288e-6 (the frozen encoder's tokens differ by f32 noise through 12 layers, and the probe's
+# gradients carry it) and 1.191e-3 (one ulp of a parameter near 1, at lr 1e-4); the bounds are
+# about ten ulps of the loss and of the RMSEs and ~10x the other two.
+PROBE_F32_TOL = dict(loss_rel=1e-6, rmse_rel=1e-6, grad_rel=6e-5, param_per_lr=1.2e-2)
+
+
+def step_errors(ga: dict, gb: dict, sa: dict, sb: dict, lr: float, eps: float):
+    """(gradient error over its norm, parameter error over lr beyond the implied Adam step, the
+    implied steps) of the card's gradients ``ga`` and state ``sa`` against the CPU's."""
+    implied, grad_rel, param_per_lr = {}, 0.0, 0.0
+    for name, g in gb.items():
+        a = ga[name].cpu()
+        grad_rel = max(grad_rel, ((a - g).norm() / g.norm()).item() if g.norm() > 0 else (float("inf") if a.norm() > 0 else 0.0))
+        implied[name] = lr * (a / (a.abs() + eps) - g / (g.abs() + eps)).abs()
+        param_per_lr = max(param_per_lr, ((sa[name].cpu() - sb[name]).abs() - implied[name]).max().item() / lr)
+    return grad_rel, param_per_lr, implied
+
+
+def vjepa_step(module, x: torch.Tensor, keeps: torch.Tensor):
+    """One Trainer step of the V-JEPA ``module`` by hand (loss, backward, AdamW, the EMA) on ``x``
+    under the tube masks ``keeps`` at step 0: the loss parts, the trainable gradients (zero where
+    a parameter is unused: the predictor's patch embedding), and the state after it."""
+    module.setup_schedules(3, 2)
+    module.sample_masks = lambda generator, batch: keeps.to(x.device)
+    opt = module.configure_optimizer(3, 2)
+    loss, aux = module.training_loss({"image": x}, None, 0)
+    loss.backward()
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().clone() for n, p in module.trainable_parameters().items()}
+    opt.step()
+    module.on_train_batch_end(aux, 0)
+    return {k: aux[k].item() for k in ("loss", "loss_jepa", "loss_reg")}, grads, {n: v.detach() for n, v in module.state_dict().items()}, opt
+
+
+def vjepa_check() -> dict:
+    """(a) One f32 V-JEPA step at full width on the card against the CPU."""
+    cpu = distill_models("vjepa", ["model.algorithm.warmup_epochs=0"])
+    card = copy.deepcopy(cpu).to("cuda")
+    enc = cpu.context_encoder
+    x = torch.from_numpy(np.random.default_rng(4).random((VJEPA_CHECK_BATCH, enc.num_frames, *enc.img_size, enc.in_chans), dtype=np.float32))
+    keeps = cpu.sample_masks(torch.Generator().manual_seed(5), VJEPA_CHECK_BATCH)
+    reset_launches()
+    la, ga, sa, opt = vjepa_step(card, x.cuda(), keeps)
+    torch.cuda.synchronize()
+    launches = {k: LAUNCHES[k] for k in (KERNEL, BWD_KERNEL)}
+    if launches != dict(zip((KERNEL, BWD_KERNEL), VJEPA_LAUNCHES)) or any(MASKED_LAUNCHES.values()):
+        fail(f"the V-JEPA check step launched {launches} ({dict(MASKED_LAUNCHES)} with a key mask), expected {VJEPA_LAUNCHES} unmasked")
+    lb, gb, sb, _ = vjepa_step(cpu, x, keeps)
+    lr, eps, momentum = opt.learning_rate(0), opt.adamw.param_groups[0]["eps"], cpu._momentum_fn(0)
+    grad_rel, param_per_lr, implied = step_errors(ga, gb, sa, sb, lr, eps)
+    target_per_lr = 0.0
+    for name in sb:
+        if name.startswith("target_encoder."):
+            step = (1.0 - momentum) * implied["context_encoder." + name[len("target_encoder."):]]
+            target_per_lr = max(target_per_lr, ((sa[name].cpu() - sb[name]).abs() - step).max().item() / lr)
+    loss_rel = max(abs(la[k] - lb[k]) / abs(lb[k]) for k in lb)
+    return dict(loss_rel=loss_rel, grad_rel=grad_rel, param_per_lr=param_per_lr, target_per_lr=target_per_lr, losses=lb, lr=lr,
+                momentum=momentum, batch=VJEPA_CHECK_BATCH, launches=launches, n_context=cpu.n_context, n_target=cpu.n_target)
+
+
+def vjepa_phase() -> dict:
+    """Phase 11 (a)-(c): V-JEPA at full width, card vs CPU, then through cli.pretrain and its Trainer."""
+    out = {}
+    t0 = time.perf_counter()
+    e = out["f32_check"] = vjepa_check()
+    print(f"  vjepa (a): one f32 step at batch {VJEPA_CHECK_BATCH}, card vs CPU ({time.perf_counter() - t0:.1f} s): losses {e['losses']}, "
+          f"loss rel err {e['loss_rel']:.3e}, grad err/|grad| {e['grad_rel']:.3e}, param err/lr {e['param_per_lr']:.3e}, target err/lr "
+          f"{e['target_per_lr']:.3e}; tol {VJEPA_F32_TOL}")
+    if any(e[k] > VJEPA_F32_TOL[k] for k in VJEPA_F32_TOL):
+        fail("the f32 V-JEPA step on the card disagrees with the CPU")
+    e["tol"] = VJEPA_F32_TOL
+    ckpt = CKPT_DIR / "vjepa"
+
+    def run(label, **kw):
+        r = ssl_run(label, VJEPA_OVERRIDES, VJEPA_LAUNCHES, "tf32x3", ckpt, config=VJEPA_CONFIG, **kw)
+        del r["trainer"], r["module"]
+        torch.cuda.empty_cache()
+        return r
+
+    try:
+        out["cli"] = run("(b) V-JEPA")
+        steps = out["cli"]["global_step"]  # 2 epochs
+        saved = load_checkpoint(ckpt / "last.ckpt", map_location="cuda")
+        if not all(any(k.startswith(p) for k in saved["model"]) for p in ("context_encoder.", "predictor.", "target_encoder.")):
+            fail("the V-JEPA checkpoint lacks the context encoder, the predictor or the target encoder")
+        restored = {}
+        out["resume"] = run("(c) V-JEPA resume", epochs=3, resume_check=resume_checker(saved, restored))
+        del saved
+        if restored != dict(resumed=True, step=steps, epoch=2, model=True, moments=True, count=True) or out["resume"]["global_step"] != steps * 3 // 2:
+            fail(f"V-JEPA resume: restored {restored}, ended at step {out['resume']['global_step']}")
+        print(f"  vjepa (c): restored global_step {steps} and epoch 2; context encoder, predictor, target encoder and AdamW moments "
+              "equal the saved ones on the card")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return out
+
+
+def probe_models(config: Path, device: str):
+    """The downstream config's encoder and SL module with phase 9's pretrained encoder, warm-up 0 so
+    the first step moves the probe."""
+    cfg = load_config(str(config), [f"task.checkpoint_encoder={MAE_CKPT}"])
+    kw = {k: v for k, v in cfg["task"].items() if k in evaluate_cli.MODULE_KEYS}
+    return build_task_module(instantiate(cfg["model"]["encoder"]), "force", warmup_epochs=0, **kw).to(device)
+
+
+def probe_step(module, batch: dict):
+    opt = module.configure_optimizer(3, 2)
+    loss, aux = module.training_loss(batch, None, 0)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in module.trainable_parameters().items()}
+    opt.step()
+    return {k: v.item() for k, v in aux.items()}, grads, {n: v.detach() for n, v in module.state_dict().items()}, opt
+
+
+def probe_check() -> dict:
+    """(f) One f32 ForceSLModule step (frozen encoder) at full width on the card against the CPU."""
+    cpu = probe_models(DOWNSTREAM / "force" / "digit_mae.yaml", "cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    enc = cpu.model_encoder.encoder
+    rng = np.random.default_rng(6)
+    batch = {"image": rng.random((PROBE_CHECK_BATCH, *enc.img_size, enc.in_chans), dtype=np.float32),
+             "force": rng.uniform(-1, 1, (PROBE_CHECK_BATCH, 3)).astype(np.float32),
+             "force_scale": np.tile(np.float32([[5.0, 5.0, 10.0]]), (PROBE_CHECK_BATCH, 1))}
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    encoder_before = {k: v.clone() for k, v in card.model_encoder.state_dict().items()}
+    reset_launches()
+    la, ga, sa, opt = probe_step(card, {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    launches = {k: LAUNCHES[k] for k in (KERNEL, BWD_KERNEL)}
+    if launches != {KERNEL: 12, BWD_KERNEL: 0}:
+        fail(f"the frozen probe step launched {launches}, expected 12 forward and no backward")
+    if not all(torch.equal(v, encoder_before[k]) for k, v in card.model_encoder.state_dict().items()):
+        fail("the frozen probe step moved the encoder on the card")
+    lb, gb, sb, _ = probe_step(cpu, batch)
+    grad_rel, param_per_lr, _ = step_errors(ga, gb, sa, sb, opt.learning_rate(0), opt.adamw.param_groups[0]["eps"])
+    return dict(loss_rel=abs(la["loss"] - lb["loss"]) / abs(lb["loss"]), rmse_rel=max(abs(la[k] - lb[k]) / abs(lb[k]) for k in lb if k.startswith("rmse")),
+                grad_rel=grad_rel, param_per_lr=param_per_lr, aux=lb, lr=opt.learning_rate(0), batch=PROBE_CHECK_BATCH, launches=launches,
+                trainable=len(gb))
+
+
+def finite(value) -> bool:
+    if isinstance(value, (list, tuple)):
+        return all(finite(v) for v in value)
+    return bool(np.isfinite(value))
+
+
+def probe_run(name: str, config: Path, task: str, launches: tuple[int, int], ckpt: Path, encoder_want: dict) -> dict:
+    """``cli.evaluate.main`` on the card at ``config`` with phase 9's encoder, 197 frames, 2 epochs:
+    every Trainer step must launch ``launches`` (forward, backward) packed kernels on the tf32x3
+    bodies and every evaluation batch 12 forward; the encoder must equal ``encoder_want`` when it
+    is loaded and, frozen, after training (fine-tuned, it must move); the metrics must be finite."""
+    steps, evals, fits = [], [], []
+    train_step, fit, predict = Trainer.train_step, Trainer.fit, TestTaskSL.predict
+    last_end = [time.perf_counter()]
+
+    def recording_fit(self, module, loader, *args, **kw):
+        loaded = module.model_encoder.encoder.state_dict()
+        fits.append(dict(loaded=all(torch.equal(loaded[k], v) for k, v in encoder_want.items()) and sorted(loaded) == sorted(encoder_want)))
+        last_end[0] = time.perf_counter()
+        history = fit(self, module, loader, *args, **kw)
+        fits[-1].update(trainer=self, module=module, history=history)
+        return history
+
+    def counted_predict(self, batch):
+        start = Counter(LAUNCHES)
+        t0 = time.perf_counter()
+        out = predict(self, batch)  # returns numpy: synchronised
+        evals.append(dict(ms=(time.perf_counter() - t0) * 1e3, launches={k: LAUNCHES[k] - start[k] for k in ALL_KERNELS}))
+        return out
+
+    argv = ["--config", str(config), "--task", task, "--synthetic", str(SSL_SYNTHETIC), "--epochs", "2", f"ckpt_dir={ckpt}",
+            f"task.checkpoint_encoder={MAE_CKPT}"]
+    Trainer.train_step, Trainer.fit, TestTaskSL.predict = counting_train_step(steps, last_end), recording_fit, counted_predict
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        metrics = evaluate_cli.main(argv)
+    finally:
+        Trainer.train_step, Trainer.fit, TestTaskSL.predict = train_step, fit, predict
+    main_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    (run,) = fits
+    module, history = run["module"], run["history"]
+    fwd, bwd = launches
+    want = {KERNEL: fwd, BWD_KERNEL: bwd, V1_KERNEL: 0, V1_BWD_KERNEL: 0}
+    for i, st in enumerate(steps):
+        if (st["launches"] != want or st["fwd_bodies"] != {"tf32x3": fwd} or st["bwd_bodies"] != ({"tf32x3": bwd} if bwd else {})
+                or any(st["masked"].values())):
+            fail(f"evaluate {name}: step {i} launched {st['launches']} ({st['masked']} with a key mask) on bodies {st['fwd_bodies']} / "
+                 f"{st['bwd_bodies']}, expected {want} unmasked on tf32x3")
+    want_eval = {KERNEL: 12, BWD_KERNEL: 0, V1_KERNEL: 0, V1_BWD_KERNEL: 0}
+    if not evals or any(ev["launches"] != want_eval for ev in evals):
+        fail(f"evaluate {name}: evaluation batches launched {[ev['launches'] for ev in evals]}, expected {want_eval} each")
+    trained = module.model_encoder.encoder.state_dict()
+    kept = all(torch.equal(trained[k].cpu(), v) for k, v in encoder_want.items())
+    frozen = bwd == 0
+    if not run["loaded"] or kept != frozen or module.train_encoder == frozen:
+        fail(f"evaluate {name}: encoder loaded equal {run['loaded']}, equal after training {kept}, train_encoder {module.train_encoder}")
+    scalars = {k: v for k, v in metrics.items() if not isinstance(v, list)}
+    losses = [h["train_loss"] for h in history]
+    if len(steps) != 6 or not finite(losses) or not all(finite(v) for v in scalars.values()):
+        fail(f"evaluate {name}: {len(steps)} steps, losses {losses}, metrics {scalars}")
+    timed = steps[1:]  # the first step pays cuBLAS set-up and allocation
+    step_s = statistics.mean(st["step_s"] for st in timed)
+    out = dict(main_s=main_s, steps=len(steps), losses=losses, metrics=scalars, launches={k: LAUNCHES[k] for k in ALL_KERNELS},
+               launches_per_step=want, launches_per_eval_batch=want_eval, eval_batches=len(evals), encoder_loaded_equal=run["loaded"],
+               encoder_equal_after=kept, step_ms=[st["step_s"] * 1e3 for st in steps], fetch_ms=[st["fetch_s"] * 1e3 for st in steps],
+               eval_ms=[ev["ms"] for ev in evals], steps_per_s=1.0 / step_s, images_per_s=SSL_BATCH / step_s, batch=SSL_BATCH,
+               max_memory_allocated=peak)
+    print(f"  evaluate {name}: main() {main_s:.1f} s, {len(steps)} steps, losses {[round(v, 4) for v in losses]}; probe step "
+          f"{step_s * 1e3:.2f} ms ({out['steps_per_s']:.2f} steps/s, {out['images_per_s']:.1f} images/s, first step excluded); loader + copy "
+          f"{statistics.median(out['fetch_ms'][1:]):.1f} ms median; evaluation {statistics.median(out['eval_ms']):.2f} ms a batch of "
+          f"{SSL_BATCH} ({len(evals)} batches); {fwd} + {bwd} launches a step, 12 an evaluation batch; encoder loaded equal, "
+          f"{'unchanged' if kept else 'moved'} after training; peak memory {peak / 2**30:.2f} GiB; metrics "
+          f"{ {k: v for k, v in scalars.items() if k in ('rmse', 'accuracy', 'balanced_accuracy')} }")
+    return out
+
+
+def evaluate_phase() -> dict:
+    """Phase 11 (d)-(f): the downstream probes over phase 9's pretrained encoder through cli.evaluate."""
+    out = {}
+    t0 = time.perf_counter()
+    e = out["f32_check"] = probe_check()
+    print(f"  evaluate (f): one f32 frozen force-probe step at batch {PROBE_CHECK_BATCH}, card vs CPU ({time.perf_counter() - t0:.1f} s): "
+          f"loss rel err {e['loss_rel']:.3e}, rmse rel err {e['rmse_rel']:.3e}, grad err/|grad| {e['grad_rel']:.3e}, param err/lr "
+          f"{e['param_per_lr']:.3e}; 12 + 0 launches, the encoder unchanged; tol {PROBE_F32_TOL}")
+    if any(e[k] > PROBE_F32_TOL[k] for k in PROBE_F32_TOL):
+        fail("the f32 probe step on the card disagrees with the CPU")
+    e["tol"] = PROBE_F32_TOL
+    saved = load_checkpoint(MAE_CKPT)["model"]
+    encoder_want = {k[len("encoder."):]: v for k, v in saved.items() if k.startswith("encoder.")}
+    ckpt = CKPT_DIR / "evaluate"
+    try:
+        out["force"] = probe_run("(d) force, frozen", DOWNSTREAM / "force" / "digit_mae.yaml", "force", (12, 0), ckpt / "force", encoder_want)
+        out["slip"] = probe_run("(e) slip, frozen", DOWNSTREAM / "slip" / "digit_mae.yaml", "slip", (12, 0), ckpt / "slip", encoder_want)
+        out["e2e"] = probe_run("(e) force, fine-tuned", DOWNSTREAM / "force" / "digit_e2e.yaml", "force", (12, 12), ckpt / "e2e", encoder_want)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return out
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1360,11 +1661,18 @@ def main() -> int:
     print("[8] SAC+MAE slice")
     sac = sac_phase()
 
-    print("[9] SSL pretraining slice")
-    ssl = ssl_phase()
+    try:
+        print("[9] SSL pretraining slice")
+        ssl = ssl_phase()
 
-    print("[10] self-distillation and latent-prediction pretraining (DINO, DINOv2, I-JEPA)")
-    distill = distill_phase()
+        print("[10] self-distillation and latent-prediction pretraining (DINO, DINOv2, I-JEPA)")
+        distill = distill_phase()
+
+        print("[11] V-JEPA pretraining, then the downstream probes over phase 9's encoder")
+        vjepa = vjepa_phase()
+        probes = evaluate_phase()
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)  # MAE_CKPT and whatever a failed phase left
 
     def by_path(name):
         """The kernel's launches in each path's run (counts set to 0 just before it)."""
@@ -1373,7 +1681,9 @@ def main() -> int:
                     **{f"cli_{mode}": cli[mode]["launches"][name] for mode in ("joint", "separate", "plain", "resume")},
                     **{f"sac_{run}": sac[run]["launches"][name] for run in ("separate_host", "separate_device", "joint_host", "joint_device", "cli")},
                     **{f"ssl_{run}": ssl[run]["launches"][name] for run in ("cli", "resume", "bf16", "he", "full_image")},
-                    **{f"distill_{run}": distill[run]["launches"][name] for run in ("dino", "dino_resume", "dinov2", "ijepa")})
+                    **{f"distill_{run}": distill[run]["launches"][name] for run in ("dino", "dino_resume", "dinov2", "ijepa")},
+                    **{f"vjepa_{run}": vjepa[run]["launches"][name] for run in ("cli", "resume")},
+                    **{f"evaluate_{run}": probes[run]["launches"][name] for run in ("force", "slip", "e2e")})
 
     def ssl_shapes(kind):
         """The packed kernel of this direction at the SSL slices' shapes and the training shape, f32
@@ -1428,6 +1738,8 @@ def main() -> int:
     print(json.dumps({"sac": sac}))
     print(json.dumps({"ssl": ssl}))
     print(json.dumps({"ssl_distill": distill}))
+    print(json.dumps({"ssl_vjepa": vjepa}))
+    print(json.dumps({"evaluate": probes}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

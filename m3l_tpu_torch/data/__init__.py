@@ -7,3 +7,4 @@ from .datasets import (  # noqa: F401
     random_crop_resize,
     random_flip,
 )
+from .task_datasets import LABEL_KEYS, bin_labels, make_task_dataset  # noqa: F401

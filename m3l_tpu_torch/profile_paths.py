@@ -1,5 +1,6 @@
 """Where the time goes on the card: the full-width policy's serving requests and training
-minibatch updates, and the SSL pretraining steps (MAE and DINO), under ``torch.profiler``.
+minibatch updates, the SSL pretraining steps (MAE, DINO, V-JEPA) and a frozen downstream-probe
+step, under ``torch.profiler``.
 
     python -m m3l_tpu_torch.profile_paths
 
@@ -13,7 +14,11 @@ ending in a synchronise; and one ``Trainer.train_step`` of the DINO of
 ``config/experiment/dino_vit.yaml`` (ViT-small, 1 + 4 masked views at N = 197, the 65536-wide
 head, the probe; f32, batch 64), with its 65536-wide heads (the student's forward and backward on
 every view's CLS token, the teacher's forward) and its post-update hook (center and teacher EMA)
-also timed alone by CUDA events. For each: the host time per call untraced and traced, the device
+also timed alone by CUDA events; one ``Trainer.train_step`` of the V-JEPA of
+``config/experiment/vjepa_vit.yaml`` (two 224 x 224 x 3 frames at tubelet 2, 49 context and 147
+target tokens; f32, batch 64) and of the frozen force probe of
+``config/experiment/downstream_task/force/digit_mae.yaml`` (the ViT-small forward without autograd,
+the attentive probe trained; f32, batch 64). For each: the host time per call untraced and traced, the device
 time per call summed over the kernels and copies the profiler saw, the device's idle share of
 the untraced call (1 - device / host), the device time by kind of kernel (``KINDS``: GEMMs, the
 attention bodies, softmaxes, the optimizer's and the EMA's foreach kernels, LayerNorm, copies,
@@ -129,20 +134,27 @@ def profile_training(rng: np.random.Generator) -> dict:
     return profiled(update, UPDATES, f"train update batch {TRAIN_BATCH}")
 
 
-def profile_ssl(rng: np.random.Generator, overrides=()) -> dict:
-    cfg = load_config(str(SSL_CONFIG), list(overrides))
-    module = instantiate(cfg["model"]["algorithm"])(instantiate(cfg["model"]["encoder"])).to("cuda")
+def profile_step(module, batch: dict, label: str) -> dict:
+    """``profiled`` over one synchronised ``Trainer.train_step`` of ``module`` on ``batch``."""
     trainer = Trainer(device="cuda", verbose=0)
+    if hasattr(module, "setup_schedules"):
+        module.setup_schedules(3, 200)
     optimizer = module.configure_optimizer(3, 200)
-    enc = module.encoder
-    batch = {"image": torch.from_numpy(rng.random((SSL_BATCH, *enc.img_size, enc.in_chans), dtype=np.float32)).cuda()}
 
     def step():
         trainer.train_step(module, optimizer, batch)
         torch.cuda.synchronize()
 
+    return profiled(step, UPDATES, label)
+
+
+def profile_ssl(rng: np.random.Generator, overrides=()) -> dict:
+    cfg = load_config(str(SSL_CONFIG), list(overrides))
+    module = instantiate(cfg["model"]["algorithm"])(instantiate(cfg["model"]["encoder"])).to("cuda")
+    enc = module.encoder
+    batch = {"image": torch.from_numpy(rng.random((SSL_BATCH, *enc.img_size, enc.in_chans), dtype=np.float32)).cuda()}
     decoder = "masked-query" if module.decode_masked_only else "He-style"
-    return profiled(step, UPDATES, f"ssl step batch {SSL_BATCH}, {decoder} decoder")
+    return profile_step(module, batch, f"ssl step batch {SSL_BATCH}, {decoder} decoder")
 
 
 def event_ms(fn, calls: int = UPDATES) -> float:
@@ -161,19 +173,11 @@ def event_ms(fn, calls: int = UPDATES) -> float:
 def profile_dino(rng: np.random.Generator) -> dict:
     cfg = load_config(str(EXPERIMENTS / "dino_vit.yaml"))
     module = instantiate(cfg["model"]["algorithm"])(instantiate(cfg["model"]["encoder"])).to("cuda")
-    trainer = Trainer(device="cuda", verbose=0)
-    module.setup_schedules(3, 200)
-    optimizer = module.configure_optimizer(3, 200)
     enc = module.student_backbone
     batch = {"image": torch.from_numpy(rng.random((SSL_BATCH, *enc.img_size, enc.in_chans), dtype=np.float32)).cuda()}
-
-    def step():
-        trainer.train_step(module, optimizer, batch)
-        torch.cuda.synchronize()
-
-    out = profiled(step, UPDATES, f"dino step batch {SSL_BATCH}")
+    out = profile_step(module, batch, f"dino step batch {SSL_BATCH}")
     with torch.no_grad():
-        _, aux = module.training_loss(batch, trainer.generator, 0)
+        _, aux = module.training_loss(batch, torch.Generator(device="cuda").manual_seed(0), 0)
     views = (module.num_global_masks + module.num_local_masks) * SSL_BATCH
     cls = torch.randn(views, enc.embed_dim, device="cuda", requires_grad=True)
     teacher_cls = torch.randn(module.num_global_masks * SSL_BATCH, enc.embed_dim, device="cuda")
@@ -187,6 +191,28 @@ def profile_dino(rng: np.random.Generator) -> dict:
     return out
 
 
+def profile_vjepa(rng: np.random.Generator) -> dict:
+    cfg = load_config(str(EXPERIMENTS / "vjepa_vit.yaml"))
+    module = instantiate(cfg["model"]["algorithm"])(instantiate(cfg["model"]["encoder"])).to("cuda")
+    enc = module.context_encoder
+    x = rng.random((SSL_BATCH, enc.num_frames, *enc.img_size, enc.in_chans), dtype=np.float32)
+    return profile_step(module, {"image": torch.from_numpy(x).cuda()}, f"vjepa step batch {SSL_BATCH}")
+
+
+def profile_probe(rng: np.random.Generator) -> dict:
+    from .train.builders import build_task_module
+
+    cfg = load_config(str(EXPERIMENTS / "downstream_task" / "force" / "digit_mae.yaml"))
+    module = build_task_module(instantiate(cfg["model"]["encoder"]), "force").to("cuda")
+    enc = module.model_encoder.encoder
+    batch = {
+        "image": rng.random((SSL_BATCH, *enc.img_size, enc.in_chans), dtype=np.float32),
+        "force": rng.uniform(-1, 1, (SSL_BATCH, 3)).astype(np.float32),
+        "force_scale": np.ones((SSL_BATCH, 3), np.float32),
+    }
+    return profile_step(module, {k: torch.from_numpy(v).cuda() for k, v in batch.items()}, f"frozen force probe step batch {SSL_BATCH}")
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.manual_seed(0)
@@ -196,6 +222,7 @@ def main() -> None:
     results = [profile_serving(server, batch, rng) for batch in BATCHES] + [profile_training(rng)]
     results += [profile_ssl(rng, ov) for ov in ((), ("model.algorithm.decode_masked_only=false",))]
     results.append(profile_dino(rng))
+    results += [profile_vjepa(rng), profile_probe(rng)]
     for r in results:
         print(f"{r['path']}: host {r['host_ms_per_call']:.3f} ms/call ({r['traced_host_ms_per_call']:.3f} traced), device "
               f"{r['device_ms_per_call']:.3f} ms/call, idle share {r['device_idle_share']:.3f}, {r['device_ops_per_call']:.0f} device ops/call")

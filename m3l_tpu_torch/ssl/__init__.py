@@ -16,3 +16,4 @@ from .mae import MAEModule  # noqa: F401
 from .dino import DINOModule  # noqa: F401
 from .dinov2 import DINOv2Module  # noqa: F401
 from .ijepa import IJEPAModule  # noqa: F401
+from .vjepa import VJEPAModule  # noqa: F401

@@ -2,8 +2,8 @@
 ``m3l_tpu/train/builders.py``): plain scalars and a seed in, the port's modules out.
 
 Each builder draws its initial weights from its own ``seed`` (torch's global generator is left as
-it was). The builders of what is not ported yet (V-JEPA and the downstream tasks) are absent, so
-their config targets fail to import.
+it was). The builder of what is not ported yet (the force-field task, ``build_forcefield_module``)
+is absent, so its config target fails to import.
 """
 from __future__ import annotations
 
@@ -91,6 +91,53 @@ def build_ijepa(encoder, *, predictor_depth: int = 6, predictor_dim: int = 384, 
 
     predictor = build_predictor(encoder, embed_dim=predictor_dim, depth=predictor_depth, num_mask_tokens=num_target_masks, seed=seed + 1)
     return _seeded(seed, lambda: IJEPAModule(encoder, predictor, num_target_masks=num_target_masks, **kwargs))
+
+
+def build_vjepa(encoder, *, predictor_depth: int = 6, predictor_dim: int = 384, seed: int = 1, **kwargs):
+    from ..ssl import VJEPAModule
+
+    predictor = build_predictor(encoder, embed_dim=predictor_dim, depth=predictor_depth, seed=seed + 1)
+    return _seeded(seed, lambda: VJEPAModule(encoder, predictor, **kwargs))
+
+
+_PROBES = {
+    "force": ("ForceLinearProbe", "ForceSLModule"),
+    "slip": ("SlipProbe", "SlipSLModule"),
+    "pose": ("PoseLinearProbe", "PoseSLModule"),
+    "grasp": ("GraspLinearProbe", "GraspSLModule"),
+    "textile": ("TextileLinearProbe", "TextileSLModule"),
+}
+
+
+def build_task_module(
+    encoder,
+    task: str,
+    *,
+    checkpoint_encoder: Optional[str] = None,
+    encoder_type: str = "mae",
+    train_encoder: bool = False,
+    num_classes: Optional[int] = None,
+    num_heads: int = 12,
+    seed: int = 2,
+    **kwargs,
+):
+    """The probe of ``task`` over ``encoder`` (its weights from ``seed``) in the task's SL module,
+    which loads the encoder from ``checkpoint_encoder`` when given."""
+    from .. import tasks
+
+    probe_name, module_name = _PROBES[task]
+    probe_kwargs = dict(num_heads=num_heads)
+    if num_classes is not None:
+        probe_kwargs["num_classes"] = num_classes
+    probe = _seeded(seed, lambda: getattr(tasks, probe_name)(encoder.embed_dim, **probe_kwargs))
+    return getattr(tasks, module_name)(
+        encoder,
+        probe,
+        checkpoint_encoder=checkpoint_encoder,
+        encoder_type=encoder_type,
+        train_encoder=train_encoder,
+        **kwargs,
+    )
 
 
 def build_trainer(**kwargs):

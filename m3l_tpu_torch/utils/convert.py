@@ -11,11 +11,16 @@ the last component is converted by the kind of that submodule:
 * ``LayerNorm``: ``scale`` -> ``weight``, ``bias`` -> ``bias``;
 * ``Embedding``: ``embedding`` -> ``weight``;
 * any other leaf (``log_std``, ``mask_token``, ``pos_embedding``, ``register_tokens``, a
-  LayerScale's ``gamma``, a DINOHead's ``last_v`` / ``last_g``, an ``nnx.List`` of parameters'
-  ``mask_tokens/0``, an ``nn.ParameterList`` entry here) is a parameter of that name and carries
-  over as is;
+  LayerScale's ``gamma``, a DINOHead's ``last_v`` / ``last_g``, an attentive pooler's
+  ``query_tokens``, an ``nnx.List`` of parameters' ``mask_tokens/0``, an ``nn.ParameterList``
+  entry here) is a parameter of that name and carries over as is;
 * a leaf that names a registered buffer (the DINO modules' ``center`` and ``ibot_center``,
   non-``Param`` nnx variables in JAX) carries over into it as is.
+
+Whole modules carry over by their paths: the V-JEPA module's ``context_encoder``, ``predictor``
+and ``target_encoder``, a probe's ``pooler/cross`` block and its ``nnx.List`` heads
+(``head/0/kernel`` -> ``head.0.weight``), an SL module's ``model_encoder/encoder`` and
+``model_task``.
 
 Every JAX key must be used and every torch parameter and persistent buffer set, else it raises.
 The sin/cos tables (``_pos_table`` of the ViT and the SSL decoders, ``nnx.data`` in JAX) are

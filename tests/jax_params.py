@@ -6,8 +6,10 @@ build (test helper, not a test file).
 which the port keeps as buffers). ``_pos_table`` is ``nnx.data``, not a variable, and is left out:
 the port recomputes it. The tiny ViT is depth 2, dim 64, 2 heads x 32 on 32x32 images with patch 8
 (16 patches); the DINO heads are 32 wide (hidden 48, bottleneck 16); the I-JEPA predictor is
-depth 2, dim 32, 2 heads x 16.
+depth 2, dim 32, 2 heads x 16. The V-JEPA models are the same ViT and predictor on two frames at
+tubelet 2 (a 1 x 4 x 4 grid), one mask token. The probes pool the tiny ViT's tokens with 2 heads.
 """
+import jax.numpy as jnp
 import numpy as np
 import torch
 from flax import nnx
@@ -27,6 +29,7 @@ VIT = dict(img_size=(32, 32), patch_size=8, in_chans=3, embed_dim=64, depth=2, n
 MAE = dict(decoder_embed_dim=64, decoder_depth=1, decoder_num_heads=2, mask_ratio=0.75)
 DINO = dict(dino_out_dim=32, dino_hidden_dim=48, dino_bottleneck_dim=16)
 PREDICTOR = dict(patch_size=8, img_size=(32, 32), in_chans=3, embed_dim=32, depth=2, num_heads=2, num_mask_tokens=4)
+VIDEO = dict(num_frames=2, tubelet_size=2)
 
 
 def flat_state(state) -> dict:
@@ -85,6 +88,46 @@ def ijepa_pair(**kw):
 
 def ijepa_twin(**kw):
     return tssl.IJEPAModule(VisionTransformer(**VIT), vit_predictor(64, **PREDICTOR), **kw)
+
+
+def vjepa_pair(**kw):
+    """The tiny JAX VJEPAModule and the port's with its weights."""
+    pkw = {**PREDICTOR, **VIDEO, "num_mask_tokens": 1}
+    j = jssl.VJEPAModule(JViT(rngs=nnx.Rngs(0), **VIT, **VIDEO), jvit_predictor(64, rngs=nnx.Rngs(2), **pkw), rngs=nnx.Rngs(1), **kw)
+    return j, carry(j, vjepa_twin(**kw))
+
+
+def vjepa_twin(**kw):
+    return tssl.VJEPAModule(VisionTransformer(**VIT, **VIDEO), vit_predictor(64, **{**PREDICTOR, **VIDEO, "num_mask_tokens": 1}), **kw)
+
+
+def probe_pair(name: str, train_encoder: bool, probe_kw=None, **kw):
+    """The tiny JAX SL module ``name`` (a probe of m3l_tpu.tasks over the tiny ViT) and the port's
+    with its weights; ``probe_kw`` go to the probe, ``kw`` to the module."""
+    from m3l_tpu import tasks as jtasks
+    from m3l_tpu_torch import tasks as ttasks
+
+    probe, module = PROBES[name]
+    pkw = {"num_heads": 2, **(probe_kw or {})}
+    jkw = dict(kw)
+    pose_weights = jkw.pop("class_weights") if module == "PoseSLModule" and "class_weights" in jkw else None
+    j = getattr(jtasks, module)(JViT(rngs=nnx.Rngs(0), **VIT), getattr(jtasks, probe)(64, rngs=nnx.Rngs(3), **pkw), train_encoder=train_encoder, **jkw)
+    if pose_weights is not None:
+        # the JAX PoseSLModule cannot take its dict of class weights in __init__ under flax >= 0.12
+        # (a dict of arrays in a static attribute); set it as nnx data, as flax asks
+        j.class_weights = nnx.data({k: jnp.asarray(v, jnp.float32) for k, v in pose_weights.items()})
+    p = getattr(ttasks, module)(VisionTransformer(**VIT), getattr(ttasks, probe)(64, **pkw), train_encoder=train_encoder, **kw)
+    return j, carry(j, p)
+
+
+PROBES = {
+    "force": ("ForceLinearProbe", "ForceSLModule"),
+    "slip": ("SlipProbe", "SlipSLModule"),
+    "slip_force": ("SlipForceProbe", "SlipSLModule"),
+    "pose": ("PoseLinearProbe", "PoseSLModule"),
+    "grasp": ("GraspLinearProbe", "GraspSLModule"),
+    "textile": ("TextileLinearProbe", "TextileSLModule"),
+}
 
 
 def images(shape, seed=0) -> np.ndarray:

@@ -347,8 +347,9 @@ def test_v1_kernel_refuses_inputs_it_does_not_take(card):
 
 # The SSL slices' shapes at batch 64: MAE's masked encoder (49 of 196 patches kept), the full-image
 # encoder, and the He-style decoder (512 wide, 16 heads of 32); DINO's views (196 patches + 1
-# register) and the I-JEPA predictor (196 context + 196 mask tokens, 12 heads of 32).
-SSL_SHAPES = [(64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32), (64, 197, 6, 64), (64, 392, 12, 32)]
+# register), the I-JEPA predictor (196 context + 196 mask tokens, 12 heads of 32) and the V-JEPA
+# predictor (49 context + 147 target tokens, 12 heads of 32).
+SSL_SHAPES = [(64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32), (64, 197, 6, 64), (64, 392, 12, 32), (64, 196, 12, 32)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -466,3 +467,101 @@ def test_f32_dino_step_matches_the_cpu(card):
             step = (1.0 - momentum) * implied["student_" + name[len("teacher_"):]]
             assert ((sa[name] - sb[name]).abs() - step).max() <= 1e-2 * lr, name
     assert (sa["center"] - sb["center"]).abs().max() <= 1e-6
+
+
+def test_f32_vjepa_step_matches_the_cpu(card):
+    """One f32 step of a small tubelet ViT + V-JEPA on the card against the same weights, batch and
+    tube masks on the CPU, every attention layer on the kernels without a key mask: the loss and
+    its two parts, each trainable gradient relative to its norm, the parameters after AdamW beyond
+    the difference of Adam's first steps that the two gradients imply, and the target encoder
+    after the EMA beyond (1 - momentum) times it. The checks of chip_smoke.py phase 11 (a), at
+    1e-5, 1e-5, 1e-2 * lr and 1e-2 * lr."""
+    from m3l_tpu_torch.kernels import MASKED_LAUNCHES
+    from m3l_tpu_torch.models.vit import VisionTransformer, vit_predictor
+    from m3l_tpu_torch.ssl import VJEPAModule
+
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the Conv3d patch embedding in f32, as on the CPU
+    try:
+        torch.manual_seed(0)
+        video = dict(img_size=(64, 64), patch_size=8, in_chans=3, num_frames=2, tubelet_size=2)
+        vit = VisionTransformer(embed_dim=128, depth=2, num_heads=2, pos_embed_fn="sinusoidal", **video)
+        cpu = VJEPAModule(vit, vit_predictor(128, embed_dim=64, depth=2, num_heads=2, **video), warmup_epochs=0, moving_average_decay=(0.99, 1.0))
+        gpu = copy.deepcopy(cpu).to(card)
+        x = torch.rand(4, 2, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+        keeps = cpu.sample_masks(torch.Generator().manual_seed(2), 4)
+        results = []
+        for m, dev in ((gpu, card), (cpu, torch.device("cpu"))):
+            m.setup_schedules(2, 2)
+            m.sample_masks = lambda g, b, dev=dev: keeps.to(dev)
+            opt = m.configure_optimizer(2, 2)
+            start, masked0 = Counter(LAUNCHES), Counter(MASKED_LAUNCHES)
+            loss, aux = m.training_loss({"image": x.to(dev)}, None, 0)
+            loss.backward()
+            grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu().clone() for n, p in m.trainable_parameters().items()}
+            opt.step()
+            m.on_train_batch_end(aux, 0)
+            launched = {k: (LAUNCHES[k] - start[k], MASKED_LAUNCHES[k] - masked0[k]) for k in (KERNEL, BWD_KERNEL)}
+            parts = {k: aux[k].item() for k in ("loss", "loss_jepa", "loss_reg")}
+            results.append((parts, grads, {n: v.detach().cpu() for n, v in m.state_dict().items()}, launched, opt))
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    (la, ga, sa, launched, opt), (lb, gb, sb, _, _) = results
+    assert launched == {KERNEL: (6, 0), BWD_KERNEL: (4, 0)}
+    for k in lb:
+        assert abs(la[k] - lb[k]) <= 1e-5 * abs(lb[k]), k
+    lr, eps, momentum = opt.learning_rate(0), 1e-8, cpu._momentum_fn(0)
+    implied = {}
+    for name, g in gb.items():
+        a = ga[name]
+        assert (a - g).norm() <= 1e-5 * g.norm(), name
+        implied[name] = lr * (a / (a.abs() + eps) - g / (g.abs() + eps)).abs()
+        assert ((sa[name] - sb[name]).abs() - implied[name]).max() <= 1e-2 * lr, name
+    for name in sb:
+        if name.startswith("target_encoder."):
+            step = (1.0 - momentum) * implied["context_encoder." + name[len("target_encoder."):]]
+            assert ((sa[name] - sb[name]).abs() - step).max() <= 1e-2 * lr, name
+
+
+@pytest.mark.parametrize("train_encoder", [False, True], ids=["frozen", "finetuned"])
+def test_f32_probe_step_matches_the_cpu(card, train_encoder):
+    """One f32 ForceSLModule step over a small ViT on the card against the same weights and batch on
+    the CPU: the loss, each trainable gradient relative to its norm, the parameters after AdamW
+    beyond the implied Adam step difference; frozen, the encoder launches no backward and stays
+    bit for bit. The checks of chip_smoke.py phase 11 (f), at 1e-5, 1e-5 and 1e-2 * lr."""
+    from m3l_tpu_torch.models.vit import VisionTransformer
+    from m3l_tpu_torch.tasks import ForceLinearProbe, ForceSLModule
+
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        torch.manual_seed(0)
+        vit = VisionTransformer(img_size=(64, 64), patch_size=8, in_chans=6, embed_dim=128, depth=2, num_heads=2, pos_embed_fn="sinusoidal")
+        cpu = ForceSLModule(vit, ForceLinearProbe(128, num_heads=4), train_encoder=train_encoder, warmup_epochs=0)
+        gpu = copy.deepcopy(cpu).to(card)
+        gen = torch.Generator().manual_seed(1)
+        batch = {"image": torch.rand(4, 64, 64, 6, generator=gen), "force": torch.rand(4, 3, generator=gen) * 2 - 1,
+                 "force_scale": torch.tensor([[5.0, 5.0, 10.0]]).repeat(4, 1)}
+        before = {k: v.clone() for k, v in gpu.model_encoder.state_dict().items()}
+        results = []
+        for m, dev in ((gpu, card), (cpu, torch.device("cpu"))):
+            opt = m.configure_optimizer(2, 2)
+            start = Counter(LAUNCHES)
+            loss, _ = m.training_loss({k: v.to(dev) for k, v in batch.items()}, None, 0)
+            loss.backward()
+            grads = {n: p.grad.detach().cpu().clone() for n, p in m.trainable_parameters().items()}
+            opt.step()
+            launched = {k: LAUNCHES[k] - start[k] for k in (KERNEL, BWD_KERNEL)}
+            results.append((loss.item(), grads, {n: v.detach().cpu() for n, v in m.state_dict().items()}, launched, opt))
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    (la, ga, sa, launched, opt), (lb, gb, sb, _, _) = results
+    assert launched == {KERNEL: 2, BWD_KERNEL: 2 if train_encoder else 0}
+    assert all(torch.equal(v, before[k]) for k, v in gpu.model_encoder.state_dict().items()) != train_encoder
+    assert abs(la - lb) <= 1e-5 * abs(lb)
+    lr, eps = opt.learning_rate(0), 1e-8
+    for name, g in gb.items():
+        a = ga[name]
+        assert (a - g).norm() <= 1e-5 * g.norm(), name
+        implied = lr * (a / (a.abs() + eps) - g / (g.abs() + eps)).abs()
+        assert ((sa[name] - sb[name]).abs() - implied).max() <= 1e-2 * lr, name

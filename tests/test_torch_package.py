@@ -40,6 +40,37 @@ def test_module_imports_no_jax_and_nothing_of_m3l_tpu(path):
     assert not bad, f"{path.relative_to(PKG)} imports {bad}"
 
 
+def _probe_path():
+    return [p for p in _modules() if p.relative_to(PKG).parts[0] in ("tasks", "eval") or p.relative_to(PKG).as_posix() == "cli/evaluate.py"]
+
+
+def _module_level_roots(path):
+    """The roots imported by ``path``'s module-level statements (not inside a function)."""
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _probe_path(), ids=lambda p: str(p.relative_to(PKG)))
+def test_probe_path_imports_no_matplotlib_at_import_time(path):
+    """The H100 machine has no matplotlib: the plots import it inside their functions only."""
+    bad = sorted(set(_module_level_roots(path)) & {"matplotlib", *FORBIDDEN})
+    assert not bad, f"{path.relative_to(PKG)} imports {bad} at import time"
+
+
+def test_importing_the_probe_path_loads_no_jax_and_no_matplotlib():
+    code = (
+        "import sys\n"
+        "import m3l_tpu_torch.tasks, m3l_tpu_torch.eval, m3l_tpu_torch.cli.evaluate, m3l_tpu_torch.data\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in {'jax', 'flax', 'optax', 'matplotlib'} or m.split('.')[0] == 'm3l_tpu')\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_importing_every_module_loads_no_jax():
     names = [
         ".".join(p.relative_to(PKG.parent).with_suffix("").parts).removesuffix(".__init__") for p in _modules()

@@ -1,6 +1,6 @@
 """The port's SSL pretraining path against the JAX package on the CPU: the config loader
 (utils/config.py), the datasets (data/datasets.py), the Trainer (train/trainer.py) with its
-checkpoints, and the pretrain CLI (cli/pretrain.py), for MAE, DINO, DINOv2 and I-JEPA.
+checkpoints, and the pretrain CLI (cli/pretrain.py), for MAE, DINO, DINOv2, I-JEPA and V-JEPA.
 
 Tiny widths (ViT depth 2, dim 64, 2 heads x 32, 32x32 images, patch 8; decoder depth 1; DINO
 heads 32 wide). The Trainer epochs run the JAX Trainer's masking draws (its key chain from the
@@ -41,6 +41,9 @@ TINY_BY_CONFIG = {
     "dino_vit": ENCODER + ["model.algorithm.dino_out_dim=32", "model.algorithm.dino_hidden_dim=48", "model.algorithm.dino_bottleneck_dim=16"],
     "dinov2_vit": ENCODER + ["model.algorithm.dino_out_dim=32", "model.algorithm.dino_hidden_dim=48", "model.algorithm.dino_bottleneck_dim=16"],
     "ijepa_vit": ENCODER + ["model.algorithm.predictor_depth=1", "model.algorithm.predictor_dim=96"],
+    # V-JEPA's tubelet encoder takes (B, T, H, W, C): the data config's default out_format
+    # (concat_ch_img) gives 6-channel images, so the CLI runs with data.out_format=video
+    "vjepa_vit": ENCODER + ["model.algorithm.predictor_depth=1", "model.algorithm.predictor_dim=96", "data.out_format=video"],
 }
 
 
@@ -78,10 +81,28 @@ def test_instantiate_builds_the_port_and_imports_no_jax_package():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_vjepa_targets_build_the_port_and_import_no_jax_package():
+    code = (
+        "import sys\n"
+        "from m3l_tpu_torch.utils.config import instantiate, load_config\n"
+        f"cfg = load_config('config/experiment/vjepa_vit.yaml', {TINY_BY_CONFIG['vjepa_vit']!r})\n"
+        "enc = instantiate(cfg['model']['encoder'])\n"
+        "vj = instantiate(cfg['model']['algorithm'])(enc)\n"
+        "assert [type(o).__module__ for o in (enc, vj, vj.predictor)] == "
+        "['m3l_tpu_torch.models.vit', 'm3l_tpu_torch.ssl.vjepa', 'm3l_tpu_torch.models.vit'], (enc, vj)\n"
+        "assert enc.is_video and enc.patch_embed.grid == (1, 4, 4) and vj.mask_ratio == 0.75 and (vj.n_context, vj.n_target) == (4, 12)\n"
+        "assert cfg['data']['out_format'] == 'video' and vj.predictor.num_heads == 12\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in {'jax', 'flax', 'optax', 'orbax'} or m.split('.')[0] == 'm3l_tpu')\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_unported_targets_fail_to_import():
-    cfg = load_config(str(ROOT / "config" / "experiment" / "vjepa_vit.yaml"), ENCODER)
-    with pytest.raises(AttributeError, match="build_vjepa"):
-        instantiate(cfg["model"]["algorithm"])
+    cfg = load_config(str(ROOT / "config" / "task" / "digit_forcefield.yaml"), ENCODER)
+    with pytest.raises(AttributeError, match="build_forcefield_module"):
+        instantiate(cfg["task"])
 
 
 @pytest.mark.parametrize("out_format,remove_background", [("concat_ch_img", True), ("single_image", False), ("video", False)])
@@ -194,6 +215,43 @@ def test_dino_trainer_epoch_equals_jax():
         assert outside.sum() <= max(1, outside.size // 1000), (name, int(outside.sum()))
 
 
+def test_vjepa_trainer_epoch_equals_jax():
+    """One Trainer.fit epoch of the tiny V-JEPA (lr 1e-3, no warm-up, the momentum ramp 0.9 -> 1.0
+    inside the epoch, 4 batches of two frames), each step under the tube masks JAX's Trainer draws
+    from its key chain: the loss history and every parameter after it, context, predictor and
+    target. Elements f32 noise under Adam's first steps may move by up to 2 * sum(lr) are allowed
+    as in test_trainer_epoch_equals_jax."""
+    from jax_params import vjepa_pair, vjepa_twin
+    from m3l_tpu.ssl import masks as jmasks
+
+    kw = dict(base_lr=1e-3, warmup_epochs=0, moving_average_decay=(0.9, 1.0))
+    j, p = vjepa_pair(**kw)
+    batches = [{"image": images((4, 2, 32, 32, 3), seed=110 + i)} for i in range(4)]
+    fit = dict(max_epochs=1, seed=5, verbose=0)
+    key, keeps = jax.random.PRNGKey(5), []
+    for _ in batches:
+        key, k = jax.random.split(key)
+        keeps.append(torch.from_numpy(np.array(jmasks.random_tube_masks(k, 4, j.grid, j.mask_ratio, j.num_masks))))
+    ref = JTrainer(**fit).fit(j, batches)
+    p.sample_masks = lambda generator, batch: keeps.pop(0)
+    hist = Trainer(device="cpu", **fit).fit(p, batches)
+    assert not keeps and len(hist) == len(ref) == 1
+    for k in ("train_loss", "train_loss_jepa", "train_loss_reg"):
+        np.testing.assert_allclose(hist[0][k], ref[0][k], err_msg=k, **CONV_TOL)
+    want = vjepa_twin(**kw)
+    load_jax_params(want, flat_variables(j))
+    noise_bound = 2 * 1e-3 * len(batches)
+    want = dict(want.named_parameters())
+    for name, q in p.named_parameters():
+        got, exp = q.detach().numpy(), want[name].detach().numpy()
+        outside = np.abs(got - exp) > CONV_TOL["atol"] + CONV_TOL["rtol"] * np.abs(exp)
+        assert np.abs(got - exp)[outside].max(initial=0.0) <= noise_bound, name
+        kb = key_bias(name, q.shape[0] // 3) if name.endswith("attn.qkv.bias") else None
+        if kb is not None:
+            outside[kb] = False
+        assert outside.sum() <= max(1, outside.size // 1000), (name, int(outside.sum()))
+
+
 def test_dino_checkpoints_keep_the_teacher_and_resume(tmp_path):
     """last.ckpt holds the teachers, the center and AdamW's moments, and a fresh module resumes
     them exactly; the trainable-only task checkpoint leaves the teachers out."""
@@ -217,14 +275,14 @@ def test_dino_checkpoints_keep_the_teacher_and_resume(tmp_path):
         assert torch.equal(s_["exp_avg"], r["exp_avg"]) and torch.equal(s_["exp_avg_sq"], r["exp_avg_sq"])
 
 
-@pytest.mark.parametrize("config", ["dino_vit", "dinov2_vit", "ijepa_vit"])
+@pytest.mark.parametrize("config", ["dino_vit", "dinov2_vit", "ijepa_vit", "vjepa_vit"])
 def test_ssl_configs_instantiate_and_train_through_the_cli(tmp_path, config):
     path = str(ROOT / "config" / "experiment" / f"{config}.yaml")
     trainer, algorithm, history = pretrain.main(
         ["--config", path, "--synthetic", "12", "--device", "cpu", *TINY_BY_CONFIG[config], "trainer.max_epochs=1",
          f"trainer.ckpt_dir={tmp_path}/out", "data.batch_size=4"]
     )
-    want = {"dino_vit": "DINOModule", "dinov2_vit": "DINOv2Module", "ijepa_vit": "IJEPAModule"}[config]
+    want = {"dino_vit": "DINOModule", "dinov2_vit": "DINOv2Module", "ijepa_vit": "IJEPAModule", "vjepa_vit": "VJEPAModule"}[config]
     assert type(algorithm).__name__ == want and type(algorithm).__module__.startswith("m3l_tpu_torch.ssl.")
     assert len(history) == 1 and np.isfinite(history[0]["train_loss"]) and trainer.global_step == 1
     assert (tmp_path / "out" / "last.ckpt").is_file()
@@ -232,6 +290,8 @@ def test_ssl_configs_instantiate_and_train_through_the_cli(tmp_path, config):
         assert algorithm.num_global_masks == 2 and algorithm.centering == "centering" and "train_ibot_loss" in history[0]
     if config == "ijepa_vit":
         assert algorithm.predictor.num_mask_tokens == 4 and algorithm.target_encoder.num_register_tokens == 0
+    if config == "vjepa_vit":
+        assert algorithm.context_encoder.is_video and {"train_loss_jepa", "train_loss_reg"} <= set(history[0])
 
 
 def tiny_mae(**kw):
