@@ -105,6 +105,30 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    the encoder moves); (f) one f32 ForceSLModule step (frozen encoder) card vs CPU at batch 8
    (PROBE_F32_TOL). Each run prints steps/s, images/s or the probe's steps/s, the loader's ms per
    batch and the peak memory. Cut as phase 9: the data and the epochs.
+12. the CLIs' f32 numerics, the force-field task, VTDINO and the multimodal transformer, at full
+   width: (0) phase 9's (a) and phase 11's (a) and (f) f32 card-vs-CPU steps and (a) below rerun with
+   cuDNN's TF32 on (PyTorch's default, which the CLIs kept until they called
+   ``utils.device.f32_numerics``), each error printed over its tolerance; the MAE step and the
+   frozen probe step at batch 64 timed with cuDNN's TF32 off and on, in turns; one bf16 PPO update
+   and the batch-8 serving outputs against the f32 CPU with ``allow_bf16_reduced_precision_reduction``
+   on (PyTorch's default) and off. These are measurements and fail nothing. (a) one f32
+   GeometricForceFieldModule step (config/experiment/downstream_task/forcefield/digit_dino.yaml:
+   ViT-small on 224 x 224 x 6, hooks (2, 5, 8, 11), the DPT decoder at fusion 128, the pose
+   ResNet-18; frozen) on the card against the CPU at batch 4 on synthetic DIGIT windows (FF_F32_TOL),
+   24 + 0 launches; (b) the same config through the Trainer over phase 9's MAE encoder
+   (``task.checkpoint_encoder``, no register token) on 192 windows of ``synth_digit_trajectories(size=224)``,
+   batch 64: 24 + 0 launches a step, the encoder bit-equal to the checkpoint before and after; then
+   two fine-tuned steps of forcefield/digit_e2e.yaml (24 + 24, the encoder moves); step ms, loader
+   ms, images/s and peak memory; (c) the demo's model (``cli.demo_forcefield._build_module_structure``
+   at its defaults: dim 192, depth 6, 3 heads, hooks 1,3,4,5, fusion 64, bf16, 96 x 96) runs
+   ``forward_fields`` over 30 synthetic frames on the card, one at a time, on the tensor-core body:
+   finite fields; (d) one f32 VTDINO step at MultimodalVTT's and VTDINOModule's defaults (dim 384,
+   depth 4, 6 heads, 70 x 70 at patch 14, the 65536-wide head) on the card against the CPU at batch
+   8 (VTDINO_F32_TOL), then 3 f32 Trainer steps at batch 64 (12 + 8 launches a step, all
+   key-masked) and 2 bf16 steps at scripts/vtdino_experiment.py's recipe (dim 128, frame stack 2,
+   the probe, batch 256: 18 + 10, 12 + 8 key-masked); (e) the multimodal transformer (ViT-base
+   width, 4 blocks, shared and factored attention) forward and backward on the card against the
+   CPU (MM_F32_TOL) at its launches.
 
 Phase 3 also holds both packed kernels to their plain versions at the SSL slices' shapes
 (SSL_SHAPES: (64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32), (64, 197, 6, 64), (64, 392,
@@ -120,14 +144,16 @@ each case.
 Each phase after the kernel checks runs with the launch counts set to 0 just before it and read
 just after; phases 4-8 also fail unless every bf16 forward launch, and in phases 5-8 every bf16
 backward launch, took the tensor-core body; phases 9-11 hold every launch to its dtype's body
-and count the launches with a key mask (``MASKED_LAUNCHES``).
+and count the launches with a key mask (``MASKED_LAUNCHES``); so do phase 12's.
 The last lines are a {"kernels": [...]} JSON line, {"slice": ...}, {"train": ...},
 {"bench_attention": ...}, {"cli": ...}, {"sac": ...}, {"ssl": ...}, {"ssl_distill": ...},
-{"ssl_vjepa": ...} and {"evaluate": ...} JSON lines, the card line as nvidia-smi prints it, and
+{"ssl_vjepa": ...}, {"evaluate": ...}, {"numerics": ...}, {"forcefield": ...} and {"vtdino": ...} JSON
+lines, the card line as nvidia-smi prints it, and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import shutil
@@ -137,16 +163,19 @@ import sys
 import time
 from collections import Counter
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from m3l_tpu_torch import bench_attention
+from m3l_tpu_torch.cli import demo_forcefield as demo_cli
 from m3l_tpu_torch.cli import evaluate as evaluate_cli
 from m3l_tpu_torch.cli import pretrain as pretrain_cli
 from m3l_tpu_torch.cli import train as train_cli
 from m3l_tpu_torch.cli import train_sacmae as sac_cli_module
+from m3l_tpu_torch.data import ArrayDataset, DataLoader, forcefield_windows, synth_digit_trajectories
 from m3l_tpu_torch.envs import SyncVecEnv, make_env
 from m3l_tpu_torch.kernels import BWD_BODY_LAUNCHES, FWD_BODY_LAUNCHES, LAUNCHES, MASKED_LAUNCHES, reset_launches
 from m3l_tpu_torch.kernels.build import build_all
@@ -168,14 +197,15 @@ from m3l_tpu_torch.nn.flash_attention import (
     flash_attention_tolerance,
 )
 from m3l_tpu_torch.profile_paths import random_minibatch
-from m3l_tpu_torch.models import VTMAE, VTT, VTTConfig
+from m3l_tpu_torch.models import VTMAE, VTT, MultimodalTransformer, MultimodalVTT, VTTConfig
 from m3l_tpu_torch.rl import PPOMAE, SACMAE, MAEFeatures, SACActorCritic
 from m3l_tpu_torch.serve import PolicyServer, build_policy, random_obs
-from m3l_tpu_torch.ssl import MAEModule, sample_block_masks, sample_block_masks_constrained
+from m3l_tpu_torch.ssl import MAEModule, VTDINOModule, sample_block_masks, sample_block_masks_constrained
 from m3l_tpu_torch.ssl.ijepa import cut_context
 from m3l_tpu_torch.eval import TestTaskSL
+from m3l_tpu_torch.tasks import forcefield_geometry
 from m3l_tpu_torch.train import Trainer, load_checkpoint
-from m3l_tpu_torch.train.builders import build_task_module
+from m3l_tpu_torch.train.builders import _seeded, build_task_module
 from m3l_tpu_torch.utils.config import instantiate, load_config
 
 # H100 SXM data sheet: HBM rate and dense peak rates per compute type. f32 runs in 3xTF32 (three
@@ -222,7 +252,8 @@ SSL_SHAPES = [(64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32), (64, 197, 6,
 # the same kernels under the key masks the phase-10 paths give them (distill_mask): DINO's global
 # view and its four local views at once, and the I-JEPA predictor's context
 DISTILL_MASKED = [("global block", (64, 197, 6, 64)), ("local blocks", (256, 197, 6, 64)), ("context", (64, 392, 12, 32))]
-TIMED_SHAPES = SSL_SHAPES + [(SERVE_B, SERVE_N, SERVE_H, SERVE_DH)]  # each timed in f32 and bf16
+# each timed in f32 and bf16, unmasked: the SSL shapes, DINO's four local views at once, the training shape
+TIMED_SHAPES = SSL_SHAPES + [(256, 197, 6, 64), (SERVE_B, SERVE_N, SERVE_H, SERVE_DH)]
 ALL_KERNELS = (KERNEL, BWD_KERNEL, V1_KERNEL, V1_BWD_KERNEL)
 CKPT_DIR = Path(__file__).resolve().parent / "smoke_checkpoints"
 MAE_CKPT = CKPT_DIR / "mae_vit_last.ckpt"  # phase 9's last.ckpt, kept for phase 11 and removed at the end
@@ -1074,6 +1105,21 @@ def counting_train_step(steps: list, last_end: list):
     return counted_step
 
 
+def check_steps(name: str, steps: list, launches: tuple[int, int], body: str, masked: tuple[int, int] = (0, 0)) -> tuple[dict, dict]:
+    """Fails unless every step of ``steps`` (from ``counting_train_step``) launched ``launches``
+    (forward, backward) packed kernels, all on ``body``, ``masked`` of them with a key mask; returns
+    the launches and the masked launches a step."""
+    fwd, bwd = launches
+    want = {KERNEL: fwd, BWD_KERNEL: bwd, V1_KERNEL: 0, V1_BWD_KERNEL: 0}
+    want_masked = {KERNEL: masked[0], BWD_KERNEL: masked[1]}
+    bodies = ({body: fwd} if fwd else {}, {body: bwd} if bwd else {})
+    for i, st in enumerate(steps):
+        if st["launches"] != want or (st["fwd_bodies"], st["bwd_bodies"]) != bodies or st["masked"] != want_masked:
+            fail(f"{name}: step {i} launched {st['launches']} ({st['masked']} with a key mask) on bodies {st['fwd_bodies']} / "
+                 f"{st['bwd_bodies']}, expected {want} ({want_masked}) on {body}")
+    return want, want_masked
+
+
 def ssl_run(name: str, overrides: list, launches: tuple[int, int], body: str, ckpt: Path, epochs: int = 2, resume_check=None,
             config: str = SSL_CONFIG, masked: tuple[int, int] = (0, 0)) -> dict:
     """``cli.pretrain.main`` on the card at ``config``'s defaults plus ``overrides``: every Trainer
@@ -1103,13 +1149,7 @@ def ssl_run(name: str, overrides: list, launches: tuple[int, int], body: str, ck
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     fwd, bwd = launches
-    want = {KERNEL: fwd, BWD_KERNEL: bwd, V1_KERNEL: 0, V1_BWD_KERNEL: 0}
-    want_masked = {KERNEL: masked[0], BWD_KERNEL: masked[1]}
-    for i, st in enumerate(steps):
-        if (st["launches"] != want or st["fwd_bodies"] != {body: fwd} or st["bwd_bodies"] != {body: bwd}
-                or st["masked"] != want_masked):
-            fail(f"ssl {name}: step {i} launched {st['launches']} ({st['masked']} with a key mask) on bodies {st['fwd_bodies']} / "
-                 f"{st['bwd_bodies']}, expected {want} ({want_masked}) on {body}")
+    want, want_masked = check_steps(f"ssl {name}", steps, launches, body, masked)
     losses = [h["train_loss"] for h in history]
     if not steps or not all(np.isfinite(losses)) or not all(torch.isfinite(p).all() for p in module.parameters()):
         fail(f"ssl {name}: {len(steps)} steps, losses {losses}")
@@ -1225,14 +1265,15 @@ def distill_models(name: str, overrides=()):
     return instantiate(cfg["model"]["algorithm"])(instantiate(cfg["model"]["encoder"]))
 
 
-def dino_step(module, x: torch.Tensor, masks: tuple):
+def dino_step(module, batch: dict, masks: tuple):
     """One Trainer step of the DINO ``module`` by hand (loss, backward, AdamW, the post-update
-    hook) on ``x`` under ``masks`` at step 0: the loss, the trainable gradients, and the state
+    hook) on ``batch`` under ``masks`` at step 0: the loss, the trainable gradients, and the state
     after it."""
+    device = batch["image"].device
     module.setup_schedules(3, 2)
-    module.sample_masks = lambda generator, batch: tuple(m.to(x.device) for m in masks)
+    module.sample_masks = lambda generator, b: tuple(m.to(device) for m in masks)
     opt = module.configure_optimizer(3, 2)
-    loss, aux = module.training_loss({"image": x}, None, 0)
+    loss, aux = module.training_loss(batch, None, 0)
     loss.backward()
     grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().clone() for n, p in module.trainable_parameters().items()}
     opt.step()
@@ -1240,28 +1281,23 @@ def dino_step(module, x: torch.Tensor, masks: tuple):
     return loss.item(), grads, {n: v.detach() for n, v in module.state_dict().items()}, opt
 
 
-def distill_check() -> dict:
-    """(a) One f32 DINO step at full width on the card against the CPU."""
-    cpu = distill_models("dino", ["model.algorithm.warmup_epochs=0"])
+def self_distill_errors(cpu, batch: dict, masks: tuple, launches_want: tuple, label: str) -> dict:
+    """One f32 step of the DINO-style module ``cpu`` and of its copy on the card, on ``batch`` under
+    ``masks``: the card's step must launch ``launches_want`` (forward, backward); returns the loss
+    error relative to the loss, the gradient errors relative to their norms, the parameters after
+    AdamW relative to the learning rate beyond the implied Adam step difference, the teachers after
+    the EMA beyond (1 - momentum) times it, and the center's absolute error."""
     card = copy.deepcopy(cpu).to("cuda")
-    enc = cpu.student_backbone
-    x = torch.from_numpy(np.random.default_rng(2).random((DISTILL_CHECK_BATCH, *enc.img_size, enc.in_chans), dtype=np.float32))
-    masks = cpu.sample_masks(torch.Generator().manual_seed(3), DISTILL_CHECK_BATCH)
     reset_launches()
-    la, ga, sa, opt = dino_step(card, x.cuda(), masks)
+    la, ga, sa, opt = dino_step(card, {k: v.cuda() for k, v in batch.items()}, masks)
     torch.cuda.synchronize()
     launches = {k: LAUNCHES[k] for k in (KERNEL, BWD_KERNEL)}
-    if launches != dict(zip((KERNEL, BWD_KERNEL), DISTILL_LAUNCHES["dino"][0])):
-        fail(f"the DINO check step launched {launches}, expected {DISTILL_LAUNCHES['dino'][0]}")
-    lb, gb, sb, _ = dino_step(cpu, x, masks)
+    if launches != dict(zip((KERNEL, BWD_KERNEL), launches_want)):
+        fail(f"the {label} check step launched {launches}, expected {launches_want}")
+    lb, gb, sb, _ = dino_step(cpu, batch, masks)
     lr, eps = opt.learning_rate(0), opt.adamw.param_groups[0]["eps"]
     momentum = cpu._momentum_fn(0)
-    implied, grad_rel, param_per_lr = {}, 0.0, 0.0
-    for name, g in gb.items():
-        a = ga[name].cpu()
-        grad_rel = max(grad_rel, ((a - g).norm() / g.norm()).item())
-        implied[name] = lr * (a / (a.abs() + eps) - g / (g.abs() + eps)).abs()
-        param_per_lr = max(param_per_lr, ((sa[name].cpu() - sb[name]).abs() - implied[name]).max().item() / lr)
+    grad_rel, param_per_lr, implied = step_errors(ga, gb, sa, sb, lr, eps)
     teacher_per_lr = 0.0
     for name in sb:
         if name.startswith("teacher_"):
@@ -1270,7 +1306,16 @@ def distill_check() -> dict:
     center_abs = (sa["center"].cpu() - sb["center"]).abs().max().item()
     return dict(loss_rel=abs(la - lb) / abs(lb), grad_rel=grad_rel, param_per_lr=param_per_lr, teacher_per_lr=teacher_per_lr,
                 center_abs=center_abs, center_max=sb["center"].abs().max().item(), loss=lb, lr=lr, momentum=momentum,
-                batch=DISTILL_CHECK_BATCH, launches=launches)
+                batch=batch["image"].shape[0], launches=launches)
+
+
+def distill_check() -> dict:
+    """(a) One f32 DINO step at full width on the card against the CPU."""
+    cpu = distill_models("dino", ["model.algorithm.warmup_epochs=0"])
+    enc = cpu.student_backbone
+    x = torch.from_numpy(np.random.default_rng(2).random((DISTILL_CHECK_BATCH, *enc.img_size, enc.in_chans), dtype=np.float32))
+    masks = cpu.sample_masks(torch.Generator().manual_seed(3), DISTILL_CHECK_BATCH)
+    return self_distill_errors(cpu, {"image": x}, masks, DISTILL_LAUNCHES["dino"][0], "DINO")
 
 
 def distill_phase() -> dict:
@@ -1445,12 +1490,14 @@ def probe_models(config: Path, device: str):
 
 
 def probe_step(module, batch: dict):
+    """One optimizer step of the SL ``module`` by hand at step 0: the scalar aux values, the
+    trainable gradients (zero where a parameter is unused), and the state after AdamW."""
     opt = module.configure_optimizer(3, 2)
     loss, aux = module.training_loss(batch, None, 0)
     loss.backward()
-    grads = {n: p.grad.detach().clone() for n, p in module.trainable_parameters().items()}
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().clone() for n, p in module.trainable_parameters().items()}
     opt.step()
-    return {k: v.item() for k, v in aux.items()}, grads, {n: v.detach() for n, v in module.state_dict().items()}, opt
+    return {k: v.item() for k, v in aux.items() if v.dim() == 0}, grads, {n: v.detach() for n, v in module.state_dict().items()}, opt
 
 
 def probe_check() -> dict:
@@ -1524,12 +1571,7 @@ def probe_run(name: str, config: Path, task: str, launches: tuple[int, int], ckp
     (run,) = fits
     module, history = run["module"], run["history"]
     fwd, bwd = launches
-    want = {KERNEL: fwd, BWD_KERNEL: bwd, V1_KERNEL: 0, V1_BWD_KERNEL: 0}
-    for i, st in enumerate(steps):
-        if (st["launches"] != want or st["fwd_bodies"] != {"tf32x3": fwd} or st["bwd_bodies"] != ({"tf32x3": bwd} if bwd else {})
-                or any(st["masked"].values())):
-            fail(f"evaluate {name}: step {i} launched {st['launches']} ({st['masked']} with a key mask) on bodies {st['fwd_bodies']} / "
-                 f"{st['bwd_bodies']}, expected {want} unmasked on tf32x3")
+    want, _ = check_steps(f"evaluate {name}", steps, launches, "tf32x3")
     want_eval = {KERNEL: 12, BWD_KERNEL: 0, V1_KERNEL: 0, V1_BWD_KERNEL: 0}
     if not evals or any(ev["launches"] != want_eval for ev in evals):
         fail(f"evaluate {name}: evaluation batches launched {[ev['launches'] for ev in evals]}, expected {want_eval} each")
@@ -1580,6 +1622,388 @@ def evaluate_phase() -> dict:
         shutil.rmtree(ckpt, ignore_errors=True)
     return out
 
+
+
+FORCEFIELD = DOWNSTREAM / "forcefield"
+FF_CHECK_BATCH, FF_BATCH = 4, 64
+# the encoder of phase 9's MAE checkpoint: no register token, the "encoder" subtree
+FF_MAE = ["task.encoder_type=mae", "model.encoder.num_register_tokens=0", f"task.checkpoint_encoder={MAE_CKPT}"]
+# Packed launches per force-field Trainer step at ViT-small (forward, backward): two decoder passes
+# (forward_fields: the normal on image_bg, the shear on image), each through all 12 blocks; a
+# frozen encoder runs them without autograd.
+FF_LAUNCHES = {"frozen": (24, 0), "e2e": (24, 24)}
+# One f32 GeometricForceFieldModule step at full width (ViT-small on 224 x 224 x 6, hooks (2, 5, 8,
+# 11), the DPT decoder at fusion 128 up to 112 x 112, the pose ResNet-18), card vs CPU (TF32 off),
+# the same weights and batch: the loss and each part relative to its magnitude, each trainable
+# gradient relative to its norm, each trainable parameter after AdamW relative to the learning rate
+# beyond the difference of Adam's first steps that the two gradients imply. The reprojection term's
+# SSIM, var = E[x^2] - E[x]^2 over 3 x 3 windows of smooth gel images, keeps ~1e-3 of f32 rounding
+# in its map and its gradient on any device (the CPU's f32 against f64 on these windows: 1.1e-3 of
+# the map, 2.1e-3 of the gradient to the sampling coordinates), and the pose network's and the
+# disparity's gradients reach the loss only through it: so each bound is FF_F32_TOL plus four times
+# the CPU's own f32 error, the CPU step against the same step with the SSIM in f64, measured in the
+# same run (the card's f32 and the CPU's f32 each lie about that far from the f64 value).
+FF_F32_TOL = dict(loss_rel=1e-5, grad_rel=1e-4, param_per_lr=1.2e-2)
+FF_SELF_FACTOR = 4
+# VTDINO at MultimodalVTT's and VTDINOModule's defaults (dim 384, depth 4, 6 heads x 64, 70 x 70 at
+# patch 14 so 25 patches a modality and 76 tokens, the 65536-wide head, no probe), f32: forward,
+# the student's global and local passes and the teacher's global pass (4 each, all key-masked);
+# backward, the student's two passes. With the probe (the bf16 recipe): plus the teacher's full
+# pass (4, unmasked) and the probe decoder (2 + 2).
+VTDINO_LAUNCHES = {"f32": ((12, 8), (12, 8)), "bf16": ((18, 10), (12, 8))}
+VTDINO_CHECK_BATCH, VTDINO_BATCH, VTDINO_BF16_BATCH = 8, 64, 256
+# one f32 VTDINO step card vs CPU: the quantities of DISTILL_F32_TOL
+VTDINO_F32_TOL = dict(loss_rel=1e-6, grad_rel=2e-5, param_per_lr=1.2e-2, teacher_per_lr=7e-4, center_abs=1.2e-7)
+# the multimodal transformer (three modalities: 196 tokens of 768 and two of 49 x 256; ViT-base
+# width, 12 heads x 64, one register token, 4 blocks), f32 forward and backward card vs CPU: the
+# patch tokens absolute, each gradient relative to its norm
+MM_F32_TOL = dict(out_abs=5e-5, grad_rel=2e-5)  # ~10x the 5.603e-6 and 1.820e-6 measured on the H100
+TF32_STEPS = 5
+
+
+def forcefield_module(config: Path, overrides, device):
+    """The force-field config's encoder and GeometricForceFieldModule (f32, seeded weights)."""
+    cfg = load_config(str(config), list(overrides))
+    return instantiate(cfg["task"])(instantiate(cfg["model"]["encoder"])).to(device)
+
+
+def forcefield_data(n_traj: int, traj_len: int, size: int, seed: int) -> dict:
+    """Force-field windows (image, image_bg, mask, force) of synthetic DIGIT trajectories."""
+    w = forcefield_windows(synth_digit_trajectories(n_traj, traj_len, size=size, seed=seed))
+    return {k: w[k] for k in ("image", "image_bg", "mask", "force")}
+
+
+@contextlib.contextmanager
+def ssim_in_f64():
+    """The force-field reprojection's SSIM evaluated in f64 (its result rounded back to f32)."""
+    f32 = forcefield_geometry.ssim
+    forcefield_geometry.ssim = lambda a, b: f32(a.double(), b.double()).to(a.dtype)
+    try:
+        yield
+    finally:
+        forcefield_geometry.ssim = f32
+
+
+def forcefield_check() -> dict:
+    """(a) One f32 GeometricForceFieldModule step (frozen ViT-small) at full width on the card
+    against the CPU, on synthetic DIGIT windows at 224 x 224; the bounds add four times the CPU's
+    own f32 error in the SSIM (``FF_F32_TOL``)."""
+    cpu = forcefield_module(FORCEFIELD / "digit_dino.yaml", ["task.warmup_epochs=0"], "cpu")
+    card, exact = copy.deepcopy(cpu).to("cuda"), copy.deepcopy(cpu)
+    batch = {k: torch.from_numpy(v[:FF_CHECK_BATCH]) for k, v in forcefield_data(1, FF_CHECK_BATCH + 1, 224, 7).items()}
+    encoder_before = {k: v.clone() for k, v in card.model_task.encoder.state_dict().items()}
+    reset_launches()
+    la, ga, sa, opt = probe_step(card, {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    launches = {k: LAUNCHES[k] for k in (KERNEL, BWD_KERNEL)}
+    if launches != dict(zip((KERNEL, BWD_KERNEL), FF_LAUNCHES["frozen"])):
+        fail(f"the frozen force-field check step launched {launches}, expected {FF_LAUNCHES['frozen']}")
+    if not all(torch.equal(v, encoder_before[k]) for k, v in card.model_task.encoder.state_dict().items()):
+        fail("the frozen force-field step moved the encoder on the card")
+    lb, gb, sb, _ = probe_step(cpu, batch)
+    with ssim_in_f64():
+        lx, gx, sx, _ = probe_step(exact, batch)
+    lr, eps = opt.learning_rate(0), opt.adamw.param_groups[0]["eps"]
+    grad_rel, param_per_lr, _ = step_errors(ga, gb, sa, sb, lr, eps)
+    self_grad, self_param, _ = step_errors(gx, gb, sx, sb, lr, eps)
+    own = dict(loss_rel=max(abs(lx[k] - lb[k]) / abs(lb[k]) for k in lb), grad_rel=self_grad, param_per_lr=self_param)
+    tol = {k: FF_F32_TOL[k] + FF_SELF_FACTOR * own[k] for k in FF_F32_TOL}
+    return dict(loss_rel=max(abs(la[k] - lb[k]) / abs(lb[k]) for k in lb), grad_rel=grad_rel, param_per_lr=param_per_lr, cpu_f32_vs_f64_ssim=own,
+                tol=tol, losses=lb, lr=lr, batch=FF_CHECK_BATCH, launches=launches, trainable=len(gb))
+
+
+def held(e: dict, tol: dict) -> dict:
+    """Each error of ``e`` over its tolerance in ``tol``."""
+    return {k: e[k] / tol[k] for k in tol}
+
+
+def step_ms(module, batch: dict, generator=None, steps: int = TF32_STEPS) -> float:
+    """Milliseconds per synchronised optimizer step of ``module`` on ``batch``, after one warm-up."""
+    opt = module.configure_optimizer(3, 200)
+
+    def step():
+        loss, _ = module.training_loss(batch, generator, 0)
+        loss.backward()
+        opt.step()
+        opt.zero_grad()
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def numerics_phase() -> dict:
+    """Phase 12 (0): the f32 card-vs-CPU steps of phases 9 and 11 and of the force field under the
+    CLIs' former numerics (cuDNN's TF32 on, PyTorch's default); the cost in ms a step of turning it
+    off (the MAE step of phase 9 and the frozen probe step of phase 11 at batch 64, in turns off, on,
+    on, off); and the bf16 PPO update and serving outputs under PyTorch's default
+    allow_bf16_reduced_precision_reduction (on) and with it off."""
+    out = {}
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        checks = dict(mae=(ssl_check, SSL_F32_TOL), vjepa=(vjepa_check, VJEPA_F32_TOL), probe=(probe_check, PROBE_F32_TOL),
+                      forcefield=(forcefield_check, None))
+        tf32 = {}
+        for name, (check, tol) in checks.items():
+            e = check()
+            tol = tol or e["tol"]  # the force field's bounds include the CPU's own f32 error in this run
+            tf32[name] = dict(err_per_tol=held(e, tol), tol=tol, **{k: e[k] for k in tol})
+            print(f"  numerics (0) {name} with cuDNN TF32 on: err/tol {json.dumps({k: round(v, 3) for k, v in tf32[name]['err_per_tol'].items()})}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    out["cudnn_tf32_on"] = tf32
+    mae = ssl_models().to("cuda")
+    rng = np.random.default_rng(8)
+    mae_batch = {"image": torch.from_numpy(rng.random((SSL_BATCH, *mae.encoder.img_size, mae.encoder.in_chans), dtype=np.float32)).cuda()}
+    probe = probe_models(DOWNSTREAM / "force" / "digit_mae.yaml", "cuda")
+    probe_batch = {"image": mae_batch["image"], "force": torch.rand(SSL_BATCH, 3, device="cuda"), "force_scale": torch.ones(SSL_BATCH, 3, device="cuda")}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cost = {}
+    for name, module, batch in (("mae_step", mae, mae_batch), ("frozen_probe_step", probe, probe_batch)):
+        runs = []
+        for on in (False, True, True, False):
+            torch.backends.cudnn.allow_tf32 = on
+            runs.append((on, step_ms(module, batch, gen)))
+        torch.backends.cudnn.allow_tf32 = False
+        cost[name] = dict(tf32_off_ms=[ms for on, ms in runs if not on], tf32_on_ms=[ms for on, ms in runs if on], batch=SSL_BATCH)
+        print(f"  numerics (0) {name} at batch {SSL_BATCH}: cuDNN TF32 off {cost[name]['tf32_off_ms']} ms, on {cost[name]['tf32_on_ms']} ms")
+    out["tf32_cost"] = cost
+    del mae, probe
+    torch.cuda.empty_cache()
+    bf16 = {}
+    for flag in (True, False):
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+        try:
+            torch.manual_seed(1)
+            policy = build_policy(dtype=torch.bfloat16, device="cuda")
+            twin = build_policy(dtype=torch.float32, device="cpu")
+            twin.load_state_dict(policy.state_dict())
+            kw = dict(learning_rate=1e-4, n_steps=CHECK_BATCH // TRAIN_ENVS, batch_size=CHECK_BATCH, frame_stack=FRAME_STACK)
+            update = update_errors(PPOMAE(policy, train_env(), device="cuda", **kw), PPOMAE(twin, train_env(), device="cpu", **kw), CHECK_BATCH)
+            obs = [random_obs(np.random.default_rng(2), 8, FRAME_STACK) for _ in range(4)]
+            got, ref = outputs(PolicyServer(policy), obs), outputs(PolicyServer(twin), obs)
+        finally:
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        serve = dict(actions_max_abs_err=float(np.abs(got[0] - ref[0]).max()), values_max_abs_err=float(np.abs(got[1] - ref[1]).max()), tol=SLICE_TOL)
+        bf16["on" if flag else "off"] = dict(update={k: update[k] for k in ("loss_rel", "grad_rel", "param_per_lr")}, serve=serve)
+        print(f"  numerics (0) bf16 reduced-precision reductions {'on (default)' if flag else 'off'}: update vs f32 CPU loss rel "
+              f"{update['loss_rel']:.3e}, grad rel {update['grad_rel']:.3e}, param/lr {update['param_per_lr']:.3e}; batch-8 serving vs f32 CPU "
+              f"actions {serve['actions_max_abs_err']:.3e}, values {serve['values_max_abs_err']:.3e} (tol {SLICE_TOL})")
+    out["bf16_reduced_precision_reduction"] = bf16
+    return out
+
+
+def forcefield_run(name: str, config: Path, overrides: list, launches: tuple[int, int], data: dict, encoder_want: dict, ckpt: Path) -> dict:
+    """The force-field config's module over phase 9's encoder through the Trainer on the card: every
+    step must launch ``launches`` (forward, backward) on the 3xTF32 bodies, unmasked; the encoder
+    equals ``encoder_want`` when loaded and, frozen, after training (fine-tuned, it moves)."""
+    cfg = load_config(str(config), [*FF_MAE, f"ckpt_dir={ckpt}", "trainer.max_epochs=1", *overrides])
+    trainer = instantiate(cfg["trainer"], device="cuda")
+    module = instantiate(cfg["task"])(instantiate(cfg["model"]["encoder"]))
+    loaded = module.model_task.encoder.state_dict()
+    loaded_equal = sorted(loaded) == sorted(encoder_want) and all(torch.equal(loaded[k], v) for k, v in encoder_want.items())
+    loader = DataLoader(ArrayDataset(data), batch_size=FF_BATCH)
+    steps, train_step = [], Trainer.train_step
+    last_end = [time.perf_counter()]
+    Trainer.train_step = counting_train_step(steps, last_end)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        history = trainer.fit(module, loader)
+    finally:
+        Trainer.train_step = train_step
+    peak = torch.cuda.max_memory_allocated()
+    fwd, bwd = launches
+    want, _ = check_steps(f"forcefield {name}", steps, launches, "tf32x3")
+    trained = module.model_task.encoder.state_dict()
+    kept = all(torch.equal(trained[k].cpu(), v) for k, v in encoder_want.items())
+    losses = [h["train_loss"] for h in history]
+    if not loaded_equal or kept != (bwd == 0) or not steps or not finite(losses):
+        fail(f"forcefield {name}: encoder loaded equal {loaded_equal}, equal after training {kept}, {len(steps)} steps, losses {losses}")
+    timed = steps[1:] or steps  # the first step pays cuDNN's algorithm search and allocation
+    step_s = statistics.mean(st["step_s"] for st in timed)
+    out = dict(steps=len(steps), losses=losses, launches={k: LAUNCHES[k] for k in ALL_KERNELS}, launches_per_step=want,
+               encoder_loaded_equal=loaded_equal, encoder_equal_after=kept, step_ms=[st["step_s"] * 1e3 for st in steps],
+               fetch_ms=[st["fetch_s"] * 1e3 for st in steps], steps_per_s=1.0 / step_s, images_per_s=FF_BATCH / step_s, batch=FF_BATCH,
+               max_memory_allocated=peak)
+    print(f"  forcefield {name}: {len(steps)} steps, losses {[round(v, 4) for v in losses]}; step {step_s * 1e3:.2f} ms "
+          f"({out['images_per_s']:.1f} images/s at batch {FF_BATCH}{', first step excluded' if len(steps) > 1 else ''}); loader + copy "
+          f"{statistics.median(out['fetch_ms']):.1f} ms median; {fwd} + {bwd} launches a step on tf32x3; encoder loaded equal, "
+          f"{'unchanged' if kept else 'moved'} after training; peak memory {peak / 2**30:.2f} GiB")
+    return out
+
+
+def demo_bf16() -> dict:
+    """(c) The demo's model (dim 192, depth 6, 3 heads, hooks 1,3,4,5, fusion 64, bf16, 96 x 96) on the
+    card: forward_fields over 30 synthetic frames one at a time, as the demo loop runs them."""
+    args = SimpleNamespace(dim=192, depth=6, heads=3, hooks="1,3,4,5", fusion_ch=64, dtype="bfloat16")
+    module = demo_cli._build_module_structure(args, 96).to("cuda").eval()
+    w = forcefield_data(1, 31, 96, 99)
+    x, xb = (torch.from_numpy(w[k]).cuda().float() / 255.0 for k in ("image", "image_bg"))
+    reset_launches()
+    frame_ms, fields = [], []
+    with torch.no_grad():
+        for i in range(len(x)):
+            t0 = time.perf_counter()
+            disp, shear = module.forward_fields(x[i : i + 1], xb[i : i + 1])
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            fields.append(torch.cat([disp, shear], -1))
+    field = torch.cat(fields)
+    launches = {k: LAUNCHES[k] for k in ALL_KERNELS}
+    want = {KERNEL: 2 * args.depth * len(x), BWD_KERNEL: 0, V1_KERNEL: 0, V1_BWD_KERNEL: 0}
+    if launches != want or dict(FWD_BODY_LAUNCHES) != {"tensor_core": want[KERNEL]}:
+        fail(f"the bf16 demo model launched {launches} on {dict(FWD_BODY_LAUNCHES)}, expected {want} on the tensor cores")
+    if field.shape != (len(x), 96, 96, 3) or not torch.isfinite(field).all():
+        fail(f"the bf16 demo fields: shape {tuple(field.shape)}, finite {bool(torch.isfinite(field).all())}")
+    out = dict(frames=len(x), launches=launches, frame_ms=frame_ms, field_abs_max=field.abs().max().item())
+    print(f"  forcefield (c) bf16 demo model: {len(x)} frames, {launches[KERNEL]} launches on the tensor cores, finite fields (|max| "
+          f"{out['field_abs_max']:.3f}); {statistics.median(frame_ms[1:]):.2f} ms a frame (median, first excluded)")
+    return out
+
+
+def forcefield_phase() -> dict:
+    """Phase 12 (a)-(c): the force-field task at full width."""
+    out = {}
+    t0 = time.perf_counter()
+    e = out["f32_check"] = forcefield_check()
+    e["err_per_tol"] = held(e, e["tol"])
+    own = e["cpu_f32_vs_f64_ssim"]
+    print(f"  forcefield (a): one f32 frozen step at batch {FF_CHECK_BATCH}, card vs CPU ({time.perf_counter() - t0:.1f} s): losses "
+          f"{ {k: round(v, 5) for k, v in e['losses'].items()} }, loss rel err {e['loss_rel']:.3e}, grad err/|grad| {e['grad_rel']:.3e}, "
+          f"param err/lr {e['param_per_lr']:.3e}; the CPU's own f32 error (SSIM in f64) {own['loss_rel']:.3e}, {own['grad_rel']:.3e}, "
+          f"{own['param_per_lr']:.3e}; err/tol {json.dumps({k: round(v, 3) for k, v in e['err_per_tol'].items()})}; "
+          f"{FF_LAUNCHES['frozen']} launches, the encoder unchanged; tol {FF_F32_TOL} + {FF_SELF_FACTOR} x the CPU's own")
+    if any(e[k] > e["tol"][k] for k in FF_F32_TOL):
+        fail("the f32 force-field step on the card disagrees with the CPU")
+    saved = load_checkpoint(MAE_CKPT)["model"]
+    encoder_want = {k[len("encoder."):]: v for k, v in saved.items() if k.startswith("encoder.")}
+    t0 = time.perf_counter()
+    data = forcefield_data(4, 49, 224, 11)  # 192 windows: 3 batches of 64
+    out["data_s"] = time.perf_counter() - t0
+    try:
+        out["frozen"] = forcefield_run("(b) digit_dino, frozen", FORCEFIELD / "digit_dino.yaml", [], FF_LAUNCHES["frozen"], data, encoder_want,
+                                       CKPT_DIR / "forcefield" / "frozen")
+        two = {k: v[: 2 * FF_BATCH] for k, v in data.items()}  # two steps: the first pays cuDNN's algorithm search
+        out["e2e"] = forcefield_run("(b) digit_e2e, fine-tuned", FORCEFIELD / "digit_e2e.yaml", ["task.warmup_epochs=0"], FF_LAUNCHES["e2e"], two,
+                                    encoder_want, CKPT_DIR / "forcefield" / "e2e")
+    finally:
+        shutil.rmtree(CKPT_DIR / "forcefield", ignore_errors=True)
+    out["demo_bf16"] = demo_bf16()
+    return out
+
+
+def vtdino_batch(b: int, seed: int, image=(70, 70, 3), tactile=(70, 70, 3)) -> dict:
+    rng = np.random.default_rng(seed)
+    return {"image": rng.random((b, *image), dtype=np.float32), **{f"tactile{i}": rng.random((b, *tactile), dtype=np.float32) for i in (1, 2)}}
+
+
+def vtdino_run(name: str, module, batches: list, launches: tuple, masked: tuple, body: str) -> dict:
+    """``module`` through the Trainer on the card, one epoch over ``batches``: every step must launch
+    ``launches`` (forward, backward), ``masked`` of them with a key mask, all on ``body``."""
+    steps, train_step = [], Trainer.train_step
+    last_end = [time.perf_counter()]
+    Trainer.train_step = counting_train_step(steps, last_end)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        history = Trainer(max_epochs=1, verbose=0, device="cuda").fit(module, batches)
+    finally:
+        Trainer.train_step = train_step
+    peak = torch.cuda.max_memory_allocated()
+    fwd, bwd = launches
+    want, want_masked = check_steps(f"vtdino {name}", steps, launches, body, masked)
+    losses = [h["train_loss"] for h in history]
+    if len(steps) != len(batches) or not finite(losses) or not module.center.abs().max().item() > 0:
+        fail(f"vtdino {name}: {len(steps)} steps, losses {losses}, |center| max {module.center.abs().max().item()}")
+    b = batches[0]["image"].shape[0]
+    timed = steps[1:] or steps
+    step_s = statistics.mean(st["step_s"] for st in timed)
+    out = dict(steps=len(steps), losses=losses, launches={k: LAUNCHES[k] for k in ALL_KERNELS}, launches_per_step=want,
+               masked_per_step=want_masked, body=body, step_ms=[st["step_s"] * 1e3 for st in steps], steps_per_s=1.0 / step_s,
+               samples_per_s=b / step_s, batch=b, max_memory_allocated=peak)
+    print(f"  vtdino {name}: {len(steps)} steps at batch {b}, losses {[round(v, 4) for v in losses]}; step {step_s * 1e3:.2f} ms "
+          f"({out['samples_per_s']:.1f} samples/s{', first step excluded' if len(steps) > 1 else ''}); {fwd} + {bwd} launches a step on "
+          f"{body}, {masked[0]} + {masked[1]} with a key mask; peak memory {peak / 2**30:.2f} GiB")
+    return out
+
+
+def mm_transformer_check() -> dict:
+    """(e) The multimodal transformer, shared and factored attention, f32 forward and backward on the
+    card against the CPU, with its launches."""
+    out = {}
+    dims, lens = [768, 256, 256], [196, 49, 49]
+    rng = np.random.default_rng(12)
+    xs = [torch.from_numpy(rng.normal(size=(4, n, d)).astype(np.float32)) for d, n in zip(dims, lens)]
+    cot = torch.from_numpy(rng.normal(size=(4, sum(lens), 768)).astype(np.float32))
+    for shared in (True, False):
+        cpu = _seeded(0, lambda: MultimodalTransformer(dims, lens, 768, depth=4, num_heads=12, num_register_tokens=1, shared_attn=shared))
+        card = copy.deepcopy(cpu).to("cuda")
+        reset_launches()
+        got = card([x.cuda() for x in xs])
+        (got * cot.cuda()).sum().backward()
+        torch.cuda.synchronize()
+        launches = {k: LAUNCHES[k] for k in ALL_KERNELS}
+        n = 4 if shared else 12
+        want = {KERNEL: n, BWD_KERNEL: n, V1_KERNEL: 0, V1_BWD_KERNEL: 0}
+        if launches != want or dict(FWD_BODY_LAUNCHES) != {"tf32x3": n} or dict(BWD_BODY_LAUNCHES) != {"tf32x3": n}:
+            fail(f"the multimodal transformer ({'shared' if shared else 'factored'}) launched {launches}, expected {want} on tf32x3")
+        ref = cpu(xs)
+        (ref * cot).sum().backward()
+        out_abs = (got.detach().cpu() - ref.detach()).abs().max().item()
+        grad_rel = max(((a.grad.cpu() - b.grad).norm() / b.grad.norm()).item() for a, b in zip(card.parameters(), cpu.parameters()))
+        e = dict(out_abs=out_abs, grad_rel=grad_rel, launches=launches)
+        e["err_per_tol"] = held(e, MM_F32_TOL)
+        print(f"  vtdino (e) multimodal transformer, {'shared' if shared else 'factored'} attention: {n} + {n} launches; out abs err "
+              f"{out_abs:.3e}, grad err/|grad| {grad_rel:.3e}; err/tol {json.dumps({k: round(v, 3) for k, v in e['err_per_tol'].items()})}; "
+              f"tol {MM_F32_TOL}")
+        if any(e[k] > MM_F32_TOL[k] for k in MM_F32_TOL):
+            fail("the multimodal transformer on the card disagrees with the CPU")
+        out["shared" if shared else "factored"] = e
+    return out
+
+
+def vtdino_phase() -> dict:
+    """Phase 12 (d)-(e): VTDINO on the multimodal VTT, then the multimodal transformer."""
+    out = {}
+    t0 = time.perf_counter()
+    cpu = _seeded(0, lambda: VTDINOModule(MultimodalVTT(), warmup_epochs=0))
+    masks = cpu.sample_masks(torch.Generator().manual_seed(9), VTDINO_CHECK_BATCH)
+    batch = {k: torch.from_numpy(v) for k, v in vtdino_batch(VTDINO_CHECK_BATCH, 10).items()}
+    e = out["f32_check"] = self_distill_errors(cpu, batch, masks, VTDINO_LAUNCHES["f32"][0], "VTDINO")
+    e["err_per_tol"] = held(e, VTDINO_F32_TOL)
+    print(f"  vtdino (d): one f32 step at batch {VTDINO_CHECK_BATCH}, card vs CPU ({time.perf_counter() - t0:.1f} s): loss rel err "
+          f"{e['loss_rel']:.3e}, grad err/|grad| {e['grad_rel']:.3e}, param err/lr {e['param_per_lr']:.3e}, teacher err/lr "
+          f"{e['teacher_per_lr']:.3e}, center abs err {e['center_abs']:.3e}; err/tol {json.dumps({k: round(v, 3) for k, v in e['err_per_tol'].items()})}; "
+          f"tol {VTDINO_F32_TOL}")
+    if any(e[k] > VTDINO_F32_TOL[k] for k in VTDINO_F32_TOL):
+        fail("the f32 VTDINO step on the card disagrees with the CPU")
+    e["tol"] = VTDINO_F32_TOL
+    del cpu
+    (fwd, bwd), masked = VTDINO_LAUNCHES["f32"]
+    module = _seeded(1, lambda: VTDINOModule(MultimodalVTT()))
+    out["f32"] = vtdino_run("(d) f32 defaults", module, [vtdino_batch(VTDINO_BATCH, 20 + i) for i in range(3)], (fwd, bwd), masked, "tf32x3")
+    del module
+    torch.cuda.empty_cache()
+    # scripts/vtdino_experiment.py's recipe: 64 x 64 images and 32 x 32 tactile maps at frame stack 2
+    # (what vt_load gives it), dim 128, depth 4, 4 heads x 64, the probe, bf16, batch 256
+    recipe = _seeded(2, lambda: VTDINOModule(
+        MultimodalVTT(image_size=(64, 64), tactile_size=(32, 32), image_patch_size=8, tactile_patch_size=4, dim=128, depth=4, heads=4,
+                      mlp_dim=256, num_tactiles=2, frame_stack=2, num_register_tokens=1, dtype=torch.bfloat16),
+        dino_out_dim=4096, dino_hidden_dim=1024, dino_bottleneck_dim=128, num_global_masks=1, num_local_masks=4,
+        moving_average_decay=(0.99, 0.999), teacher_warmup_epochs=2, warmup_epochs=2, base_lr=5e-4, with_reconstruction_probe=True,
+        dtype=torch.bfloat16))
+    launches, masked = VTDINO_LAUNCHES["bf16"]
+    batches = [vtdino_batch(VTDINO_BF16_BATCH, 30 + i, (64, 64, 6), (32, 32, 6)) for i in range(2)]
+    out["bf16"] = vtdino_run("(d) bf16 recipe", recipe, batches, launches, masked, "tensor_core")
+    del recipe
+    torch.cuda.empty_cache()
+    out["multimodal_transformer"] = mm_transformer_check()
+    return out
 
 
 def main() -> int:
@@ -1671,6 +2095,11 @@ def main() -> int:
         print("[11] V-JEPA pretraining, then the downstream probes over phase 9's encoder")
         vjepa = vjepa_phase()
         probes = evaluate_phase()
+
+        print("[12] the f32 numerics of the CLIs, the force-field task over phase 9's encoder, VTDINO, the multimodal transformer")
+        numerics = numerics_phase()
+        forcefield = forcefield_phase()
+        vtdino = vtdino_phase()
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)  # MAE_CKPT and whatever a failed phase left
 
@@ -1683,7 +2112,12 @@ def main() -> int:
                     **{f"ssl_{run}": ssl[run]["launches"][name] for run in ("cli", "resume", "bf16", "he", "full_image")},
                     **{f"distill_{run}": distill[run]["launches"][name] for run in ("dino", "dino_resume", "dinov2", "ijepa")},
                     **{f"vjepa_{run}": vjepa[run]["launches"][name] for run in ("cli", "resume")},
-                    **{f"evaluate_{run}": probes[run]["launches"][name] for run in ("force", "slip", "e2e")})
+                    **{f"evaluate_{run}": probes[run]["launches"][name] for run in ("force", "slip", "e2e")},
+                    forcefield_check=forcefield["f32_check"]["launches"].get(name, 0),
+                    **{f"forcefield_{run}": forcefield[run]["launches"][name] for run in ("frozen", "e2e", "demo_bf16")},
+                    vtdino_check=vtdino["f32_check"]["launches"].get(name, 0),
+                    **{f"vtdino_{run}": vtdino[run]["launches"][name] for run in ("f32", "bf16")},
+                    **{f"multimodal_transformer_{run}": vtdino["multimodal_transformer"][run]["launches"][name] for run in ("shared", "factored")})
 
     def ssl_shapes(kind):
         """The packed kernel of this direction at the SSL slices' shapes and the training shape, f32
@@ -1740,6 +2174,9 @@ def main() -> int:
     print(json.dumps({"ssl_distill": distill}))
     print(json.dumps({"ssl_vjepa": vjepa}))
     print(json.dumps({"evaluate": probes}))
+    print(json.dumps({"numerics": numerics}))
+    print(json.dumps({"forcefield": forcefield}))
+    print(json.dumps({"vtdino": vtdino}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

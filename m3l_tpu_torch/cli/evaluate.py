@@ -10,7 +10,7 @@ Usage:
 
 Without ``--data`` it trains on ``--synthetic N`` random frames with random labels (smoke runs).
 ``--device`` picks where the encoder, the probe and the Trainer run (default: the card; ``cpu``
-only when asked).
+only when asked). An f32 encoder trains and evaluates with TF32 off (``utils.device.f32_numerics``).
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ import json
 import numpy as np
 
 from ..utils.config import instantiate, load_config
+from ..utils.device import f32_numerics
 
 _EVALUATORS = {
     "force": "TestForceSL",
@@ -63,6 +64,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     cfg = load_config(args.config, args.overrides)
+    f32_numerics(cfg["model"]["encoder"].get("compute_dtype", "float32"))
     trainer = instantiate(cfg["trainer"], device=args.device)
     encoder = instantiate(cfg["model"]["encoder"])
     task_cfg = cfg.get("task", {})

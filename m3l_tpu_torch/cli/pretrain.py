@@ -5,7 +5,8 @@ Usage:
         model_size=small trainer.max_epochs=10 data.paths='[buf.pkl]'
 
 ``--synthetic N`` trains on N random frames when ``data.paths`` is empty (smoke runs).
-``--device`` picks where the model trains (default: the card; ``cpu`` only when asked).
+``--device`` picks where the model trains (default: the card; ``cpu`` only when asked). An f32
+encoder trains with TF32 off (``utils.device.f32_numerics``).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import argparse
 import numpy as np
 
 from ..utils.config import instantiate, load_config
+from ..utils.device import f32_numerics
 
 
 def build_dataloaders(cfg: dict, synthetic: int = 0):
@@ -66,6 +68,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     cfg = load_config(args.config, args.overrides)
+    f32_numerics(cfg["model"]["encoder"].get("compute_dtype", "float32"))
     trainer = instantiate(cfg["trainer"], device=args.device)
     encoder = instantiate(cfg["model"]["encoder"])
     algorithm = instantiate(cfg["model"]["algorithm"])(encoder)

@@ -2,7 +2,7 @@
 same flags and one more: ``--device`` (default ``cuda``; the JAX package picks its backend
 instead). Multi-device training (``--mesh_devices``, ``--mesh_mp`` other than 1) is not ported
 yet and raises, as does ``--device cuda`` without a card; both are checked before any env or
-model is built.
+model is built. ``--compute_dtype float32`` trains with TF32 off (``utils.device.f32_numerics``).
 
 Example (tiny smoke run on the CPU, no MuJoCo assets needed):
     python -m m3l_tpu_torch.cli.train --env FakeInsertion --n_envs 2 \\
@@ -20,7 +20,7 @@ from ..envs import make_env, make_vec_env
 from ..models import VTMAE, VTT, VTTConfig
 from ..rl import PPOMAE, ActorCritic, MAEFeatures
 from ..train.checkpoint import step_checkpoints
-from ..utils.device import resolve_device
+from ..utils.device import f32_numerics, resolve_device
 
 
 def str2bool(v: str) -> bool:
@@ -167,6 +167,7 @@ def resume(model: PPOMAE, resume_from: str, tensorboard_dir: str | None) -> bool
 def main(argv: list[str] | None = None) -> PPOMAE:
     config = build_parser().parse_args(argv)
     check_config(config)
+    f32_numerics(config.compute_dtype)
     np.random.seed(config.seed)
     env_fns = [
         make_env(config.env, i, config.seed, config.state_type, frame_stack=config.frame_stack, allow_fake=config.allow_fake)

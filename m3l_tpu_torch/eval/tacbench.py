@@ -79,6 +79,28 @@ class TestTaskSL:
     def format_target(self, key: str, value) -> dict:
         return {key: _fmt_vec(value)}
 
+    def make_video(self, loader, path: str, max_frames: int = 100, fps: int = 10) -> str:
+        """An annotated prediction video over the evaluation set: each input frame captioned with
+        the probe's whole per-task prediction and the ground truth (host side: cv2)."""
+        from ..utils.video import annotate_frame, write_video
+
+        frames = []
+        for batch in loader:
+            pred = self.predict(batch)
+            imgs = np.asarray(batch["image"])[..., :3]  # the first 3 channels
+            for j in range(imgs.shape[0]):
+                if len(frames) >= max_frames:
+                    break
+                pj = {k: v[j] for k, v in pred.items()} if isinstance(pred, dict) else pred[j]
+                info = self.format_prediction(pj)
+                for k, v in batch.items():
+                    if k not in self.batch_keys and np.ndim(v[j]) <= 1:
+                        info.update(self.format_target(k, np.asarray(v[j])))
+                frames.append(annotate_frame(len(frames), imgs[j], 0.0, info))
+            if len(frames) >= max_frames:
+                break
+        return write_video(frames, path, fps=fps)
+
     def evaluate(self, loader) -> dict:
         return self.get_overall_metrics(self.run_model(loader))
 

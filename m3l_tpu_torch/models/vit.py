@@ -37,26 +37,34 @@ def _keys_cubic(x: np.ndarray) -> np.ndarray:
     return np.where(x >= 2.0, 0.0, out)
 
 
-def resize_weights(in_size: int, out_size: int) -> np.ndarray:
-    """(in_size, out_size) weights of ``jax.image.resize(..., "bicubic")`` along one axis: half-pixel
+def _triangle(x: np.ndarray) -> np.ndarray:
+    """The triangle kernel (``jax.image.resize``'s "linear") of a distance ``x`` >= 0."""
+    return np.maximum(0.0, 1.0 - x)
+
+
+RESIZE_KERNELS = {"bilinear": _triangle, "bicubic": _keys_cubic}
+
+
+def resize_weights(in_size: int, out_size: int, method: str = "bicubic") -> np.ndarray:
+    """(in_size, out_size) weights of ``jax.image.resize(..., method)`` along one axis: half-pixel
     sample centres, the kernel widened by in/out when shrinking (antialiasing), each column
     normalised to sum 1, and columns sampled outside the input zeroed."""
     inv_scale = in_size / out_size
     kernel_scale = max(inv_scale, 1.0)
     sample = (np.arange(out_size, dtype=np.float64) + 0.5) * inv_scale - 0.5
-    w = _keys_cubic(np.abs(sample[None, :] - np.arange(in_size, dtype=np.float64)[:, None]) / kernel_scale)
+    w = RESIZE_KERNELS[method](np.abs(sample[None, :] - np.arange(in_size, dtype=np.float64)[:, None]) / kernel_scale)
     total = w.sum(axis=0, keepdims=True)
     w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps), w / np.where(total != 0, total, 1.0), 0.0)
     inside = (sample >= -0.5) & (sample <= in_size - 0.5)
     return np.where(inside[None, :], w, 0.0)
 
 
-def bicubic_resize(x: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
-    """``jax.image.resize(x, shape, "bicubic")`` (antialiased) for f32 ``x``: one weight matrix
-    per axis whose size changes."""
+def resize(x: torch.Tensor, shape: tuple[int, ...], method: str) -> torch.Tensor:
+    """``jax.image.resize(x, shape, method)`` (antialiased) for a floating ``x``: one weight matrix
+    per axis whose size changes, in ``x``'s dtype."""
     for d, (m, n) in enumerate(zip(x.shape, shape)):
         if m != n:
-            w = torch.from_numpy(resize_weights(m, n).astype(np.float32)).to(x.device)
+            w = torch.from_numpy(resize_weights(m, n, method).astype(np.float32)).to(x.device, x.dtype)
             x = torch.movedim(torch.tensordot(x, w, dims=([d], [0])), -1, d)
     return x
 
@@ -147,7 +155,7 @@ class VisionTransformer(nn.Module):
         if self.pos_embed_fn == "sinusoidal":
             return torch.from_numpy(sincos_nd(grid, self.embed_dim)).to(self.norm.weight.device)
         base = self.pos_embed[0].reshape(*self.patch_embed.grid, self.embed_dim).float()
-        return bicubic_resize(base, (*grid, self.embed_dim)).reshape(-1, self.embed_dim)
+        return resize(base, (*grid, self.embed_dim), "bicubic").reshape(-1, self.embed_dim)
 
     def _registers(self, tokens: torch.Tensor, key_mask: Optional[torch.Tensor]):
         """Prepend the register tokens (and True keys for them) where the model has any."""

@@ -18,10 +18,13 @@ also timed alone by CUDA events; one ``Trainer.train_step`` of the V-JEPA of
 ``config/experiment/vjepa_vit.yaml`` (two 224 x 224 x 3 frames at tubelet 2, 49 context and 147
 target tokens; f32, batch 64) and of the frozen force probe of
 ``config/experiment/downstream_task/force/digit_mae.yaml`` (the ViT-small forward without autograd,
-the attentive probe trained; f32, batch 64). For each: the host time per call untraced and traced, the device
+the attentive probe trained; f32, batch 64), and of the frozen force-field module of
+``config/experiment/downstream_task/forcefield/digit_dino.yaml`` (two ViT-small passes without
+autograd, the DPT decoder at fusion 128 up to 112 x 112 and the pose ResNet-18 trained; f32, batch
+64 of synthetic DIGIT windows, uint8). For each: the host time per call untraced and traced, the device
 time per call summed over the kernels and copies the profiler saw, the device's idle share of
-the untraced call (1 - device / host), the device time by kind of kernel (``KINDS``: GEMMs, the
-attention bodies, softmaxes, the optimizer's and the EMA's foreach kernels, LayerNorm, copies,
+the untraced call (1 - device / host), the device time by kind of kernel (``KINDS``: the
+attention bodies, cuDNN's convolutions (forward, data and weight gradients), GEMMs, softmaxes, the optimizer's and the EMA's foreach kernels, LayerNorm, copies,
 the rest), and the top kernels by device time. Weights and inputs are random from seed 0; timing does not depend on them. The
 profiled calls follow one warm-up call. Prints one JSON line per profile.
 """
@@ -41,6 +44,7 @@ from .rl import PPOMAE
 from .serve import PolicyServer, build_policy, random_obs
 from .train import Trainer
 from .utils.config import instantiate, load_config
+from .utils.device import f32_numerics
 
 FRAME_STACK = 4
 ACTION_DIM = 3
@@ -55,6 +59,7 @@ SSL_BATCH = 64
 # kinds of device kernel, by a substring of the lower-cased name (the first kind that matches)
 KINDS = (
     ("attention", ("fwd_tf32_kernel", "bwd_tf32_kernel", "fwd_mma_kernel", "bwd_mma_kernel")),
+    ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit")),
     ("gemm", ("gemm", "cutlass", "xmma", "cublas")),
     ("softmax", ("softmax",)),
     ("foreach (optimizer, EMA)", ("multi_tensor", "foreach")),
@@ -213,8 +218,19 @@ def profile_probe(rng: np.random.Generator) -> dict:
     return profile_step(module, {k: torch.from_numpy(v).cuda() for k, v in batch.items()}, f"frozen force probe step batch {SSL_BATCH}")
 
 
+def profile_forcefield(rng: np.random.Generator) -> dict:
+    from .data import forcefield_windows, synth_digit_trajectories
+
+    cfg = load_config(str(EXPERIMENTS / "downstream_task" / "forcefield" / "digit_dino.yaml"))
+    module = instantiate(cfg["task"])(instantiate(cfg["model"]["encoder"])).to("cuda")
+    w = forcefield_windows(synth_digit_trajectories(1, SSL_BATCH + 1, size=module.model_task.img_size[0], seed=int(rng.integers(1 << 30))))
+    batch = {k: torch.from_numpy(w[k]).cuda() for k in ("image", "image_bg", "mask", "force")}
+    return profile_step(module, batch, f"frozen force-field step batch {SSL_BATCH}")
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    f32_numerics("float32")  # the f32 paths as the CLIs run them: no TF32 in cuDNN or cuBLAS
     torch.manual_seed(0)
     server = PolicyServer(build_policy(dtype=torch.bfloat16, device="cuda"))
     rng = np.random.default_rng(0)
@@ -222,7 +238,7 @@ def main() -> None:
     results = [profile_serving(server, batch, rng) for batch in BATCHES] + [profile_training(rng)]
     results += [profile_ssl(rng, ov) for ov in ((), ("model.algorithm.decode_masked_only=false",))]
     results.append(profile_dino(rng))
-    results += [profile_vjepa(rng), profile_probe(rng)]
+    results += [profile_vjepa(rng), profile_probe(rng), profile_forcefield(rng)]
     for r in results:
         print(f"{r['path']}: host {r['host_ms_per_call']:.3f} ms/call ({r['traced_host_ms_per_call']:.3f} traced), device "
               f"{r['device_ms_per_call']:.3f} ms/call, idle share {r['device_idle_share']:.3f}, {r['device_ops_per_call']:.0f} device ops/call")

@@ -17,3 +17,4 @@ from .dino import DINOModule  # noqa: F401
 from .dinov2 import DINOv2Module  # noqa: F401
 from .ijepa import IJEPAModule  # noqa: F401
 from .vjepa import VJEPAModule  # noqa: F401
+from .vtdino import VTDINOModule  # noqa: F401

@@ -157,8 +157,9 @@ class DINOModule(SSLModule):
         return head(out["x_norm_regtokens"][:, 0])
 
     def forward_loss(self, x: torch.Tensor, global_masks: torch.Tensor, local_masks: torch.Tensor, teacher_temp):
-        """(loss, teacher logits (Mg*B, K)) for images ``x`` (B, H, W, C) under the given masks."""
-        b = x.shape[0]
+        """(loss, teacher logits (Mg*B, K)) for the inputs ``x`` (images (B, H, W, C), or the
+        multimodal dict) under the given masks (M, B, N)."""
+        b = global_masks.shape[1]
         student_global = self._cls_after_head(self.student_backbone, self.student_head, x, global_masks)
         student_local = self._cls_after_head(self.student_backbone, self.student_head, x, local_masks)
         student_views = list(student_global.reshape(self.num_global_masks, b, -1)) + list(

@@ -2,8 +2,7 @@
 ``m3l_tpu/train/builders.py``): plain scalars and a seed in, the port's modules out.
 
 Each builder draws its initial weights from its own ``seed`` (torch's global generator is left as
-it was). The builder of what is not ported yet (the force-field task, ``build_forcefield_module``)
-is absent, so its config target fails to import.
+it was). Every ``_target_`` under ``config/`` names one of them.
 """
 from __future__ import annotations
 
@@ -138,6 +137,28 @@ def build_task_module(
         train_encoder=train_encoder,
         **kwargs,
     )
+
+
+def build_forcefield_module(
+    encoder,
+    *,
+    geometric: bool = True,
+    hooks: Sequence[int] = (2, 5, 8, 11),
+    fusion_ch: int = 128,
+    seed: int = 2,
+    **kwargs,
+):
+    """The force-field task over the ViT's intermediate layers: the DPT decoder (weights from
+    ``seed``) in a GeometricForceFieldModule (pose estimation and depth reprojection, the pose
+    network from ``seed + 1``), or in the flow-only ForceFieldModule when not ``geometric``. Hooks
+    past a shallow encoder's depth are dropped (its last block when none is left)."""
+    from ..tasks import ForceFieldDecoder, ForceFieldModule, GeometricForceFieldModule
+
+    hooks = [h for h in hooks if h < len(encoder.blocks)] or [len(encoder.blocks) - 1]
+    dec = _seeded(seed, lambda: ForceFieldDecoder(encoder, hooks=hooks, fusion_ch=fusion_ch))
+    if geometric:
+        return _seeded(seed + 1, lambda: GeometricForceFieldModule(dec, **kwargs))
+    return ForceFieldModule(dec, **kwargs)
 
 
 def build_trainer(**kwargs):

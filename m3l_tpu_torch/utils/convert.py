@@ -9,6 +9,8 @@ the last component is converted by the kind of that submodule:
 * ``Conv2d``: ``kernel`` HWIO -> ``weight`` OIHW; ``bias`` as is;
 * ``Conv3d``: ``kernel`` (T, H, W, I, O) -> ``weight`` (O, I, T, H, W); ``bias`` as is;
 * ``LayerNorm``: ``scale`` -> ``weight``, ``bias`` -> ``bias``;
+* ``BatchNorm2d``: ``scale`` -> ``weight``, ``bias`` -> ``bias``, and the ``nnx.BatchStat``
+  ``mean`` -> ``running_mean``, ``var`` -> ``running_var``;
 * ``Embedding``: ``embedding`` -> ``weight``;
 * any other leaf (``log_std``, ``mask_token``, ``pos_embedding``, ``register_tokens``, a
   LayerScale's ``gamma``, a DINOHead's ``last_v`` / ``last_g``, an attentive pooler's
@@ -34,6 +36,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..nn.layers import BatchNorm2d
+
 
 def _target(module: nn.Module, leaf: str) -> tuple[str, Callable[[np.ndarray], np.ndarray]]:
     """(torch parameter name on ``module``, numpy conversion) for a JAX leaf name."""
@@ -46,6 +50,8 @@ def _target(module: nn.Module, leaf: str) -> tuple[str, Callable[[np.ndarray], n
         return {"kernel": ("weight", lambda a: a.transpose(4, 3, 0, 1, 2)), "bias": ("bias", same)}[leaf]
     if isinstance(module, nn.LayerNorm):
         return {"scale": ("weight", same), "bias": ("bias", same)}[leaf]
+    if isinstance(module, BatchNorm2d):
+        return {"scale": ("weight", same), "bias": ("bias", same), "mean": ("running_mean", same), "var": ("running_var", same)}[leaf]
     if isinstance(module, nn.Embedding):
         return {"embedding": ("weight", same)}[leaf]
     if isinstance(getattr(module, leaf, None), nn.Parameter) or (leaf in module._buffers and leaf not in module._non_persistent_buffers_set):

@@ -565,3 +565,161 @@ def test_f32_probe_step_matches_the_cpu(card, train_encoder):
         assert (a - g).norm() <= 1e-5 * g.norm(), name
         implied = lr * (a / (a.abs() + eps) - g / (g.abs() + eps)).abs()
         assert ((sa[name] - sb[name]).abs() - implied).max() <= 1e-2 * lr, name
+
+
+def _step_on(m, dev, batch, generator=None):
+    """One optimizer step of the SSL module ``m`` on ``dev``: (loss, launches, trainable gradients,
+    the state after AdamW, the optimizer)."""
+    opt = m.configure_optimizer(2, 2)
+    start = Counter(LAUNCHES)
+    loss, _ = m.training_loss({k: v.to(dev) for k, v in batch.items()}, generator, 0)
+    loss.backward()
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu().clone() for n, p in m.trainable_parameters().items()}
+    opt.step()
+    launched = {k: LAUNCHES[k] - start[k] for k in (KERNEL, BWD_KERNEL)}
+    return loss.item(), launched, grads, {n: v.detach().cpu() for n, v in m.state_dict().items()}, opt
+
+
+def _assert_step_close(card_step, cpu_step, loss_rel, grad_rel):
+    (la, _, ga, sa, opt), (lb, _, gb, sb, _) = card_step, cpu_step
+    assert abs(la - lb) <= loss_rel * abs(lb)
+    lr, eps = opt.learning_rate(0), 1e-8
+    for name, g in gb.items():
+        a = ga[name]
+        assert (a - g).norm() <= grad_rel * g.norm() + 1e-12, name
+        implied = lr * (a / (a.abs() + eps) - g / (g.abs() + eps)).abs()
+        assert ((sa[name] - sb[name]).abs() - implied).max() <= 1e-2 * lr, name
+
+
+def test_ssim_and_its_gradient_match_the_cpu(card):
+    """The force-field SSIM map and its gradient on the card against the CPU, in f64 so that only
+    the arithmetic's order can differ (1e-10). ``F.avg_pool2d``'s backward on the card, on the
+    channels-last view of NHWC images, gave gradients 30% of their norm away from the CPU's; the
+    window mean is a sum of shifted slices."""
+    from m3l_tpu_torch.tasks.forcefield import ssim
+
+    gen = torch.Generator().manual_seed(0)
+    a = torch.rand(2, 24, 20, 3, generator=gen, dtype=torch.float64)
+    b = (a + 0.05 * torch.rand(2, 24, 20, 3, generator=gen, dtype=torch.float64)).clamp(0, 1)
+    grads = []
+    for dev in (card, torch.device("cpu")):
+        x = a.to(dev).requires_grad_()
+        out = ssim(x, b.to(dev))
+        out.pow(2).sum().backward()
+        grads.append((out.detach().cpu(), x.grad.cpu()))
+    (out_card, g_card), (out_cpu, g_cpu) = grads
+    assert (out_card - out_cpu).abs().max() <= 1e-10
+    assert (g_card - g_cpu).norm() <= 1e-10 * g_cpu.norm()
+
+
+def _step_errors(a, b):
+    """(loss error relative to the loss, the largest gradient error relative to its norm, the largest
+    parameter error after AdamW relative to lr beyond the implied Adam step difference) of step
+    ``a`` against step ``b``."""
+    (la, _, ga, sa, opt), (lb, _, gb, sb, _) = a, b
+    lr, eps = opt.learning_rate(0), 1e-8
+    grad_rel = param = 0.0
+    for name, g in gb.items():
+        x = ga[name]
+        if g.norm() > 0:
+            grad_rel = max(grad_rel, ((x - g).norm() / g.norm()).item())
+        implied = lr * (x / (x.abs() + eps) - g / (g.abs() + eps)).abs()
+        param = max(param, ((sa[name] - sb[name]).abs() - implied).max().item() / lr)
+    return abs(la - lb) / abs(lb), grad_rel, param
+
+
+@pytest.mark.parametrize("train_encoder", [False, True], ids=["frozen", "finetuned"])
+def test_f32_forcefield_step_matches_the_cpu(card, train_encoder):
+    """One f32 GeometricForceFieldModule step (ViT at dim 64, depth 2, 64 x 64 x 6, patch 8; fusion
+    16; the pose ResNet-18) on synthetic gel windows, on the card against the CPU, cuDNN's TF32 off.
+    The reprojection's SSIM (E[x^2] - E[x]^2 over smooth frames) carries ~1e-3 f32 rounding on any
+    device, and the pose and disparity gradients reach the loss through it, so each bound (loss
+    1e-5, gradients 1e-4 of their norm, parameters 1e-2 * lr beyond the implied Adam step) adds four
+    times the CPU's own f32 error: its step against the same step with the SSIM in f64, as
+    chip_smoke.py phase 12 (a) bounds it. Frozen, 2 x depth forward launches and no backward."""
+    from m3l_tpu_torch.data import forcefield_windows, synth_digit_trajectories
+    from m3l_tpu_torch.models.vit import VisionTransformer
+    from m3l_tpu_torch.tasks import forcefield_geometry
+    from m3l_tpu_torch.train.builders import build_forcefield_module
+    from m3l_tpu_torch.utils.device import f32_numerics
+
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    f32_numerics("float32")
+    try:
+        torch.manual_seed(0)
+        vit = VisionTransformer(img_size=(64, 64), patch_size=8, in_chans=6, embed_dim=64, depth=2, num_heads=2, pos_embed_fn="sinusoidal")
+        cpu = build_forcefield_module(vit, hooks=(0, 1), fusion_ch=16, train_encoder=train_encoder, warmup_epochs=0,
+                                      with_sl_supervision=True, with_mask_supervision=True)
+        gpu, exact = copy.deepcopy(cpu).to(card), copy.deepcopy(cpu)
+        w = forcefield_windows(synth_digit_trajectories(1, 5, size=64, seed=1))
+        batch = {k: torch.from_numpy(w[k][:4]) for k in ("image", "image_bg", "mask", "force")}
+        before = {k: v.clone() for k, v in gpu.model_task.encoder.state_dict().items()}
+        card_step = _step_on(gpu, card, batch)
+        cpu_step = _step_on(cpu, torch.device("cpu"), batch)
+        f32_ssim = forcefield_geometry.ssim
+        forcefield_geometry.ssim = lambda a, b: f32_ssim(a.double(), b.double()).to(a.dtype)
+        try:
+            exact_step = _step_on(exact, torch.device("cpu"), batch)
+        finally:
+            forcefield_geometry.ssim = f32_ssim
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    assert card_step[1] == {KERNEL: 4, BWD_KERNEL: 4 if train_encoder else 0}
+    assert all(torch.equal(v, before[k]) for k, v in gpu.model_task.encoder.state_dict().items()) != train_encoder
+    errs, own = _step_errors(card_step, cpu_step), _step_errors(exact_step, cpu_step)
+    for err, base, self_err in zip(errs, (1e-5, 1e-4, 1e-2), own):
+        assert err <= base + 4 * self_err, (errs, own)
+
+
+def test_f32_vtdino_step_matches_the_cpu(card):
+    """One f32 VTDINO step (the multimodal VTT at dim 64, depth 2, 28 x 28 at patch 14, the probe) on
+    the card against the CPU under the same masks: the loss at 1e-5, gradients at 1e-5 of their
+    norm; 4 x depth + 2 forward and 2 x depth + 2 backward launches."""
+    from m3l_tpu_torch.models import MultimodalVTT
+    from m3l_tpu_torch.ssl import VTDINOModule
+
+    torch.manual_seed(0)
+    cpu = VTDINOModule(MultimodalVTT(image_size=(28, 28), tactile_size=(28, 28), dim=64, depth=2, heads=2, mlp_dim=128),
+                       dino_out_dim=256, dino_hidden_dim=64, dino_bottleneck_dim=32, with_reconstruction_probe=True, warmup_epochs=0)
+    masks = cpu.sample_masks(torch.Generator().manual_seed(2), 4)
+    gpu = copy.deepcopy(cpu).to(card)
+    for m, dev in ((gpu, card), (cpu, torch.device("cpu"))):
+        m.sample_masks = lambda generator, batch, dev=dev: tuple(x.to(dev) for x in masks)
+    gen = torch.Generator().manual_seed(3)
+    batch = {k: torch.rand(4, 28, 28, 3, generator=gen) for k in ("image", "tactile1", "tactile2")}
+    card_step = _step_on(gpu, card, batch)
+    cpu_step = _step_on(cpu, torch.device("cpu"), batch)
+    assert card_step[1] == {KERNEL: 10, BWD_KERNEL: 6}
+    _assert_step_close(card_step, cpu_step, 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "factored"])
+def test_f32_multimodal_transformer_matches_the_cpu(card, shared):
+    """The multimodal transformer forward and backward on the card against the CPU: outputs at 1e-5
+    absolute, each gradient at 1e-5 of its norm plus 1e-5 of the largest gradient's norm (the
+    register token's gradient is ~1e-4 of the others'); one forward and one backward launch a block.
+    The register tokens start at zero, where the first LayerNorm's input has no variance and its
+    backward divides by sqrt(eps) = 1e-3, magnifying f32 rounding a thousandfold on any device (on
+    the H100 their gradient's error fell from 4e-4 to 7e-7 when drawn at random): the test draws
+    them at random first."""
+    from m3l_tpu_torch.models import MultimodalTransformer
+
+    torch.manual_seed(0)
+    cpu = MultimodalTransformer([48, 32], [64, 32], 128, depth=2, num_heads=2, num_register_tokens=1, shared_attn=shared)
+    with torch.no_grad():
+        cpu.register_tokens.normal_()
+    gpu = copy.deepcopy(cpu).to(card)
+    gen = torch.Generator().manual_seed(1)
+    xs = [torch.randn(4, 64, 48, generator=gen), torch.randn(4, 32, 32, generator=gen)]
+    start = Counter(LAUNCHES)
+    out = gpu([x.to(card) for x in xs])
+    out.square().sum().backward()
+    launched = {k: LAUNCHES[k] - start[k] for k in (KERNEL, BWD_KERNEL)}
+    ref = cpu(xs)
+    ref.square().sum().backward()
+    n = 2 if shared else 4
+    assert launched == {KERNEL: n, BWD_KERNEL: n}
+    assert (out.cpu() - ref).abs().max() <= 1e-5
+    scale = max(b.grad.norm() for b in cpu.parameters())
+    for (name, a), b in zip(gpu.named_parameters(), cpu.parameters()):
+        assert (a.grad.cpu() - b.grad).norm() <= 1e-5 * (b.grad.norm() + scale), name

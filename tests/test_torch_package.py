@@ -71,6 +71,39 @@ def test_importing_the_probe_path_loads_no_jax_and_no_matplotlib():
     assert proc.returncode == 0, proc.stderr
 
 
+HOST_ONLY = ("cv2", "matplotlib", "PIL")  # imported inside the functions that draw or encode video
+
+
+@pytest.mark.parametrize("path", _modules(), ids=lambda p: str(p.relative_to(PKG)))
+def test_module_imports_no_cv2_or_matplotlib_at_import_time(path):
+    """Neither the H100 machine's package list nor a headless host is sure to have them."""
+    bad = sorted(set(_module_level_roots(path)) & set(HOST_ONLY))
+    assert not bad, f"{path.relative_to(PKG)} imports {bad} at import time"
+
+
+def test_importing_the_forcefield_and_vtdino_slice_loads_no_jax_cv2_or_matplotlib():
+    code = (
+        "import sys\n"
+        "import m3l_tpu_torch.models.baselines, m3l_tpu_torch.models.multimodal_vtt, m3l_tpu_torch.models.multimodal_transformer\n"
+        "import m3l_tpu_torch.tasks.forcefield, m3l_tpu_torch.tasks.forcefield_geometry, m3l_tpu_torch.ssl.vtdino\n"
+        "import m3l_tpu_torch.data.synthetic, m3l_tpu_torch.utils.video, m3l_tpu_torch.cli.demo_forcefield, m3l_tpu_torch.train.builders\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in {'jax', 'jaxlib', 'flax', 'optax', 'gymnasium', 'cv2', 'matplotlib', 'PIL'}"
+        " or m.split('.')[0] == 'm3l_tpu')\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_the_demo_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default resolves to it")
+    from m3l_tpu_torch.cli import demo_forcefield
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        demo_forcefield.main(["--source", "synthetic", "--frames", "1"])
+
+
 def test_importing_every_module_loads_no_jax():
     names = [
         ".".join(p.relative_to(PKG.parent).with_suffix("").parts).removesuffix(".__init__") for p in _modules()

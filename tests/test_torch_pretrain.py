@@ -7,6 +7,7 @@ heads 32 wide). The Trainer epochs run the JAX Trainer's masking draws (its key 
 same seed) through MAEModule.sample_noise and DINOModule.sample_masks. f32 with the patch conv on
 the path: rtol 2e-4.
 """
+import importlib
 import pathlib
 import subprocess
 import sys
@@ -99,10 +100,39 @@ def test_vjepa_targets_build_the_port_and_import_no_jax_package():
     assert proc.returncode == 0, proc.stderr
 
 
-def test_unported_targets_fail_to_import():
-    cfg = load_config(str(ROOT / "config" / "task" / "digit_forcefield.yaml"), ENCODER)
-    with pytest.raises(AttributeError, match="build_forcefield_module"):
-        instantiate(cfg["task"])
+def _config_targets() -> list[tuple[str, str, str]]:
+    """(file, dotted key, target) of every ``_target_`` in the config tree."""
+    import yaml
+
+    found = []
+
+    def walk(node, path, key):
+        if isinstance(node, dict):
+            if "_target_" in node:
+                found.append((path, key or "<root>", node["_target_"]))
+            for k, v in node.items():
+                walk(v, path, f"{key}.{k}" if key else str(k))
+
+    for path in sorted((ROOT / "config").rglob("*.yaml")):
+        walk(yaml.safe_load(path.read_text()), path.relative_to(ROOT).as_posix(), "")
+    return found
+
+
+CONFIG_TARGETS = _config_targets()
+
+
+@pytest.mark.parametrize("path,key,target", CONFIG_TARGETS, ids=[f"{p}:{k}" for p, k, _ in CONFIG_TARGETS])
+def test_every_config_target_resolves_in_the_port(path, key, target):
+    """Every builder the config tree names exists in the port, under the same path in
+    m3l_tpu_torch."""
+    module, _, name = target_path(target).rpartition(".")
+    assert module.startswith("m3l_tpu_torch."), target
+    assert callable(getattr(importlib.import_module(module), name)), f"{path} {key}: {target}"
+
+
+def test_the_config_tree_has_targets_of_every_kind():
+    assert len(CONFIG_TARGETS) == 17
+    assert {t.rpartition(".")[2] for _, _, t in CONFIG_TARGETS} >= {"build_vit", "build_trainer", "build_task_module", "build_forcefield_module"}
 
 
 @pytest.mark.parametrize("out_format,remove_background", [("concat_ch_img", True), ("single_image", False), ("video", False)])

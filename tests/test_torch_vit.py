@@ -124,7 +124,7 @@ def test_patch_embeds():
 def test_bicubic_resize_equals_jax_up_and_down(shape):
     base = images((5, 5, shape[-1]), seed=12)
     ref = jax.image.resize(jnp.asarray(base), shape, method="bicubic")
-    close(tvit.bicubic_resize(t(base), shape), ref)
+    close(tvit.resize(t(base), shape, "bicubic"), ref)
 
 
 @pytest.mark.parametrize("size", [48, 24])
