@@ -631,15 +631,16 @@ def _step_errors(a, b):
 @pytest.mark.parametrize("train_encoder", [False, True], ids=["frozen", "finetuned"])
 def test_f32_forcefield_step_matches_the_cpu(card, train_encoder):
     """One f32 GeometricForceFieldModule step (ViT at dim 64, depth 2, 64 x 64 x 6, patch 8; fusion
-    16; the pose ResNet-18) on synthetic gel windows, on the card against the CPU, cuDNN's TF32 off.
-    The reprojection's SSIM (E[x^2] - E[x]^2 over smooth frames) carries ~1e-3 f32 rounding on any
-    device, and the pose and disparity gradients reach the loss through it, so each bound (loss
-    1e-5, gradients 1e-4 of their norm, parameters 1e-2 * lr beyond the implied Adam step) adds four
-    times the CPU's own f32 error: its step against the same step with the SSIM in f64, as
-    chip_smoke.py phase 12 (a) bounds it. Frozen, 2 x depth forward launches and no backward."""
+    16; the pose ResNet-18) on synthetic gel windows, on the card against the CPU, cuDNN's TF32 off:
+    the loss at 2e-5 relative, gradients at 2e-4 of their norm, parameters at 1e-2 * lr beyond the
+    implied Adam step. On the H100 these seeds gave 1.802e-6, 1.655e-5 and 1.185e-3, frozen and
+    fine-tuned alike; the bounds are ~10x that. The reprojection's SSIM (E[x^2] - E[x]^2 over smooth
+    frames) is ill-conditioned in f32 on any device, and the pose and disparity gradients reach the
+    loss through it: the CPU's own f32 step lies 1.3e-4 of the gradients' norm from the
+    same step with its SSIM in f64, below the gradient bound. Frozen, 2 x depth forward launches and
+    no backward."""
     from m3l_tpu_torch.data import forcefield_windows, synth_digit_trajectories
     from m3l_tpu_torch.models.vit import VisionTransformer
-    from m3l_tpu_torch.tasks import forcefield_geometry
     from m3l_tpu_torch.train.builders import build_forcefield_module
     from m3l_tpu_torch.utils.device import f32_numerics
 
@@ -650,25 +651,19 @@ def test_f32_forcefield_step_matches_the_cpu(card, train_encoder):
         vit = VisionTransformer(img_size=(64, 64), patch_size=8, in_chans=6, embed_dim=64, depth=2, num_heads=2, pos_embed_fn="sinusoidal")
         cpu = build_forcefield_module(vit, hooks=(0, 1), fusion_ch=16, train_encoder=train_encoder, warmup_epochs=0,
                                       with_sl_supervision=True, with_mask_supervision=True)
-        gpu, exact = copy.deepcopy(cpu).to(card), copy.deepcopy(cpu)
+        gpu = copy.deepcopy(cpu).to(card)
         w = forcefield_windows(synth_digit_trajectories(1, 5, size=64, seed=1))
         batch = {k: torch.from_numpy(w[k][:4]) for k in ("image", "image_bg", "mask", "force")}
         before = {k: v.clone() for k, v in gpu.model_task.encoder.state_dict().items()}
         card_step = _step_on(gpu, card, batch)
         cpu_step = _step_on(cpu, torch.device("cpu"), batch)
-        f32_ssim = forcefield_geometry.ssim
-        forcefield_geometry.ssim = lambda a, b: f32_ssim(a.double(), b.double()).to(a.dtype)
-        try:
-            exact_step = _step_on(exact, torch.device("cpu"), batch)
-        finally:
-            forcefield_geometry.ssim = f32_ssim
     finally:
         torch.backends.cudnn.allow_tf32 = cudnn_tf32
     assert card_step[1] == {KERNEL: 4, BWD_KERNEL: 4 if train_encoder else 0}
     assert all(torch.equal(v, before[k]) for k, v in gpu.model_task.encoder.state_dict().items()) != train_encoder
-    errs, own = _step_errors(card_step, cpu_step), _step_errors(exact_step, cpu_step)
-    for err, base, self_err in zip(errs, (1e-5, 1e-4, 1e-2), own):
-        assert err <= base + 4 * self_err, (errs, own)
+    errs = _step_errors(card_step, cpu_step)
+    for err, bound in zip(errs, (2e-5, 2e-4, 1e-2)):
+        assert err <= bound, errs
 
 
 def test_f32_vtdino_step_matches_the_cpu(card):
@@ -696,12 +691,13 @@ def test_f32_vtdino_step_matches_the_cpu(card):
 @pytest.mark.parametrize("shared", [True, False], ids=["shared", "factored"])
 def test_f32_multimodal_transformer_matches_the_cpu(card, shared):
     """The multimodal transformer forward and backward on the card against the CPU: outputs at 1e-5
-    absolute, each gradient at 1e-5 of its norm plus 1e-5 of the largest gradient's norm (the
-    register token's gradient is ~1e-4 of the others'); one forward and one backward launch a block.
-    The register tokens start at zero, where the first LayerNorm's input has no variance and its
-    backward divides by sqrt(eps) = 1e-3, magnifying f32 rounding a thousandfold on any device (on
-    the H100 their gradient's error fell from 4e-4 to 7e-7 when drawn at random): the test draws
-    them at random first."""
+    absolute, each gradient at 1e-5 of its norm; one forward and one backward launch a block. The
+    register tokens start at zero, where the first LayerNorm's input has no variance and its
+    backward divides by sqrt(eps) = 1e-3, magnifying f32 rounding a thousandfold on any device: the
+    test draws them at random first. The backward takes a cotangent drawn from the seed, as
+    chip_smoke.py phase 12 (e) does: under the loss sum(out^2) the register token's gradient, which
+    reaches the loss only through attention, is a sum of cancelling terms ~1e-4 of the others' size,
+    and f32 rounding alone put it 1.2e-2 of its norm from the CPU's on the H100."""
     from m3l_tpu_torch.models import MultimodalTransformer
 
     torch.manual_seed(0)
@@ -711,15 +707,15 @@ def test_f32_multimodal_transformer_matches_the_cpu(card, shared):
     gpu = copy.deepcopy(cpu).to(card)
     gen = torch.Generator().manual_seed(1)
     xs = [torch.randn(4, 64, 48, generator=gen), torch.randn(4, 32, 32, generator=gen)]
+    cot = torch.randn(4, 96, 128, generator=gen)
     start = Counter(LAUNCHES)
     out = gpu([x.to(card) for x in xs])
-    out.square().sum().backward()
+    (out * cot.to(card)).sum().backward()
     launched = {k: LAUNCHES[k] - start[k] for k in (KERNEL, BWD_KERNEL)}
     ref = cpu(xs)
-    ref.square().sum().backward()
+    (ref * cot).sum().backward()
     n = 2 if shared else 4
     assert launched == {KERNEL: n, BWD_KERNEL: n}
     assert (out.cpu() - ref).abs().max() <= 1e-5
-    scale = max(b.grad.norm() for b in cpu.parameters())
     for (name, a), b in zip(gpu.named_parameters(), cpu.parameters()):
-        assert (a.grad.cpu() - b.grad).norm() <= 1e-5 * (b.grad.norm() + scale), name
+        assert (a.grad.cpu() - b.grad).norm() <= 1e-5 * b.grad.norm(), name

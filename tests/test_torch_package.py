@@ -40,6 +40,13 @@ def test_module_imports_no_jax_and_nothing_of_m3l_tpu(path):
     assert not bad, f"{path.relative_to(PKG)} imports {bad}"
 
 
+@pytest.mark.parametrize("script", ["chip_smoke.py", "chip_numerics.py"])
+def test_chip_script_imports_no_jax_and_nothing_of_m3l_tpu(script):
+    """The scripts run on the H100 machine, which has no JAX, import only torch and the port."""
+    bad = sorted(set(_imported_roots(PKG.parent / script)) & set(FORBIDDEN))
+    assert not bad, f"{script} imports {bad}"
+
+
 def _probe_path():
     return [p for p in _modules() if p.relative_to(PKG).parts[0] in ("tasks", "eval") or p.relative_to(PKG).as_posix() == "cli/evaluate.py"]
 
