@@ -125,9 +125,23 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    match the same step with the attention's plain version (VTDINO_BF16_TOL); (e) the multimodal
    transformer (ViT-base width, 4 blocks, shared and factored attention) forward and backward on
    the card against the CPU (MM_F32_TOL) at its launches.
+13. the PPO feature variants and the RL side's evaluation, at full width: (a) one f32 minibatch
+   update of each variant's CLI model (``cli.traindino``: PPO over the frozen ViT-S/14 with 4
+   registers on 70 x 70 crops, dim 384; ``cli.train_dino_cat_mae`` and ``cli.train_dino_tac_mae``:
+   the 70 x 70 VTT at patch 14 and dim 384, mask 0.8, fused with the frozen DINO feature of the
+   middle frame; ``cli.train_cnn``: the CNN-variant MAE at the flagship's widths; the DINO from
+   ``--dinov2_weights``, a seeded state dict with LayerScales of a trained model's size) on the card
+   against the same weights, batch and mask on the CPU at minibatch 64 (VARIANT_F32_TOL), all on the
+   tf32x3 bodies; (b) each CLI's ``main`` at its defaults (bf16) on FakeInsertion for 2 iterations (cut:
+   the rollout, 1024 of 32768 samples; the epochs, 2 of 10; train_cnn's envs, 8 of 1, for speed):
+   every rollout and train() at its exact launches (VARIANT_LAUNCHES), the frozen DINO bit-equal
+   through learn on the card, update ms and env-steps/s printed; (c) f32 ``VTMAE.reconstruct`` on
+   the card against the CPU (the training CLI's early-conv MAE and the fusion CLI's patch MAE, 7
+   forward launches each, RECON_F32_TOL) and one ``EvalCallback`` episode of traindino's model
+   (13 forward launches a step; a video where cv2 is installed).
 
 Phase 3 also holds both packed kernels to their plain versions at the shapes of the SSL, probe,
-force-field, VTDINO and multimodal paths (SSL_SHAPES, f32 and bf16, with and without a random key
+force-field, VTDINO, multimodal and PPO-variant paths (SSL_SHAPES, f32 and bf16, with and without a random key
 mask) and times them there and at the training shape (512, 192, 4, 64); on each side of each body's
 whole-head limit (LENGTH_CASES, B=2, H=4, with and without a key mask: a longer head streams in
 tiles, with the bits it would have staged whole), timing bf16 and f32 at B=2, N=784, Dh=64 (3b);
@@ -140,11 +154,11 @@ keys. It prints err/tol for each case.
 Each phase after the kernel checks runs with the launch counts set to 0 just before it and read
 just after; phases 4-8 also fail unless every bf16 forward launch, and in phases 5-8 every bf16
 backward launch, took the tensor-core body; phases 9-11 hold every launch to its dtype's body
-and count the launches with a key mask (``MASKED_LAUNCHES``); so do phase 12's.
+and count the launches with a key mask (``MASKED_LAUNCHES``); so do phases 12 and 13.
 The last lines are a {"kernels": [...]} JSON line, {"slice": ...}, {"train": ...},
 {"bench_attention": ...}, {"cli": ...}, {"sac": ...}, {"ssl": ...}, {"ssl_distill": ...},
-{"ssl_vjepa": ...}, {"evaluate": ...}, {"forcefield": ...} and {"vtdino": ...} JSON
-lines, the card line as nvidia-smi prints it, and
+{"ssl_vjepa": ...}, {"evaluate": ...}, {"forcefield": ...}, {"vtdino": ...} and {"variants": ...}
+JSON lines, the card line as nvidia-smi prints it, and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -193,9 +207,11 @@ from m3l_tpu_torch.nn.flash_attention import (
     flash_attention_reference,
     flash_attention_tolerance,
 )
-from m3l_tpu_torch.profile_paths import random_minibatch
-from m3l_tpu_torch.models import VTMAE, VTT, MultimodalTransformer, MultimodalVTT, VTTConfig
+from m3l_tpu_torch.profile_paths import VARIANTS, random_minibatch, variant_masks, variant_model
+from m3l_tpu_torch.models import VTMAE, VTT, MultimodalTransformer, MultimodalVTT, VTTConfig, dinov2_vits14
 from m3l_tpu_torch.rl import PPOMAE, SACMAE, MAEFeatures, SACActorCritic
+from m3l_tpu_torch.rl import DinoCatMAEFeatures, FrozenEncoderFeatures
+from m3l_tpu_torch.rl.callbacks import EvalCallback
 from m3l_tpu_torch.serve import PolicyServer, build_policy, random_obs
 from m3l_tpu_torch.ssl import MAEModule, VTDINOModule, sample_block_masks, sample_block_masks_constrained
 from m3l_tpu_torch.ssl.ijepa import cut_context
@@ -203,6 +219,7 @@ from m3l_tpu_torch.eval import TestTaskSL
 from m3l_tpu_torch.train import Trainer, load_checkpoint
 from m3l_tpu_torch.train.builders import _seeded, build_task_module
 from m3l_tpu_torch.utils.config import instantiate, load_config
+from m3l_tpu_torch.utils.obs import vt_load
 
 # H100 SXM data sheet: HBM rate and dense peak rates per compute type. f32 runs in 3xTF32 (three
 # TF32 tensor-core products for each f32 one), so its least time is 3 x FLOP over the 495 TFLOP/s
@@ -249,10 +266,15 @@ TRAIN_TIMED_UPDATES = 5
 # view at batch 64, the four local views at once) and at its bf16 recipe (1 + 3 x 64 at batch 256
 # and 1024, 4 heads) with the recipe's probe decoder (64 tokens, 8 heads of 32); the multimodal
 # transformer's factored blocks (1 register + 196 image or 49 tactile tokens) and its shared ones
-# (1 + 196 + 2 x 49), 12 heads, batch 4
+# (1 + 196 + 2 x 49), 12 heads, batch 4. Then phase 13's: the frozen ViT-S/14 on 1 CLS + 4 registers
+# + 25 patches of a 70 x 70 crop, 3 crops a sample, at minibatch 512 and at a 64-env policy step;
+# the post transformer over those 3 crop features; the fusion VTT on 75 tokens (70 x 70 image and
+# two tactile maps at patch 14), its MAE encoder on the 15 kept at mask 0.8, and the tactile-only
+# MAE's decoder on 50 (its encoder's 10 kept are the training shape's N = 10)
 SSL_SHAPES = [(64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32), (64, 197, 6, 64), (64, 392, 12, 32), (64, 196, 12, 32),
               (4, 197, 6, 64), (1, 37, 3, 64), (64, 76, 6, 64), (256, 76, 6, 64), (256, 193, 4, 64), (1024, 193, 4, 64),
-              (256, 64, 8, 32), (4, 197, 12, 64), (4, 50, 12, 64), (4, 295, 12, 64)]
+              (256, 64, 8, 32), (4, 197, 12, 64), (4, 50, 12, 64), (4, 295, 12, 64),
+              (1536, 30, 6, 64), (192, 30, 6, 64), (512, 3, 4, 64), (512, 75, 4, 64), (512, 15, 4, 64), (512, 50, 4, 64)]
 # the same kernels under the key masks the self-distillation paths give them (distill_mask): DINO's
 # global view and its four local views at once, the I-JEPA predictor's context, and VTDINO's global
 # and local views at its defaults and at its bf16 recipe
@@ -610,21 +632,28 @@ def train_env() -> SyncVecEnv:
 
 
 def update_once(model: PPOMAE, mb: dict, mask) -> tuple[dict, torch.Tensor]:
-    """One minibatch update on the whole of ``mb``; returns its metrics and the flat pre-clip
-    gradient."""
+    """One minibatch update on the whole of ``mb`` (``mask`` None without MAE updates); returns its
+    metrics and the flat pre-clip gradient."""
     n = mb["advantages"].shape[0]
     idx = torch.arange(n, device=model.device)
-    mask = type(mask)(*(t.to(model.device) for t in mask))
+    mask = None if mask is None else type(mask)(*(t.to(model.device) for t in mask))
     metrics = model.minibatch_update(mb["data"], idx, mb["advantages"], mb["returns"], mask)
     return {k: float(v) for k, v in metrics.items()}, model.optimizer.flat_grad()
 
 
+def model_minibatch(model: PPOMAE, rng: np.random.Generator, batch: int) -> dict:
+    """A random minibatch of ``batch`` samples shaped as ``model``'s envs observe."""
+    space = model.env.observation_space
+    return random_minibatch(rng, batch, model.device, model.frame_stack, space["image"].shape[1], space["tactile"].shape[-1])
+
+
 def update_errors(a: PPOMAE, b: PPOMAE, batch: int, seed: int = 0) -> dict:
-    """One minibatch update of ``a`` and ``b`` (same weights, same batch and mask): the largest
-    loss difference relative to the loss, the gradient difference relative to the gradient's
-    norm, and the largest parameter difference after the step relative to the learning rate."""
-    mask = b.policy.features.mae.sample_mask(torch.Generator().manual_seed(seed), batch)
-    results = [update_once(m, random_minibatch(np.random.default_rng(seed), batch, m.device), mask) for m in (a, b)]
+    """One minibatch update of ``a`` and ``b`` (same weights, same batch and mask, over the
+    modalities the features' MAE sees; none without MAE updates): the largest loss difference
+    relative to the loss, the gradient difference relative to the gradient's norm, and the largest
+    parameter difference after the step relative to the learning rate."""
+    mask = variant_masks(b, 1, seed)[0]
+    results = [update_once(m, model_minibatch(m, np.random.default_rng(seed), batch), mask) for m in (a, b)]
     (ma, ga), (mb_, gb) = results
     loss_rel = max(abs(ma[k] - mb_[k]) / max(abs(mb_[k]), 1e-30) for k in ma)
     grad_rel = ((ga.cpu() - gb.cpu()).norm() / gb.cpu().norm()).item()
@@ -1980,6 +2009,245 @@ def vtdino_phase() -> dict:
     return out
 
 
+VARIANT_CLIS = ("traindino", "train_dino_cat_mae", "train_dino_tac_mae", "train_cnn")
+# Packed launches of each variant at its CLI's defaults: ((forward, backward) a minibatch update,
+# forward a policy step). traindino: the frozen ViT-S/14 (12 layers, forward only, on B x 3 crops of
+# 1 CLS + 4 registers + 25 patches) and the post transformer over the 3 crop features (1 + 1). The
+# fusion variants: the VTT encoder (4) on the 75 tokens (tactile-only: 50) and the post (1) for the
+# policy, the frozen DINO (12) on the middle frame, the MAE encoder (4) on the 15 (10) kept tokens
+# and the decoder (3) on 75 (50); the backward skips the DINO. The CNN variant: the flagship's
+# 12 + 12 through the shared pipeline, but a policy step runs the post transformer alone over the
+# raw conv tokens. train() adds one policy step's forwards for the last values.
+VARIANT_LAUNCHES = {"traindino": ((13, 1), 13), "train_dino_cat_mae": ((24, 12), 17), "train_dino_tac_mae": ((24, 12), 17),
+                    "train_cnn": ((12, 12), 1)}
+VARIANT_CHECK_BATCH = 64
+# One f32 minibatch update of each variant's CLI model at full width, card vs CPU (TF32 off), the
+# same weights (the DINO from seeded_dinov2_weights), batch and mask: each loss relative to its
+# magnitude, the flat pre-clip gradient relative to its norm, the updated parameters relative to
+# the learning rate (as TRAIN_F32_TOL). About 10x the values these seeds gave on the H100, the same
+# in two runs (loss 1.120e-7, 1.136e-7, 1.120e-7, 1.120e-7; gradients 7.208e-7, 2.171e-7, 2.064e-7,
+# 1.583e-7; parameters 1.192e-3 lr, one ulp of a parameter near 1, for the three DINO variants and
+# 1.490e-4 lr for the CNN variant): the same f32 arithmetic in another summation order.
+# tests/test_torch_dino_variants.py shows that one key dropped from every attention layer exceeds
+# all three.
+VARIANT_F32_TOL = {
+    "traindino": dict(loss_rel=1.2e-6, grad_rel=7.5e-6, param_per_lr=1.2e-2),
+    "train_dino_cat_mae": dict(loss_rel=1.2e-6, grad_rel=2.2e-6, param_per_lr=1.2e-2),
+    "train_dino_tac_mae": dict(loss_rel=1.2e-6, grad_rel=2.1e-6, param_per_lr=1.2e-2),
+    "train_cnn": dict(loss_rel=1.2e-6, grad_rel=1.6e-6, param_per_lr=1.5e-3),
+}
+# The CLIs' runs on the card: 2 iterations of a 1024-sample rollout (of the defaults' 32768) and
+# 2 epochs (of 10) of minibatch 512; train_cnn with 8 envs (its default is 1), for speed. Every
+# other flag is the CLI's default: bf16, frame stack (1 for traindino, 4 otherwise), widths,
+# depths, the envs (64 for traindino, 8 for the fusion variants) in process workers.
+VARIANT_ROLLOUT, VARIANT_EPOCHS, VARIANT_TIMED_UPDATES = 1024, 2, 5
+# f32 reconstructions card vs CPU (TF32 off), absolute over the finite entries (pixels in [0, 1],
+# losses ~0.6): about 10x the largest errors these seeds gave on the H100 (1.431e-6 early conv,
+# 1.788e-6 patches).
+RECON_F32_TOL = 2e-5
+EVAL_MAX_STEPS = 100
+
+
+def seeded_dinov2_weights(path: Path, seed: int = 0) -> str:
+    """Writes a torch-hub-layout ViT-S/14 state dict for 70 x 70 crops to ``path``: the seeded init
+    with every LayerScale drawn in [0.1, 0.6] (a trained DINOv2's are of that size; at the 1e-5 init
+    the blocks are near the identity and the frozen features barely depend on attention)."""
+    g = torch.Generator().manual_seed(seed)
+    torch.manual_seed(seed)
+    sd = dinov2_vits14(img_size=(70, 70)).state_dict()
+    for k in sd:
+        if k.endswith(("ls1.gamma", "ls2.gamma")):
+            sd[k] = 0.1 + 0.5 * torch.rand(sd[k].shape, generator=g)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"model": sd}, path)
+    return str(path)
+
+
+def frozen_encoder(model: PPOMAE):
+    """The variant's frozen DINO encoder, or None."""
+    features = model.policy.features
+    if isinstance(features, DinoCatMAEFeatures):
+        return features.dino_encoder
+    return features.encoder if isinstance(features, FrozenEncoderFeatures) else None
+
+
+def variant_check(name: str, weights: str) -> dict:
+    """Phase 13 (a): one f32 minibatch update of the variant's CLI model at full width, card vs CPU,
+    at minibatch VARIANT_CHECK_BATCH, the frozen DINO from ``weights`` (``--dinov2_weights``); every
+    launch on the 3xTF32 bodies."""
+    t0 = time.perf_counter()
+    argv = () if name == "train_cnn" else ("--dinov2_weights", weights)
+    gpu = variant_model(name, "cuda", "float32", VARIANT_CHECK_BATCH, argv)
+    cpu = variant_model(name, "cpu", "float32", VARIANT_CHECK_BATCH, argv)
+    reset_launches()
+    errs = update_errors(gpu, cpu, VARIANT_CHECK_BATCH)
+    torch.cuda.synchronize()
+    launches = {k: LAUNCHES[k] for k in ALL_KERNELS if LAUNCHES[k]}
+    (fwd, bwd), _ = VARIANT_LAUNCHES[name]
+    bodies = {"fwd": dict(FWD_BODY_LAUNCHES), "bwd": dict(BWD_BODY_LAUNCHES)}
+    tol = VARIANT_F32_TOL[name]
+    print(f"  {name}: one f32 update at minibatch {VARIANT_CHECK_BATCH}, card vs CPU ({time.perf_counter() - t0:.1f} s): loss rel err "
+          f"{errs['loss_rel']:.3e}, grad err/|grad| {errs['grad_rel']:.3e} (|grad| {errs['grad_norm']:.3e}), param err/lr "
+          f"{errs['param_per_lr']:.3e}; tol {tol}; launches {launches}")
+    if launches != {KERNEL: fwd, BWD_KERNEL: bwd} or bodies != {"fwd": {"tf32x3": fwd}, "bwd": {"tf32x3": bwd}}:
+        fail(f"{name}: the f32 update launched {launches} by body {bodies}, expected {fwd} + {bwd} on tf32x3")
+    if any(errs[k] > tol[k] for k in tol):
+        fail(f"{name}: the f32 minibatch update on the card disagrees with the CPU")
+    return dict(errs, tol=tol, minibatch=VARIANT_CHECK_BATCH, launches=launches)
+
+
+def variant_cli(name: str) -> tuple[PPOMAE, dict]:
+    """Phase 13 (b): ``cli.<name>.main`` on the card at its defaults (cut: VARIANT_ROLLOUT,
+    VARIANT_EPOCHS, train_cnn's env count) for 2 iterations; every rollout and train() held to
+    VARIANT_LAUNCHES on the tensor-core bodies, the frozen DINO bit-equal through learn."""
+    import importlib
+
+    cli = importlib.import_module(f"m3l_tpu_torch.cli.{name}")
+    argv = ["--env", "FakeInsertion", "--rollout_length", str(VARIANT_ROLLOUT), "--ppo_epochs", str(VARIANT_EPOCHS),
+            "--total_timesteps", str(2 * VARIANT_ROLLOUT), "--seed", "0"] + (["--n_envs", "8"] if name == "train_cnn" else [])
+    (fwd, bwd), step = VARIANT_LAUNCHES[name]
+    per_collect, per_train, entries = [], [], []
+    collect, train, learn = PPOMAE.collect_rollouts, PPOMAE.train, PPOMAE.learn
+
+    def counted(fn, record):
+        def wrapped(self):
+            start = Counter(LAUNCHES)
+            out = fn(self)
+            torch.cuda.synchronize()
+            record.append({k: LAUNCHES[k] - start[k] for k in ALL_KERNELS})
+            return out
+        return wrapped
+
+    def recorded_learn(self, *args, **kwargs):
+        frozen = frozen_encoder(self)
+        entries.append(dict(params=[p.detach().clone() for p in self.policy.parameters()],
+                            frozen=None if frozen is None else [p.detach().clone() for p in frozen.parameters()]))
+        return learn(self, *args, **kwargs)
+
+    PPOMAE.collect_rollouts, PPOMAE.train, PPOMAE.learn = counted(collect, per_collect), counted(train, per_train), recorded_learn
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        model = cli.main(argv)
+        seconds = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    finally:
+        PPOMAE.collect_rollouts, PPOMAE.train, PPOMAE.learn = collect, train, learn
+    updates = model.n_epochs * model.n_minibatches
+    want_collect = {KERNEL: step * model.n_steps, BWD_KERNEL: 0, V1_KERNEL: 0, V1_BWD_KERNEL: 0}
+    want_train = {KERNEL: fwd * updates + step, BWD_KERNEL: bwd * updates, V1_KERNEL: 0, V1_BWD_KERNEL: 0}
+    if len(per_collect) != 2 or len(per_train) != 2 or any(c != want_collect for c in per_collect) or any(c != want_train for c in per_train):
+        fail(f"{name}: rollouts launched {per_collect} (expected 2 of {want_collect}), train() {per_train} (expected 2 of {want_train})")
+    bodies = tensor_core_only(f"cli {name}")
+    m = model.last_metrics
+    moved = max((p.detach() - b).abs().max().item() for p, b in zip(model.policy.parameters(), entries[0]["params"]))
+    finite = all(np.isfinite(m[k]) for k in m if k != "explained_variance") and all(torch.isfinite(p).all() for p in model.policy.parameters())
+    if model.iteration != 2 or not finite or not moved > 0 or (m["mae_loss"] == 0) != (name == "traindino"):
+        fail(f"{name}: {model.iteration} iterations, metrics {m}, max parameter move {moved}")
+    frozen = frozen_encoder(model)
+    frozen_equal = frozen is None or all(torch.equal(p, b) for p, b in zip(frozen.parameters(), entries[0]["frozen"]))
+    if not frozen_equal or (frozen is not None and not all(p.device.type == "cuda" for p in frozen.parameters())):
+        fail(f"{name}: the frozen DINO moved through learn, or left the card")
+
+    # milliseconds per minibatch update (bf16, minibatch 512), synchronised, after one warm-up update
+    mb = model_minibatch(model, np.random.default_rng(3), model.batch_size)
+    idx = torch.arange(model.batch_size, device=model.device)
+    masks = variant_masks(model, VARIANT_TIMED_UPDATES + 1, seed=3)
+    model.minibatch_update(mb["data"], idx, mb["advantages"], mb["returns"], masks[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for mask in masks[1:]:
+        model.minibatch_update(mb["data"], idx, mb["advantages"], mb["returns"], mask)
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - t0) / VARIANT_TIMED_UPDATES * 1e3
+    its = [dict(collect_s=t["collect"], train_s=t["train"]) for t in model.iteration_seconds]
+    samples = model.n_steps * model.n_envs
+    steps_per_s = samples / its[-1]["collect_s"]
+    print(f"  {name}: " + "; ".join(f"collect {i['collect_s']:.2f} s, train {i['train_s']:.2f} s" for i in its)
+          + f"; main() {seconds:.1f} s; {model.n_envs} envs, {steps_per_s:.1f} env-steps/s collecting (2nd iteration); "
+          f"update {update_ms:.3f} ms at minibatch {model.batch_size}; launches per rollout {per_collect[0]}, per train() {per_train[0]}; "
+          + ("frozen DINO bit-equal through learn" if frozen is not None else "no frozen encoder"))
+    return model, dict(iterations=its, main_s=seconds, n_envs=model.n_envs, updates_per_train=updates, launches_per_rollout=per_collect,
+                       launches_per_train=per_train, launches={k: sum(c[k] for c in per_collect + per_train) for k in ALL_KERNELS},
+                       bodies=bodies, last_metrics=m, max_param_move=moved, frozen_bit_equal=frozen is not None,
+                       update_ms=update_ms, update_obs_frames_per_s=model.batch_size * model.frame_stack / update_ms * 1e3,
+                       rollout_env_steps_per_s=steps_per_s)
+
+
+def reconstruct_check(label: str, mae: VTMAE, frame_stack: int, image: int, tactile: int) -> dict:
+    """Phase 13 (c): f32 ``VTMAE.reconstruct`` at batch 8 on the card against the CPU, the same
+    weights and mask at ``reconstruct_counts``: 4 encoder + 3 decoder forward launches."""
+    rng = np.random.default_rng(6)
+    x = vt_load({k: torch.from_numpy(v) for k, v in random_obs(rng, 8, frame_stack, image, tactile).items()}, frame_stack=frame_stack)
+    mask = mae.sample_mask(torch.Generator().manual_seed(6), 8, masked=mae.reconstruct_counts())
+    twin = copy.deepcopy(mae).cuda()
+    reset_launches()
+    with torch.no_grad():
+        got = twin.reconstruct({k: v.cuda() for k, v in x.items()}, type(mask)(*(t.cuda() for t in mask)))
+        torch.cuda.synchronize()
+        launches = {k: LAUNCHES[k] for k in ALL_KERNELS if LAUNCHES[k]}
+        want = mae.reconstruct(x, mask)
+    err = 0.0
+    for k, w in want.items():
+        g = got[k].cpu()
+        if g.shape != w.shape or not torch.equal(g.isinf(), w.isinf()) or not torch.isfinite(g[~g.isinf()]).all():
+            fail(f"reconstruct ({label}): {k} malformed on the card: {tuple(g.shape)} against {tuple(w.shape)}")
+        fin = ~w.isinf()
+        err = max(err, (g[fin] - w[fin]).abs().max().item())
+    print(f"  reconstruct ({label}): f32 card vs CPU max abs err {err:.3e} (tol {RECON_F32_TOL}); launches {launches}; "
+          f"losses {float(got['recon_loss_image']):.4f} / {float(got['recon_loss_tactile']):.4f}")
+    if err > RECON_F32_TOL or launches != {KERNEL: 7}:
+        fail(f"reconstruct ({label}): error {err} or launches {launches} (expected 7 forward)")
+    return dict(max_abs_err=err, tol=RECON_F32_TOL, launches=launches, keys=sorted(want))
+
+
+def eval_episode(model: PPOMAE, name: str) -> dict:
+    """Phase 13 (c): one EvalCallback episode of ``model`` on a fresh FakeInsertion env (at most
+    EVAL_MAX_STEPS steps), every step held to the variant's forward launches; a video where cv2
+    is installed."""
+    try:
+        import cv2  # noqa: F401
+        video_dir = str(CKPT_DIR / "videos")
+    except ImportError:
+        video_dir = None
+    image, tactile = VARIANTS[name]
+    cb = EvalCallback(make_env("FakeInsertion", 0, seed=1, frame_stack=model.frame_stack, image_size=image, tactile_size=tactile),
+                      eval_every=1, max_steps=EVAL_MAX_STEPS, video_dir=video_dir)
+    reset_launches()
+    t0 = time.perf_counter()
+    cb(model)
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    (result,) = cb.history
+    steps = result["eval/ep_length"]
+    launches = {k: LAUNCHES[k] for k in ALL_KERNELS if LAUNCHES[k]}
+    want = {KERNEL: VARIANT_LAUNCHES[name][1] * steps}
+    ok = np.isfinite(result["eval/ep_reward"]) and (steps == EVAL_MAX_STEPS or result["eval/success"] == 1.0)
+    print(f"  EvalCallback ({name}): {steps} steps in {seconds:.2f} s, reward {result['eval/ep_reward']:.3f}, success "
+          f"{result['eval/success']}, video {result.get('eval/video', 'not written (no cv2)')}; launches {launches}")
+    if not ok or launches != want:
+        fail(f"EvalCallback ({name}): {result}, launches {launches}, expected {want}")
+    return dict(result, seconds=seconds, launches=launches)
+
+
+def variants_phase() -> dict:
+    """Phase 13: the PPO feature variants through their CLIs, then the RL side's evaluation."""
+    out = {"f32_check": {}}
+    weights = seeded_dinov2_weights(CKPT_DIR / "dinov2_vits14_seeded.pth")
+    for name in VARIANT_CLIS:
+        out["f32_check"][name] = variant_check(name, weights)
+    models = {}
+    for name in VARIANT_CLIS:
+        models[name], out[name] = variant_cli(name)
+    torch.manual_seed(5)
+    flagship = build_policy(dtype=torch.float32, device="cpu").features.mae
+    out["reconstruct_early_conv"] = reconstruct_check("the training CLI's MAE, early conv", flagship, FRAME_STACK, 64, 32)
+    cat = variant_model("train_dino_cat_mae", "cpu", "float32", 8).policy.features.mae
+    out["reconstruct_patch"] = reconstruct_check("the fusion CLI's MAE, 70 x 70 patches", cat, cat.config.frame_stack, 70, 70)
+    out["eval_callback"] = eval_episode(models["traindino"], "traindino")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2073,6 +2341,9 @@ def main() -> int:
         print("[12] the force-field task over phase 9's encoder, VTDINO, the multimodal transformer")
         forcefield = forcefield_phase()
         vtdino = vtdino_phase()
+
+        print("[13] the PPO feature variants through their CLIs, then the RL side's evaluation and reconstruction")
+        variants = variants_phase()
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)  # MAE_CKPT and whatever a failed phase left
 
@@ -2090,7 +2361,10 @@ def main() -> int:
                     **{f"forcefield_{run}": forcefield[run]["launches"][name] for run in ("frozen", "e2e", "demo_bf16")},
                     vtdino_check=vtdino["f32_check"]["launches"].get(name, 0),
                     **{f"vtdino_{run}": vtdino[run]["launches"][name] for run in ("f32", "bf16")},
-                    **{f"multimodal_transformer_{run}": vtdino["multimodal_transformer"][run]["launches"][name] for run in ("shared", "factored")})
+                    **{f"multimodal_transformer_{run}": vtdino["multimodal_transformer"][run]["launches"][name] for run in ("shared", "factored")},
+                    variants_check=sum(c["launches"].get(name, 0) for c in variants["f32_check"].values()),
+                    **{f"variant_{cli}": variants[cli]["launches"][name] for cli in VARIANT_CLIS},
+                    **{run: variants[run]["launches"].get(name, 0) for run in ("reconstruct_early_conv", "reconstruct_patch", "eval_callback")})
 
     def ssl_shapes(kind):
         """The packed kernel of this direction at the SSL slices' shapes and the training shape, f32
@@ -2149,6 +2423,7 @@ def main() -> int:
     print(json.dumps({"evaluate": probes}))
     print(json.dumps({"forcefield": forcefield}))
     print(json.dumps({"vtdino": vtdino}))
+    print(json.dumps({"variants": variants}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

@@ -164,6 +164,28 @@ def resume(model: PPOMAE, resume_from: str, tensorboard_dir: str | None) -> bool
     return False
 
 
+def learn_from_config(config, build, image_size: int = 64, tactile_size: int = 32) -> PPOMAE:
+    """The variant CLIs' run (``cli/traindino.py``, ``train_dino_cat_mae.py``, ``train_cnn.py``): the
+    flags checked, the numerics set, ``config.n_envs`` envs at these sizes, ``build(config, env)``'s
+    model learning ``config.total_timesteps``, the envs closed. No callbacks and no resume, as in
+    their JAX counterparts. Returns the model."""
+    check_config(config)
+    f32_numerics(config.compute_dtype)
+    np.random.seed(config.seed)
+    env_fns = [
+        make_env(config.env, i, config.seed, config.state_type, frame_stack=config.frame_stack, image_size=image_size,
+                 tactile_size=tactile_size, allow_fake=config.allow_fake)
+        for i in range(config.n_envs)
+    ]
+    env = make_vec_env(env_fns, subproc=config.subproc)
+    try:
+        model = build(config, env)
+        model.learn(total_timesteps=config.total_timesteps)
+    finally:
+        env.close()
+    return model
+
+
 def main(argv: list[str] | None = None) -> PPOMAE:
     config = build_parser().parse_args(argv)
     check_config(config)

@@ -101,5 +101,9 @@ class FakeInsertionEnv:
         truncated = self._t >= self.horizon
         return self._obs(), reward, terminated, truncated, {"is_success": terminated}
 
+    def render(self) -> np.ndarray:
+        """The current RGB frame (uint8, H x W x 3); black when the env has no camera."""
+        return self._obs().get("image", np.zeros((self.image_size, self.image_size, 3), np.uint8))
+
     def close(self) -> None:
         pass

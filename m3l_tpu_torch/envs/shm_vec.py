@@ -91,6 +91,10 @@ class SharedMemoryVecEnv:
         obs = {k: v.copy() for k, v in self._views.items()}
         return obs, np.asarray(rewards, np.float32), np.asarray(dones, bool), list(infos)
 
+    def env_method(self, name, *args, indices=None, **kwargs):
+        """Not offered, as in the JAX package: the workers answer only step, reset and close."""
+        raise NotImplementedError("use SubprocVecEnv for env_method")
+
     def close(self) -> None:
         close_workers(self.remotes, self.processes)
         self._views.clear()

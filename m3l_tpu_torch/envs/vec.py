@@ -68,6 +68,11 @@ class SyncVecEnv:
             infos.append(info)
         return _stack_obs(obs_list), np.asarray(rewards, np.float32), np.asarray(dones, bool), infos
 
+    def env_method(self, name: str, *args, indices=None, **kwargs) -> list:
+        """``getattr(env, name)(*args, **kwargs)`` on each env of ``indices`` (all by default)."""
+        idx = range(self.num_envs) if indices is None else indices
+        return [getattr(self.envs[i], name)(*args, **kwargs) for i in idx]
+
     def close(self) -> None:
         for env in self.envs:
             env.close()
@@ -101,6 +106,9 @@ def _worker(remote, parent_remote, env_fn):
                 remote.send(o)
             elif cmd == "get_spaces":
                 remote.send((env.observation_space, env.action_space))
+            elif cmd == "env_method":
+                name, args, kwargs = data
+                remote.send(getattr(env, name)(*args, **kwargs))
             elif cmd == "close":
                 env.close()
                 remote.close()
@@ -149,6 +157,14 @@ class SubprocVecEnv:
             r.send(("step", a))
         obs, rewards, dones, infos = zip(*[r.recv() for r in self.remotes])
         return _stack_obs(obs), np.asarray(rewards, np.float32), np.asarray(dones, bool), list(infos)
+
+    def env_method(self, name: str, *args, indices=None, **kwargs) -> list:
+        """``getattr(env, name)(*args, **kwargs)`` in the worker of each env of ``indices`` (all by
+        default); the results come back over the pipes."""
+        idx = range(self.num_envs) if indices is None else indices
+        for i in idx:
+            self.remotes[i].send(("env_method", (name, args, kwargs)))
+        return [self.remotes[i].recv() for i in idx]
 
     def close(self) -> None:
         close_workers(self.remotes, self.processes)

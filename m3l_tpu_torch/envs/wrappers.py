@@ -47,5 +47,8 @@ class FrameStack:
                 self.frames[k].append(obs[k])
         return self.observation(), info
 
+    def render(self):
+        return self.env.render()
+
     def close(self) -> None:
         self.env.close()

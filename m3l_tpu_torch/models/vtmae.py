@@ -5,7 +5,8 @@ decoder, mask token, pixel/tactile heads, embeddings), so JAX weights carry over
 the unmasked path (:meth:`get_embeddings`) and the masked-reconstruction loss. The JAX
 ``__call__`` draws its mask inside the loss; here :meth:`forward` draws it with
 :meth:`sample_mask` from a ``torch.Generator`` and hands it to :meth:`masked_loss`, which tests
-call with an injected :class:`ModalMask`. ``reconstruct`` is a later slice.
+call with an injected :class:`ModalMask`. :meth:`reconstruct` gives the visualisation's
+reconstructions under a mask drawn at its own counts per modality (:meth:`reconstruct_counts`).
 
 The sin/cos tables are buffers recomputed from the config, not parameters. Mixed dtypes follow
 JAX's promotion: image tokens plus the f32 modality embedding become f32, tactile tokens stay
@@ -20,8 +21,14 @@ from ..nn.early_cnn import EarlyCNN
 from ..nn.layers import Linear
 from ..nn.transformer import Transformer
 from ..ops.masking import ModalMask, gather_tokens, random_modal_masking, restore_tokens
+from ..ops.patches import unpatchify
 from ..ops.posenc import sincos_2d
 from .vtt import VTT
+
+
+def _segment_count(idx: torch.Tensor, lo: int, hi: int) -> int:
+    """How many indices of one row of ``idx`` lie in [lo, hi) (every row has the same count)."""
+    return int(((idx[0] >= lo) & (idx[0] < hi)).sum())
 
 
 class VTMAE(nn.Module):
@@ -195,11 +202,25 @@ class VTMAE(nn.Module):
     # public API
     # ------------------------------------------------------------------ #
 
-    def sample_mask(self, generator: torch.Generator, batch: int, use_vision: bool = True, use_tactile: bool = True) -> ModalMask:
-        """A random mask for ``batch`` samples with the reference counts, drawn with ``generator``
-        on its device."""
-        sizes, masked, _, _ = self._mask_counts(use_vision, use_tactile)
-        return random_modal_masking(generator, batch, sizes, masked)
+    def sample_mask(
+        self, generator: torch.Generator, batch: int, use_vision: bool = True, use_tactile: bool = True, masked=None
+    ) -> ModalMask:
+        """A random mask for ``batch`` samples, drawn with ``generator`` on its device: the
+        reference counts of the loss, or ``masked`` tokens per modality segment (image first, then
+        each sensor; :meth:`reconstruct_counts` gives the visualisation's)."""
+        sizes, counts, _, _ = self._mask_counts(use_vision, use_tactile)
+        return random_modal_masking(generator, batch, sizes, counts if masked is None else masked)
+
+    def reconstruct_counts(self, mask_ratio: float | None = None, use_vision: bool = True, use_tactile: bool = True) -> list[int]:
+        """Masked tokens per modality segment for :meth:`reconstruct`: ``int(ratio * N)`` of each
+        modality's own N (not the loss's split of one total)."""
+        c = self.config
+        ratio = self.masking_ratio if mask_ratio is None else mask_ratio
+        n_img = c.num_image_patches if use_vision else 0
+        n_tac_single = c.num_tactile_patches_per_sensor if (c.num_tactiles > 0 and use_tactile) else 0
+        m_img = int(ratio * n_img)
+        m_tac = int(ratio * n_tac_single * c.num_tactiles / c.num_tactiles) if n_tac_single else 0
+        return ([m_img] if n_img else []) + [m_tac] * (c.num_tactiles if n_tac_single else 0)
 
     def masked_loss(self, x: dict, mask: ModalMask, use_vision: bool = True, use_tactile: bool = True, precomputed=None) -> torch.Tensor:
         """Masked-reconstruction loss (f32 scalar) for the given mask: tactile x10; under early
@@ -236,6 +257,58 @@ class VTMAE(nn.Module):
             use_vision = False
         mask = self.sample_mask(generator, next(iter(x.values())).shape[0], use_vision, use_tactile)
         return self.masked_loss(x, mask, use_vision, use_tactile)
+
+    def reconstruct(self, x: dict, mask: ModalMask, use_vision: bool = True, use_tactile: bool = True) -> dict:
+        """Per-modality reconstructions for visualisation under ``mask`` (drawn with
+        :meth:`sample_mask` at :meth:`reconstruct_counts`): ``image_rec`` / ``image_masked`` (B, H,
+        W, C), ``tactile_rec`` / ``tactile_masked`` (B, sensors, H, W, C) and the f32 losses
+        ``recon_loss_image`` / ``recon_loss_tactile``. Masked patches show 0.5 in the image and
+        ``inf`` in the tactile maps; under early conv every patch is reconstructed, else the kept
+        patches keep their input."""
+        c = self.config
+        if "image" not in x:
+            use_vision = False
+        with_tactile = c.num_tactiles > 0 and use_tactile
+        n_img = c.num_image_patches if use_vision else 0
+        decoded, image_patches, tactile_patches = self._decode(x, mask, use_vision, use_tactile)
+        n_masked_img = _segment_count(mask.masked_idx, 0, n_img) if use_vision else 0
+        enc = self.encoder
+
+        def scatter_rows(base: torch.Tensor, idx: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+            return base.scatter(1, idx[:, :, None].expand(-1, -1, base.shape[-1]), values)
+
+        out: dict = {}
+        if use_vision:
+            midx = mask.masked_idx[:, :n_masked_img]
+            pred = self.to_pixels(gather_tokens(decoded, midx)).float()
+            patches = image_patches.float()
+            if self.early_conv_masking:
+                rec = self.to_pixels(decoded[:, :n_img]).float()
+                out["recon_loss_image"] = ((rec - patches) ** 2).mean()
+            else:
+                out["recon_loss_image"] = ((pred - gather_tokens(patches, midx)) ** 2).mean()
+                rec = scatter_rows(patches, midx, pred)
+            grid = (*c.image_grid, c.image_patch_size, c.image_patch_size, enc.stacked_image_channels)
+            out["image_rec"] = unpatchify(rec, *grid)
+            out["image_masked"] = unpatchify(scatter_rows(patches, midx, torch.full_like(pred, 0.5)), *grid)
+        if with_tactile:
+            tidx = mask.masked_idx[:, n_masked_img:]
+            pred = self.to_tactiles(gather_tokens(decoded, tidx)).float()
+            patches = tactile_patches.float()
+            tidx = tidx - n_img
+            if self.early_conv_masking:
+                rec = self.to_tactiles(decoded[:, n_img:]).float()
+                out["recon_loss_tactile"] = ((rec - patches) ** 2).mean()
+            else:
+                out["recon_loss_tactile"] = ((pred - gather_tokens(patches, tidx)) ** 2).mean()
+                rec = scatter_rows(patches, tidx, pred)
+            masked = scatter_rows(patches, tidx, torch.full_like(pred, float("inf")))
+            n_sens, per = c.num_tactiles, c.num_tactile_patches_per_sensor
+            grid = (*c.tactile_grid, c.tactile_patch_size, c.tactile_patch_size, enc.stacked_tactile_channels)
+            for key, value in (("tactile_rec", rec), ("tactile_masked", masked)):
+                img = unpatchify(value.reshape(value.shape[0] * n_sens, per, -1), *grid)
+                out[key] = img.reshape(-1, n_sens, *img.shape[1:])
+        return out
 
     def get_embeddings(self, x: dict, use_vision: bool = True, use_tactile: bool = True) -> torch.Tensor:
         """Unmasked full-sequence encoder features (B, N, dim)."""

@@ -2,7 +2,7 @@
 minibatch updates, the SSL pretraining steps (MAE, DINO, V-JEPA) and a frozen downstream-probe
 step, under ``torch.profiler``.
 
-    python -m m3l_tpu_torch.profile_paths
+    python -m m3l_tpu_torch.profile_paths [serve train ssl dino vjepa probe forcefield traindino train_dino_cat_mae]
 
 Serving, for batch 8 (the CLI's default env count) and batch 512 (the PPO minibatch): the host
 time per request (``PolicyServer.__call__``, raw numpy obs in, numpy actions out). Training:
@@ -21,7 +21,10 @@ target tokens; f32, batch 64) and of the frozen force probe of
 the attentive probe trained; f32, batch 64), and of the frozen force-field module of
 ``config/experiment/downstream_task/forcefield/digit_dino.yaml`` (two ViT-small passes without
 autograd, the DPT decoder at fusion 128 up to 112 x 112 and the pose ResNet-18 trained; f32, batch
-64 of synthetic DIGIT windows, uint8). For each: the host time per call untraced and traced, the device
+64 of synthetic DIGIT windows, uint8); and one minibatch update (batch 512, bf16) of the PPO
+feature variants' CLI models at their defaults: ``cli/traindino.py`` (plain PPO over the frozen
+ViT-S/14) and ``cli/train_dino_cat_mae.py`` (the joint update of the MAE fused with the frozen
+DINO feature). With path names as arguments, only those run. For each: the host time per call untraced and traced, the device
 time per call summed over the kernels and copies the profiler saw, the device's idle share of
 the untraced call (1 - device / host), the device time by kind of kernel (``KINDS``: the
 attention bodies, cuDNN's convolutions (forward, data and weight gradients), GEMMs, softmaxes, the optimizer's and the EMA's foreach kernels, LayerNorm, copies,
@@ -60,7 +63,7 @@ SSL_BATCH = 64
 KINDS = (
     ("attention", ("fwd_tf32_kernel", "bwd_tf32_kernel", "fwd_mma_kernel", "bwd_mma_kernel")),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit")),
-    ("gemm", ("gemm", "cutlass", "xmma", "cublas")),
+    ("gemm", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),  # nvjet: the cuBLAS bf16 kernels of torch 2.11
     ("softmax", ("softmax",)),
     ("foreach (optimizer, EMA)", ("multi_tensor", "foreach")),
     ("layer norm", ("layer_norm", "layernorm")),
@@ -73,13 +76,14 @@ def kind_of(name: str) -> str:
     return next((kind for kind, keys in KINDS if any(k in name for k in keys)), "other")
 
 
-def random_minibatch(rng: np.random.Generator, batch: int, device) -> dict:
+def random_minibatch(rng: np.random.Generator, batch: int, device, frame_stack: int = FRAME_STACK, image_size: int = 64,
+                     tactile_size: int = 32) -> dict:
     """A rollout minibatch drawn from ``rng`` on ``device``: raw obs (uint8 image), actions, old
     values and log-probs, advantages and returns. For timing and checks."""
     put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
     normal = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
     return dict(
-        data={"obs": {k: put(v) for k, v in random_obs(rng, batch, FRAME_STACK).items()},
+        data={"obs": {k: put(v) for k, v in random_obs(rng, batch, frame_stack, image_size, tactile_size).items()},
               "actions": put(normal(batch, ACTION_DIM)), "values": put(normal(batch)), "log_probs": put(normal(batch) - 3.0)},
         advantages=put(normal(batch)), returns=put(normal(batch)),
     )
@@ -137,6 +141,63 @@ def profile_training(rng: np.random.Generator) -> dict:
         torch.cuda.synchronize()
 
     return profiled(update, UPDATES, f"train update batch {TRAIN_BATCH}")
+
+
+# the PPO feature variants' CLIs, each with the size of its envs' image and tactile maps
+VARIANTS = {"traindino": (64, 32), "train_dino_cat_mae": (70, 70), "train_dino_tac_mae": (70, 70), "train_cnn": (64, 32)}
+
+
+def variant_model(name: str, device: str, compute_dtype: str = "bfloat16", batch: int = TRAIN_BATCH, argv=()) -> PPOMAE:
+    """The PPOMAE that ``m3l_tpu_torch.cli.<name>`` builds at its defaults (width, depth, frame stack,
+    masking), at ``compute_dtype`` on ``device``, over 8 in-process FakeInsertion envs at the
+    variant's sizes and a rollout of ``batch`` samples (one minibatch of ``batch``). Weights are
+    seeded by the CLI's ``--seed``: two calls build the same weights."""
+    import importlib
+
+    cli = importlib.import_module(f"m3l_tpu_torch.cli.{name}")
+    config = cli.build_parser().parse_args(["--env", "FakeInsertion", "--n_envs", "8", "--rollout_length", str(batch),
+                                            "--batch_size", str(batch), "--compute_dtype", compute_dtype, "--device", device,
+                                            "--verbose", "0", *argv])
+    image, tactile = VARIANTS[name]
+    env = SyncVecEnv([make_env("FakeInsertion", i, frame_stack=config.frame_stack, image_size=image, tactile_size=tactile)
+                      for i in range(config.n_envs)])
+    return cli.build_model(config, env)
+
+
+def variant_masks(model: PPOMAE, n: int, seed: int = 0) -> list:
+    """``n`` MAE masks of one minibatch over the modalities the variant's MAE sees (None without
+    MAE updates), drawn on the model's device."""
+    if not model.train_mae:
+        return [None] * n
+    features = model.policy.features
+    use_vision, use_tactile = features.mae_modalities(("image", "tactile"))
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    return [features.mae.sample_mask(gen, model.batch_size, use_vision, use_tactile) for _ in range(n)]
+
+
+def profile_variant(name: str, rng: np.random.Generator) -> dict:
+    """One minibatch update of the variant's CLI model at its defaults (bf16, batch 512)."""
+    model = variant_model(name, "cuda")
+    image, tactile = VARIANTS[name]
+    mb = random_minibatch(rng, TRAIN_BATCH, model.device, model.frame_stack, image, tactile)
+    idx = torch.arange(TRAIN_BATCH, device=model.device)
+    masks = iter(variant_masks(model, 2 * UPDATES + 1))
+
+    def update():
+        model.minibatch_update(mb["data"], idx, mb["advantages"], mb["returns"], next(masks))
+        torch.cuda.synchronize()
+
+    out = profiled(update, UPDATES, f"{name} update batch {TRAIN_BATCH}")
+    # the policy's flat Adam over every parameter, the frozen DINO's zero gradients included (as
+    # JAX's), against one over the parameters that get a gradient; each timed on the gradients the
+    # last update left (the steps move the parameters: this model serves timing only)
+    from .train.optim import FlatAdam
+
+    trained = FlatAdam([p for p in model.policy.parameters() if p.grad is not None], model.optimizer.learning_rate, eps=1e-5,
+                       max_grad_norm=model.optimizer.max_grad_norm)
+    out["parts_ms"] = dict(flat_adam_step_all_parameters=event_ms(model.optimizer.step), flat_adam_step_with_gradients=event_ms(trained.step))
+    out["parameters"] = dict(all=sum(p.numel() for p in model.policy.parameters()), with_gradients=sum(p.numel() for p in trained.params))
+    return out
 
 
 def profile_step(module, batch: dict, label: str) -> dict:
@@ -228,17 +289,33 @@ def profile_forcefield(rng: np.random.Generator) -> dict:
     return profile_step(module, batch, f"frozen force-field step batch {SSL_BATCH}")
 
 
-def main() -> None:
+def main(argv: list[str] | None = None) -> None:
+    """Profiles every path, or only those named: serve, train, ssl, dino, vjepa, probe, forcefield,
+    traindino, train_dino_cat_mae (the variants' updates)."""
+    import sys
+
+    names = set(sys.argv[1:] if argv is None else argv)
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     f32_numerics("float32")  # the f32 paths as the CLIs run them: no TF32 in cuDNN or cuBLAS
     torch.manual_seed(0)
-    server = PolicyServer(build_policy(dtype=torch.bfloat16, device="cuda"))
     rng = np.random.default_rng(0)
     print(f"device: {torch.cuda.get_device_name(0)}")
-    results = [profile_serving(server, batch, rng) for batch in BATCHES] + [profile_training(rng)]
-    results += [profile_ssl(rng, ov) for ov in ((), ("model.algorithm.decode_masked_only=false",))]
-    results.append(profile_dino(rng))
-    results += [profile_vjepa(rng), profile_probe(rng), profile_forcefield(rng)]
+
+    def wanted(name):
+        return not names or name in names
+
+    results = []
+    if wanted("serve"):
+        server = PolicyServer(build_policy(dtype=torch.bfloat16, device="cuda"))
+        results += [profile_serving(server, batch, rng) for batch in BATCHES]
+    if wanted("train"):
+        results.append(profile_training(rng))
+    if wanted("ssl"):
+        results += [profile_ssl(rng, ov) for ov in ((), ("model.algorithm.decode_masked_only=false",))]
+    for name, fn in (("dino", profile_dino), ("vjepa", profile_vjepa), ("probe", profile_probe), ("forcefield", profile_forcefield)):
+        if wanted(name):
+            results.append(fn(rng))
+    results += [profile_variant(name, rng) for name in ("traindino", "train_dino_cat_mae") if wanted(name)]
     for r in results:
         print(f"{r['path']}: host {r['host_ms_per_call']:.3f} ms/call ({r['traced_host_ms_per_call']:.3f} traced), device "
               f"{r['device_ms_per_call']:.3f} ms/call, idle share {r['device_idle_share']:.3f}, {r['device_ops_per_call']:.0f} device ops/call")

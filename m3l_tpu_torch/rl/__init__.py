@@ -6,3 +6,5 @@ from .replay import DeviceReplayBuffer, ReplayBuffer  # noqa: F401
 from .sac_mae import SACMAE  # noqa: F401
 from .sac_policy import Actor, Critic, QNet, SACActorCritic  # noqa: F401
 from .vecnorm import RewardNormalizer, RunningMeanStd  # noqa: F401
+from .frozen_features import FrozenEncoderFeatures  # noqa: F401
+from .dino_fusion_features import DinoCatMAEFeatures  # noqa: F401

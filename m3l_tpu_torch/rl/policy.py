@@ -6,7 +6,9 @@
   and a linear value head;
 * diagonal Gaussian: sampling draws from an explicit ``torch.Generator``;
 * the joint PPO+MAE update's ``evaluate_actions_packed_with_mae``: the policy features and the
-  MAE loss share one token pipeline, for a mask the caller draws and hands in.
+  MAE loss share one token pipeline where the extractor has one, for a mask the caller draws and
+  hands in. The extractor may be any module with ``from_packed`` (and, for the MAE updates,
+  ``mae_loss`` and ``mae_modalities``): ``rl/frozen_features.py``, ``rl/dino_fusion_features.py``.
 """
 from __future__ import annotations
 
@@ -55,6 +57,11 @@ class MAEFeatures(nn.Module):
         emb = self.mae.get_embeddings(x, use_tactile=not self.vision_only_control)
         return self.post(emb).mean(dim=1)
 
+    def mae_modalities(self, obs_keys) -> tuple[bool, bool]:
+        """(use_vision, use_tactile) of the MAE loss on a batch with these observation keys: the
+        modalities its masks must cover."""
+        return "image" in obs_keys, True
+
     def mae_loss(self, x: dict, mask: ModalMask) -> torch.Tensor:
         """Representation loss on a packed batch for the given mask."""
         return self.mae.masked_loss(x, mask)
@@ -77,7 +84,7 @@ class MAEFeatures(nn.Module):
 class ActorCritic(nn.Module):
     def __init__(
         self,
-        features: MAEFeatures,
+        features: nn.Module,
         feat_dim: int,
         action_dim: int,
         *,
@@ -137,9 +144,13 @@ class ActorCritic(nn.Module):
         return value, self._log_prob(actions, mean, log_std), self._entropy(log_std, mean.shape[0])
 
     def evaluate_actions_packed_with_mae(self, x: dict, actions: torch.Tensor, mask: ModalMask):
-        """(values, log_prob, entropy, mae_loss), the token pipeline shared between the policy
-        features and the MAE loss (the joint PPO+MAE update)."""
-        feats, mae_loss = self.features.features_and_mae_loss(x, mask)
+        """(values, log_prob, entropy, mae_loss) for the joint PPO+MAE update: the token pipeline
+        shared between the policy features and the MAE loss where the extractor has one
+        (``features_and_mae_loss``), else its features and its MAE loss apart."""
+        if hasattr(self.features, "features_and_mae_loss"):
+            feats, mae_loss = self.features.features_and_mae_loss(x, mask)
+        else:
+            feats, mae_loss = self.features.from_packed(x), self.features.mae_loss(x, mask)
         mean, log_std, value = self._heads(feats)
         return value, self._log_prob(actions, mean, log_std), self._entropy(log_std, mean.shape[0]), mae_loss
 

@@ -227,18 +227,18 @@ class PPOMAE:
     def sample_updates(self, obs_keys) -> tuple[torch.Tensor, list]:
         """The update phase's randomness from the generator: one permutation of the buffer per
         epoch, cut into minibatches, and each minibatch's MAE mask (one in joint mode, one per
-        chunk in separate mode, None for plain PPO)."""
+        chunk in separate mode, None for plain PPO) over the modalities the features' MAE sees."""
         n = self.n_steps * self.n_envs
         perms = [torch.randperm(n, generator=self.generator, device=self.device) for _ in range(self.n_epochs)]
         idx = torch.stack(perms).reshape(self.n_epochs * self.n_minibatches, self.batch_size)
-        mae = self.policy.features.mae
-        use_vision = "image" in obs_keys
+        if not self.train_mae:  # plain PPO: the features need no MAE
+            return idx, [None] * len(idx)
+        features = self.policy.features
+        use_vision, use_tactile = features.mae_modalities(obs_keys)
 
         def draw(batch):
-            return mae.sample_mask(self.generator, batch, use_vision=use_vision)
+            return features.mae.sample_mask(self.generator, batch, use_vision=use_vision, use_tactile=use_tactile)
 
-        if not self.train_mae:
-            return idx, [None] * len(idx)
         if self.separate_optimizer:
             chunks = max(self.batch_size // self.mae_batch_size, 1)
             return idx, [[draw(self.mae_batch_size) for _ in range(chunks)] for _ in range(len(idx))]

@@ -50,12 +50,13 @@ def build_policy(
     return ActorCritic(feats, c.dim, action_dim, dtype=dtype).to(dev)
 
 
-def random_obs(rng: np.random.Generator, batch: int, frame_stack: int = 4) -> dict:
-    """Raw obs of the default encoder's env, drawn from ``rng``: uint8 image (B, fs, 64, 64, 3)
-    and tactile in [-1, 1] (B, fs, 6, 32, 32) for two sensors. For timing and checks."""
+def random_obs(rng: np.random.Generator, batch: int, frame_stack: int = 4, image_size: int = 64, tactile_size: int = 32) -> dict:
+    """Raw obs of the default encoder's env (or of one at other sizes), drawn from ``rng``: uint8
+    image (B, fs, 64, 64, 3) and tactile in [-1, 1] (B, fs, 6, 32, 32) for two sensors. For timing
+    and checks."""
     return {
-        "image": rng.integers(0, 256, (batch, frame_stack, 64, 64, 3), dtype=np.uint8),
-        "tactile": rng.uniform(-1, 1, (batch, frame_stack, 6, 32, 32)).astype(np.float32),
+        "image": rng.integers(0, 256, (batch, frame_stack, image_size, image_size, 3), dtype=np.uint8),
+        "tactile": rng.uniform(-1, 1, (batch, frame_stack, 6, tactile_size, tactile_size)).astype(np.float32),
     }
 
 

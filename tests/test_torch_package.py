@@ -102,6 +102,46 @@ def test_importing_the_forcefield_and_vtdino_slice_loads_no_jax_cv2_or_matplotli
     assert proc.returncode == 0, proc.stderr
 
 
+VARIANT_AND_EVAL_MODULES = ("models/dinov2_interop.py", "models/vtmae_cnn.py", "rl/frozen_features.py", "rl/dino_fusion_features.py",
+                            "cli/traindino.py", "cli/train_dino_cat_mae.py", "cli/train_dino_tac_mae.py", "cli/train_cnn.py",
+                            "rl/callbacks.py", "utils/loggers.py", "utils/video.py")
+
+
+def test_the_boundary_walks_cover_the_feature_variants_and_the_rl_evaluation():
+    """The AST walks above (JAX, gymnasium, m3l_tpu; cv2 and matplotlib at import time) run over
+    every module of the package, these included."""
+    walked = {p.relative_to(PKG).as_posix() for p in _modules()}
+    assert set(VARIANT_AND_EVAL_MODULES) <= walked
+
+
+def test_importing_the_feature_variants_and_rl_evaluation_loads_no_jax_cv2_or_matplotlib():
+    names = ", ".join("m3l_tpu_torch." + m.removesuffix(".py").replace("/", ".") for m in VARIANT_AND_EVAL_MODULES)
+    code = (
+        "import sys\n"
+        f"import {names}\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in {'jax', 'jaxlib', 'flax', 'optax', 'gymnasium', 'cv2', 'matplotlib', 'PIL',"
+        " 'tensorboard', 'wandb'} or m.split('.')[0] == 'm3l_tpu')\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("name", ["traindino", "train_dino_cat_mae", "train_dino_tac_mae", "train_cnn"])
+def test_the_variant_clis_default_to_the_card_and_raise_without_one(name, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default resolves to it")
+    import importlib
+
+    cli = importlib.import_module(f"m3l_tpu_torch.cli.{name}")
+    assert cli.build_parser().parse_args([]).device == "cuda"
+    from m3l_tpu_torch.cli import train
+
+    monkeypatch.setattr(train, "make_env", lambda *a, **k: pytest.fail("an env was built before the device check"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["--env", "FakeInsertion"])
+
+
 def test_the_demo_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default resolves to it")
