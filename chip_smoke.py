@@ -139,6 +139,23 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    the card against the CPU (the training CLI's early-conv MAE and the fusion CLI's patch MAE, 7
    forward launches each, RECON_F32_TOL) and one ``EvalCallback`` episode of traindino's model
    (13 forward launches a step; a video where cv2 is installed).
+14. the serving artifacts: the flagship policy of phase 4 (bf16, random weights from a seed)
+   exported with ``serve.export_policy`` (``torch.export``) on the card at batch 8 and 512 (the
+   FakeInsertion env's observation space as the signature), saved as ``.pt2`` and loaded: its graph
+   holds 5 ``m3l.flash_attention_qkv`` nodes, and each request through it launches exactly 5
+   forward kernels on the tensor-core body and serves the actions PolicyServer serves (EXPORT_TOL;
+   equal expected); the same for the program exported on the CPU from a twin with the same weights
+   and moved to the card by ``load_artifact(device="cuda")``; the stochastic artifact against
+   ``PolicyServer.sample`` with the same noise, the encoder artifact against ``policy.features``;
+   ``cli.export_policy.main`` on FakeInsertion at its defaults, batch 8; the artifact's p50 request
+   latency beside PolicyServer's at batch 8 and 512, in turns.
+15. the flat-buffer AdamW: three MAE steps at config/experiment/mae_vit.yaml's defaults (f32, batch
+   64, warm-up 0) from one set of weights, batches and masking noise, with ``FlatAdamW`` (the
+   module's ``_flat_optimizer`` opt-in) and with the default ``WDSplitAdamW``, the same gradients
+   fed to both: parameters within two f32 ulps of |p| plus 1e-6 lr an update, the flat module's
+   own gradients within OPTIM_GRAD_TOL, 12 + 12 launches a step, and the step ms and the optimizer's
+   ms of each; then the ``GumbelVectorQuantizer`` (its defaults on 8 x 196 ViT-small tokens) in hard
+   training mode on the card against the CPU with the same uniform draws (VQ_TOL).
 
 Phase 3 also holds both packed kernels to their plain versions at the shapes of the SSL, probe,
 force-field, VTDINO, multimodal and PPO-variant paths (SSL_SHAPES, f32 and bf16, with and without a random key
@@ -154,11 +171,12 @@ keys. It prints err/tol for each case.
 Each phase after the kernel checks runs with the launch counts set to 0 just before it and read
 just after; phases 4-8 also fail unless every bf16 forward launch, and in phases 5-8 every bf16
 backward launch, took the tensor-core body; phases 9-11 hold every launch to its dtype's body
-and count the launches with a key mask (``MASKED_LAUNCHES``); so do phases 12 and 13.
+and count the launches with a key mask (``MASKED_LAUNCHES``); so do phases 12 and 13; phases 14 and
+15 hold every launch to its body.
 The last lines are a {"kernels": [...]} JSON line, {"slice": ...}, {"train": ...},
 {"bench_attention": ...}, {"cli": ...}, {"sac": ...}, {"ssl": ...}, {"ssl_distill": ...},
-{"ssl_vjepa": ...}, {"evaluate": ...}, {"forcefield": ...}, {"vtdino": ...} and {"variants": ...}
-JSON lines, the card line as nvidia-smi prints it, and
+{"ssl_vjepa": ...}, {"evaluate": ...}, {"forcefield": ...}, {"vtdino": ...}, {"variants": ...},
+{"export": ...} and {"optim": ...} JSON lines, the card line as nvidia-smi prints it, and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -2248,6 +2266,259 @@ def variants_phase() -> dict:
     return out
 
 
+EXPORT_BATCHES = (8, 512)  # the serving CLI's default batch of envs and phase 4's scoring batch
+EXPORT_TIMED = {8: 20, 512: 6}  # requests timed per batch size, artifact and PolicyServer in turns
+EXPORT_DIR = CKPT_DIR / "export"
+# The artifact against PolicyServer on the card, the same weights and obs (and noise): the same ATen
+# sequence and the same kernel, so equal actions are expected; a difference beyond the f32 JAX
+# test's bound (tests/test_serve.py: rtol = atol = 1e-5) fails.
+EXPORT_TOL = 1e-5
+
+
+def served(runner, server: PolicyServer, obs: dict, noise=None) -> np.ndarray:
+    """One request through an artifact's module: numpy obs to the device, actions back."""
+    with torch.inference_mode():
+        args = (server.to_device(obs),) if noise is None else (server.to_device(obs), noise)
+        return runner(*args).cpu().numpy()
+
+
+def artifact_launches(where: str, runner, server: PolicyServer, batches: list, total: Counter) -> dict:
+    """The artifact ``runner`` and ``server`` on each batch of obs: the largest difference of their
+    actions, and the artifact's launches alone (added to ``total``), 5 forward (4 encoder layers +
+    post) a request on the tensor cores and no backward."""
+    err = 0.0
+    for obs in batches:
+        want = server(obs)
+        reset_launches()
+        got = served(runner, server, obs)
+        torch.cuda.synchronize()
+        launches = {k: LAUNCHES[k] for k in ALL_KERNELS if LAUNCHES[k]}
+        if launches != {KERNEL: 5}:
+            fail(f"{where}: one request launched {launches}, expected {{{KERNEL!r}: 5}}")
+        tensor_core_only(where)
+        total.update(launches)
+        err = max(err, float(np.abs(got - want).max()))
+    print(f"  {where}: {len(batches)} requests, 5 forward launches each, max|artifact - PolicyServer| {err:.3e} (tol {EXPORT_TOL:.0e})")
+    if not err <= EXPORT_TOL:
+        fail(f"{where}: the artifact serves other actions than PolicyServer (max abs err {err:.3e})")
+    return dict(requests=len(batches), launches_per_request={KERNEL: 5}, max_abs_err=err)
+
+
+def export_phase() -> dict:
+    """Phase 14: the flagship policy of phase 4 as torch.export artifacts, exported on the card and
+    on the CPU, served on the card against PolicyServer; the stochastic and encoder artifacts; the
+    export CLI; the artifact's request latency beside PolicyServer's."""
+    from m3l_tpu_torch import serve
+    from m3l_tpu_torch.cli import export_policy as export_cli
+
+    EXPORT_DIR.mkdir(parents=True, exist_ok=True)
+    torch.manual_seed(0)
+    policy = build_policy(dtype=torch.bfloat16, device="cuda")  # phase 4's: full width, frame stack 4
+    bounds = dict(action_low=[-1.0] * ACTION_DIM, action_high=[1.0] * ACTION_DIM)
+    server = PolicyServer(policy, **bounds)
+    env = make_env("FakeInsertion", 0, seed=0, frame_stack=FRAME_STACK)()  # its observation space is the export signature
+    rng = np.random.default_rng(14)
+    out, launches = {}, Counter()
+    for b in EXPORT_BATCHES:
+        batches = [random_obs(rng, b, FRAME_STACK) for _ in range(3)]
+        t0 = time.perf_counter()
+        program = serve.export_policy(policy, serve.example_obs_for(env, batch=b, frame_stack=FRAME_STACK), **bounds)
+        export_s = time.perf_counter() - t0
+        nodes = sum(str(n.target) == "m3l.flash_attention_qkv.default" for n in program.graph.nodes)
+        path = EXPORT_DIR / f"policy_b{b}.pt2"
+        serve.save_artifact(str(path), program)
+        runner = serve.load_artifact(str(path)).module()
+        row = dict(export_s=export_s, bytes=path.stat().st_size, attention_nodes=nodes,
+                   card=artifact_launches(f"artifact exported on the card, batch {b}", runner, server, batches, launches))
+
+        # exported on the CPU from a twin with the same weights, moved to the card when loaded
+        twin = build_policy(dtype=torch.bfloat16, device="cpu")
+        twin.load_state_dict(policy.state_dict())
+        cpu_path = EXPORT_DIR / f"policy_b{b}_cpu.pt2"
+        serve.save_artifact(str(cpu_path), serve.export_policy(twin, batches[0], **bounds))
+        moved = serve.load_artifact(str(cpu_path), device="cuda")
+        moved_nodes = sum(str(n.target) == "m3l.flash_attention_qkv.default" for n in moved.graph.nodes)
+        if nodes != 5 or moved_nodes != 5:
+            fail(f"batch {b}: the exported graphs hold {nodes} and {moved_nodes} attention operators, expected 5")
+        moved_runner = moved.module()
+        row["cpu_moved"] = artifact_launches(f"artifact exported on the CPU and moved, batch {b}", moved_runner, server, batches, launches)
+
+        # p50 request latency, the artifact and PolicyServer in turns (after the requests above)
+        lat = {"artifact": [], "policy_server": []}
+        reset_launches()
+        for i in range(EXPORT_TIMED[b]):
+            obs = batches[i % len(batches)]
+            for name, fn in (("artifact", lambda: served(runner, server, obs)), ("policy_server", lambda: server(obs)))[:: 1 if i % 2 else -1]:
+                t0 = time.perf_counter()
+                fn()
+                lat[name].append((time.perf_counter() - t0) * 1e3)
+        if dict(LAUNCHES) != {KERNEL: 5 * 2 * EXPORT_TIMED[b]}:
+            fail(f"batch {b}: the timed requests launched {dict(LAUNCHES)}, expected 5 a request")
+        launches.update(dict(LAUNCHES))
+        row.update({f"{k}_p50_ms": statistics.median(v) for k, v in lat.items()}, latencies_ms=lat)
+        print(f"  batch {b}: exported in {export_s:.2f} s ({row['bytes'] / 1e6:.1f} MB); p50 request ms artifact "
+              f"{row['artifact_p50_ms']:.3f}, PolicyServer {row['policy_server_p50_ms']:.3f} ({EXPORT_TIMED[b]} each, in turns)")
+        out[f"batch{b}"] = row
+
+    # the stochastic artifact against PolicyServer.sample under one generator; the encoder artifact
+    small = [random_obs(rng, 8, FRAME_STACK) for _ in range(2)]
+    stochastic = serve.export_policy(policy, small[0], deterministic=False, **bounds).module()
+    encoder = serve.export_encoder(policy.features, small[0]).module()
+    reset_launches()
+    stoch_err = enc_err = 0.0
+    for i, obs in enumerate(small):
+        noise = torch.randn((8, ACTION_DIM), generator=torch.Generator("cuda").manual_seed(i), device="cuda")
+        got = served(stochastic, server, obs, noise)
+        stoch_err = max(stoch_err, float(np.abs(got - server.sample(obs, torch.Generator("cuda").manual_seed(i))).max()))
+        with torch.inference_mode():
+            x = server.to_device(obs)
+            enc_err = max(enc_err, (encoder(x) - policy.features(x)).abs().max().item())
+    torch.cuda.synchronize()
+    if dict(LAUNCHES) != {KERNEL: 5 * 4 * len(small)}:
+        fail(f"stochastic and encoder artifacts: launches {dict(LAUNCHES)}, expected {5 * 4 * len(small)} forward")
+    tensor_core_only("stochastic and encoder artifacts")
+    launches.update(dict(LAUNCHES))
+    print(f"  stochastic artifact vs PolicyServer.sample (same generator): max abs err {stoch_err:.3e}; encoder artifact vs "
+          f"policy.features: {enc_err:.3e} (tol {EXPORT_TOL:.0e})")
+    if not (stoch_err <= EXPORT_TOL and enc_err <= EXPORT_TOL):
+        fail("the stochastic or encoder artifact disagrees with the in-process policy")
+    out.update(stochastic_max_abs_err=stoch_err, encoder_max_abs_err=enc_err)
+
+    # the CLI end to end on the card at its defaults (dim 256, frame stack 4, bf16), batch 8
+    reset_launches()
+    cli_err = export_cli.main(["--env", "FakeInsertion", "--out", str(EXPORT_DIR / "cli_policy.pt2"), "--serve_batch", "8"])
+    torch.cuda.synchronize()
+    if not cli_err <= EXPORT_TOL or dict(LAUNCHES) != {KERNEL: 10}:
+        fail(f"cli.export_policy: max|served-direct| {cli_err:.3e}, launches {dict(LAUNCHES)} (expected 5 + 5)")
+    tensor_core_only("cli.export_policy")
+    launches.update(dict(LAUNCHES))
+    out.update(cli_max_abs_err=cli_err, launches=dict(launches))
+    return out
+
+
+OPTIM_STEPS = 3
+# The flat AdamW against the default one on the card, the same gradients fed to both (the default
+# module's, copied): one update rounds each parameter once where torch's AdamW rounds it twice (p (1 -
+# lr wd), then + the step), so up to two f32 ulps of |p| an update, plus ~1e-6 of lr for the step
+# itself (tests/test_torch_host_modules.py holds the same bound on the CPU); err/tol must stay <= 1.
+# The gradients of the flat module's own backward are compared too (relative to their norm), as
+# the f32 noise of parameters an ulp apart.
+OPTIM_GRAD_TOL = 1e-4
+# The quantizer on the card against the CPU, the same weights and uniform draws (f32, TF32 off):
+# the logits agree to ~1e-6, so the averaged probabilities and perplexity to ~1e-6 relative and the
+# straight-through gradients to ~1e-6 of their norm; 1e-5. A selected code may flip only where the
+# CPU's top two probabilities tie to within 1e-5.
+VQ_TOL = 1e-5
+
+
+def optim_phase() -> dict:
+    """Phase 15: three MAE steps at mae_vit.yaml's defaults (f32, batch 64) with FlatAdamW and with
+    WDSplitAdamW from one set of weights, batches and masking noise; then the Gumbel quantizer on the
+    card against the CPU."""
+    from m3l_tpu_torch.nn import GumbelVectorQuantizer
+    from m3l_tpu_torch.train import FlatAdamW
+    from m3l_tpu_torch.ssl import WDSplitAdamW
+
+    cpu = ssl_models(["model.algorithm.warmup_epochs=0"])
+    enc = cpu.encoder
+    rng = np.random.default_rng(15)
+    xs = [torch.from_numpy(rng.random((SSL_BATCH, *enc.img_size, enc.in_chans), dtype=np.float32)).cuda() for _ in range(OPTIM_STEPS)]
+    noises = [torch.from_numpy(rng.random((SSL_BATCH, cpu.num_patches), dtype=np.float32)).cuda() for _ in range(OPTIM_STEPS)]
+    mods, opts = {}, {}
+    for name in ("split", "flat"):
+        m = mods[name] = copy.deepcopy(cpu).to("cuda")
+        m._flat_optimizer = name == "flat"
+        opts[name] = m.configure_optimizer(OPTIM_STEPS, 1)
+    if not (isinstance(opts["split"], WDSplitAdamW) and isinstance(opts["flat"], FlatAdamW)):
+        fail(f"configure_optimizer gave {type(opts['split']).__name__} and {type(opts['flat']).__name__}")
+    step_ms, opt_ms, grad_rel = {"split": [], "flat": []}, {"split": [], "flat": []}, 0.0
+    reset_launches()
+    for i in range(OPTIM_STEPS):
+        grads = {}
+        for name in ("split", "flat"):  # the flat step takes the split module's gradients
+            m, opt = mods[name], opts[name]
+            m.sample_noise = lambda b, g, nz=noises[i]: nz
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = m.training_loss({"image": xs[i]}, None, i)
+            loss.backward()
+            grads[name] = [p.grad.clone() for p in opt.params]
+            if name == "flat":
+                for p, g in zip(opt.params, grads["split"]):
+                    p.grad = g
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            opt.step()
+            end.record()
+            opt.zero_grad()
+            torch.cuda.synchronize()
+            step_ms[name].append((time.perf_counter() - t0) * 1e3)
+            opt_ms[name].append(start.elapsed_time(end))
+        grad_rel = max(grad_rel, max(((a - b).norm() / b.norm()).item() for a, b in zip(grads["flat"], grads["split"]) if b.norm() > 0))
+    launches = {k: LAUNCHES[k] for k in ALL_KERNELS if LAUNCHES[k]}
+    want = {KERNEL: 12 * 2 * OPTIM_STEPS, BWD_KERNEL: 12 * 2 * OPTIM_STEPS}  # phase 9's 12 + 12 a step, two modules
+    if launches != want or dict(FWD_BODY_LAUNCHES) != {"tf32x3": want[KERNEL]} or dict(BWD_BODY_LAUNCHES) != {"tf32x3": want[BWD_KERNEL]}:
+        fail(f"flat AdamW steps: launches {launches} by body {dict(FWD_BODY_LAUNCHES)} / {dict(BWD_BODY_LAUNCHES)}, expected {want} on tf32x3")
+    lr_max = max(opts["split"].learning_rate(c) for c in range(OPTIM_STEPS))
+    eps32 = torch.finfo(torch.float32).eps
+    err_per_tol = max(
+        ((a.detach() - b.detach()).abs() / (2 * eps32 * b.detach().abs() * OPTIM_STEPS + 1e-6 * lr_max * OPTIM_STEPS)).max().item()
+        for a, b in zip(opts["flat"].params, opts["split"].params)
+    )
+    moved = max((a.detach().cpu() - b).abs().max().item() for a, b in zip(opts["split"].params, cpu.parameters()))
+    n_params = sum(p.numel() for p in opts["flat"].params)
+    print(f"  MAE at batch {SSL_BATCH}, {OPTIM_STEPS} steps, {n_params} parameters: step ms (fwd + bwd + optimizer) WDSplitAdamW "
+          f"{', '.join(f'{t:.3f}' for t in step_ms['split'])}, FlatAdamW {', '.join(f'{t:.3f}' for t in step_ms['flat'])}; "
+          f"the optimizer alone (CUDA events) {', '.join(f'{t:.3f}' for t in opt_ms['split'])} / "
+          f"{', '.join(f'{t:.3f}' for t in opt_ms['flat'])} ms")
+    print(f"  parameters flat vs default from the same gradients: err/tol {err_per_tol:.3f} (two ulps of |p| + 1e-6 lr an "
+          f"update); the flat module's own gradients {grad_rel:.3e} of their norm (tol {OPTIM_GRAD_TOL:.0e}); moved up to {moved:.3e}")
+    if not (err_per_tol <= 1.0 and grad_rel <= OPTIM_GRAD_TOL and moved > 0):
+        fail("FlatAdamW disagrees with WDSplitAdamW on the card (or nothing moved)")
+    out = dict(steps=OPTIM_STEPS, batch=SSL_BATCH, parameters=n_params, step_ms=step_ms, optimizer_ms=opt_ms,
+               split_step_ms_median=statistics.median(step_ms["split"]), flat_step_ms_median=statistics.median(step_ms["flat"]),
+               split_optimizer_ms_median=statistics.median(opt_ms["split"]), flat_optimizer_ms_median=statistics.median(opt_ms["flat"]),
+               param_err_per_tol=err_per_tol, grad_rel=grad_rel, lr_max=lr_max, launches=launches)
+    out["gumbel_vq"] = vq_check(GumbelVectorQuantizer)
+    return out
+
+
+def vq_check(quantizer_cls) -> dict:
+    """The Gumbel quantizer (its defaults: 320 codes, 2 groups, 256 wide; on ViT-small tokens, 384
+    wide, batch 8 x 196) in hard training mode on the card against the CPU, the same weights and
+    uniform draws: outputs and the straight-through gradients."""
+    torch.manual_seed(15)
+    cpu = quantizer_cls(384)
+    card = copy.deepcopy(cpu).to("cuda")
+    g = torch.Generator().manual_seed(15)
+    x = torch.randn((8, 196, 384), generator=g)
+    u = torch.rand((8, 196, 2, 320), generator=g)
+    res = {}
+    for name, m, dev in (("cpu", cpu, "cpu"), ("card", card, "cuda")):
+        out = m(x.to(dev), 1000, uniform=u.to(dev))
+        (out["quantized"] ** 2).sum().backward()
+        res[name] = dict(out={k: v.detach().cpu() for k, v in out.items()}, grads={n: p.grad.cpu() for n, p in m.named_parameters()})
+    torch.cuda.synchronize()
+    a, b = res["card"]["out"], res["cpu"]["out"]
+    with torch.no_grad():
+        logits = cpu.weight_proj(x).reshape(8, 196, 2, 320) + (-torch.log(-torch.log(u + 1e-10) + 1e-10))
+        top2 = torch.topk(torch.softmax(logits / cpu.temperature(1000), -1), 2, dim=-1).values
+    sel_a, sel_b = a["quantized"], b["quantized"]
+    flipped = ((sel_a - sel_b).abs().reshape(8, 196, 2, -1).amax(-1) > VQ_TOL)
+    near_tie = (top2[..., 0] - top2[..., 1]) < VQ_TOL
+    errs = dict(
+        probs_rel=((a["probs"] - b["probs"]).abs().max() / b["probs"].abs().max()).item(),
+        perplexity_rel=abs(a["perplexity"].item() - b["perplexity"].item()) / b["perplexity"].item(),
+        quantized_max_abs_err=(sel_a - sel_b).reshape(8, 196, 2, -1)[~flipped].abs().max().item(),
+        flipped_codes=int(flipped.sum()),
+        grad_rel=max(((res["card"]["grads"][n] - gb).norm() / gb.norm()).item() for n, gb in res["cpu"]["grads"].items()),
+    )
+    print(f"  GumbelVectorQuantizer (8 x 196 x 384 -> 2 x 320 codes) card vs CPU, same draws: {json.dumps(errs)} (tol {VQ_TOL:.0e})")
+    if bool((flipped & ~near_tie).any()) or not all(errs[k] <= VQ_TOL for k in ("probs_rel", "perplexity_rel", "quantized_max_abs_err", "grad_rel")):
+        fail("GumbelVectorQuantizer on the card disagrees with the CPU")
+    return errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2344,6 +2615,12 @@ def main() -> int:
 
         print("[13] the PPO feature variants through their CLIs, then the RL side's evaluation and reconstruction")
         variants = variants_phase()
+
+        print("[14] serving artifacts: torch.export of the flagship policy and encoder through the m3l:: operators, and the export CLI")
+        exported = export_phase()
+
+        print("[15] the flat-buffer AdamW against the default on MAE steps, and the Gumbel quantizer, card vs CPU")
+        optim = optim_phase()
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)  # MAE_CKPT and whatever a failed phase left
 
@@ -2364,7 +2641,8 @@ def main() -> int:
                     **{f"multimodal_transformer_{run}": vtdino["multimodal_transformer"][run]["launches"][name] for run in ("shared", "factored")},
                     variants_check=sum(c["launches"].get(name, 0) for c in variants["f32_check"].values()),
                     **{f"variant_{cli}": variants[cli]["launches"][name] for cli in VARIANT_CLIS},
-                    **{run: variants[run]["launches"].get(name, 0) for run in ("reconstruct_early_conv", "reconstruct_patch", "eval_callback")})
+                    **{run: variants[run]["launches"].get(name, 0) for run in ("reconstruct_early_conv", "reconstruct_patch", "eval_callback")},
+                    export=exported["launches"].get(name, 0), optim=optim["launches"].get(name, 0))
 
     def ssl_shapes(kind):
         """The packed kernel of this direction at the SSL slices' shapes and the training shape, f32
@@ -2424,6 +2702,8 @@ def main() -> int:
     print(json.dumps({"forcefield": forcefield}))
     print(json.dumps({"vtdino": vtdino}))
     print(json.dumps({"variants": variants}))
+    print(json.dumps({"export": exported}))
+    print(json.dumps({"optim": optim}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

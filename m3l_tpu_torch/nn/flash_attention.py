@@ -3,10 +3,12 @@
 
 * ``flash_attention_qkv`` (v2, every model path): the packed qkv projection (B, N, 3*H*Dh) in,
   (B, N, H*Dh) out; the Pallas kernels ``_fwd_qkv_kernel`` and ``_bwd_qkv_kernel`` behind the
-  custom VJP ``_flash_qkv``; here ``csrc/flash_attention_qkv_fwd.cu`` and ``_bwd.cu``.
+  custom VJP ``_flash_qkv``; here ``csrc/flash_attention_qkv_fwd.cu`` and ``_bwd.cu``, behind the
+  operators ``m3l::flash_attention_qkv`` and ``m3l::flash_attention_qkv_bwd``.
 * ``flash_attention`` (v1, the attention-layer bench): q, k, v (B, N, H, Dh) in and out, split
   into heads through device memory as JAX's ``collapse`` does; the Pallas kernels ``_fwd_kernel``
-  and ``_bwd_kernel`` behind ``_flash``; here ``csrc/flash_attention_fwd.cu`` and ``_bwd.cu``.
+  and ``_bwd_kernel`` behind ``_flash``; here ``csrc/flash_attention_fwd.cu`` and ``_bwd.cu``,
+  behind ``m3l::flash_attention`` and ``m3l::flash_attention_bwd``.
 
 Both pairs compute one function and share their kernel bodies, all on the tensor cores (bf16:
 ``csrc/flash_attention_fwd_mma.cuh`` and ``csrc/flash_attention_bwd_mma.cuh``; f32 in 3xTF32,
@@ -14,10 +16,17 @@ each operand split into two TF32 terms: ``csrc/flash_attention_fwd_tf32.cuh`` an
 ``csrc/flash_attention_bwd_tf32.cuh``), which take heads of any length (a head too long
 for shared memory streams through it in tiles). So the split-head interface is the packed one
 with batch B*H and one head: its plain versions are the packed ones on ``cat([q, k, v], -1)``,
-and so are its tolerances. Each interface routes through one ``torch.autograd.Function`` on every device: on a
-CUDA tensor it launches the kernels or raises; on a CPU tensor it runs the plain versions
-(:func:`flash_attention_qkv_reference`, :func:`flash_attention_qkv_bwd_reference` and their v1
-counterparts), the same arithmetic in plain PyTorch.
+and so are its tolerances.
+
+Each kernel is a ``torch.library`` operator in the ``m3l`` namespace, registered when this module
+is imported: a CUDA implementation that launches the kernel or raises, a CPU implementation that
+runs the plain version (:func:`flash_attention_qkv_reference`,
+:func:`flash_attention_qkv_bwd_reference` and their v1 counterparts, the same arithmetic in plain
+PyTorch), a fake implementation that gives the output's shape, dtype and device, and, for each
+forward, its backward operator as the autograd formula (``register_autograd``). No other device
+has an implementation. A ``torch.export`` graph keeps each call as one operator node, which
+dispatches when the graph runs: an artifact exported on the CPU and moved to the card launches
+the kernels there.
 """
 from __future__ import annotations
 
@@ -275,26 +284,62 @@ def _launch_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, bias: torch.
     return dqkv
 
 
-class _FlashQKV(torch.autograd.Function):
-    """Forward and backward of the packed attention; saves ``qkv`` and the key bias, as the
-    TPU custom VJP ``_flash_qkv_fwd`` does. The bias gets no gradient."""
+# The packed pair as registered operators: one route on every device, and one node in a
+# ``torch.export`` graph, which dispatches when the graph runs (the kernel on a CUDA tensor, the
+# plain version on a CPU tensor; no other device has an implementation). Each implementation
+# looks ``_launch`` / ``_fwd_plain`` up when it is called, so a caller that replaces them (a test
+# counting calls, a check against the plain attention on the card) reaches every route.
+_LIB = torch.library.Library("m3l", "DEF")
+_LIB.define("flash_attention_qkv(Tensor qkv, Tensor? bias, int num_heads, float scale) -> Tensor")
+_LIB.define("flash_attention_qkv_bwd(Tensor qkv, Tensor? bias, Tensor g, int num_heads, float scale) -> Tensor")
 
-    @staticmethod
-    def forward(ctx, qkv, bias, num_heads, scale):
-        ctx.save_for_backward(qkv, bias)
-        ctx.num_heads, ctx.scale = num_heads, scale
-        if qkv.device.type == "cuda":
-            return _launch(qkv, num_heads, bias, scale)
-        return _fwd_plain(qkv, num_heads, bias, scale)
 
-    @staticmethod
-    def backward(ctx, g):
-        qkv, bias = ctx.saved_tensors
-        if qkv.device.type == "cuda":
-            dqkv = _launch_bwd(qkv, g, ctx.num_heads, bias, ctx.scale)
-        else:
-            dqkv = _bwd_plain(qkv, g, ctx.num_heads, bias, ctx.scale)
-        return dqkv, None, None, None
+def _qkv_cuda(qkv, bias, num_heads, scale):
+    return _launch(qkv, num_heads, bias, scale)
+
+
+def _qkv_cpu(qkv, bias, num_heads, scale):
+    return _fwd_plain(qkv, num_heads, bias, scale)
+
+
+def _qkv_fake(qkv, bias, num_heads, scale):
+    b, n, thd = qkv.shape
+    return qkv.new_empty((b, n, thd // 3))
+
+
+def _qkv_bwd_cuda(qkv, bias, g, num_heads, scale):
+    return _launch_bwd(qkv, g, num_heads, bias, scale)
+
+
+def _qkv_bwd_cpu(qkv, bias, g, num_heads, scale):
+    return _bwd_plain(qkv, g, num_heads, bias, scale)
+
+
+def _qkv_bwd_fake(qkv, bias, g, num_heads, scale):
+    return torch.empty_like(qkv)
+
+
+def _qkv_setup_context(ctx, inputs, output):
+    """Saves ``qkv`` and the key bias, as the TPU custom VJP ``_flash_qkv_fwd`` does."""
+    qkv, bias, num_heads, scale = inputs
+    ctx.save_for_backward(qkv, bias)
+    ctx.num_heads, ctx.scale = num_heads, scale
+
+
+def _qkv_backward(ctx, g):
+    """The packed dqkv; the key bias, the head count and the scale get no gradient."""
+    qkv, bias = ctx.saved_tensors
+    return _QKV_BWD_OP(qkv, bias, g, ctx.num_heads, ctx.scale), None, None, None
+
+
+for _name, _cuda, _cpu, _fake in (("flash_attention_qkv", _qkv_cuda, _qkv_cpu, _qkv_fake),
+                                  ("flash_attention_qkv_bwd", _qkv_bwd_cuda, _qkv_bwd_cpu, _qkv_bwd_fake)):
+    _LIB.impl(_name, _cuda, "CUDA")
+    _LIB.impl(_name, _cpu, "CPU")
+    torch.library.register_fake(f"m3l::{_name}", _fake, lib=_LIB)
+torch.library.register_autograd("m3l::flash_attention_qkv", _qkv_backward, setup_context=_qkv_setup_context, lib=_LIB)
+_QKV_OP = torch.ops.m3l.flash_attention_qkv.default
+_QKV_BWD_OP = torch.ops.m3l.flash_attention_qkv_bwd.default
 
 
 def flash_attention_qkv(
@@ -312,7 +357,7 @@ def flash_attention_qkv(
         if key_mask.shape != (b, n) or key_mask.dtype != torch.bool or key_mask.device != qkv.device:
             raise ValueError(f"flash_attention_qkv: key_mask must be bool ({b}, {n}) on {qkv.device}")
         bias = _key_bias(key_mask).contiguous()
-    return _FlashQKV.apply(qkv, bias, num_heads, float(_default_scale(qkv, num_heads, scale)))
+    return _QKV_OP(qkv, bias, num_heads, float(_default_scale(qkv, num_heads, scale)))
 
 
 # --------------------------------------------------------------------------------------------- #
@@ -481,27 +526,58 @@ def _launch_v1_bwd(
     return dq, dk, dv
 
 
-class _FlashV1(torch.autograd.Function):
-    """Forward and backward of the split-head attention on collapsed (B*H, N, Dh) operands; saves
-    q, k, v and the key bias, as the TPU custom VJP ``_flash_fwd`` does. The bias gets no
-    gradient."""
+# The split-head pair as registered operators, on the collapsed (B*H, N, Dh) operands, as the
+# packed pair above.
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, Tensor? bias, float scale) -> Tensor")
+_LIB.define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor? bias, Tensor g, float scale) -> (Tensor, Tensor, Tensor)")
 
-    @staticmethod
-    def forward(ctx, q, k, v, bias, scale):
-        ctx.save_for_backward(q, k, v, bias)
-        ctx.scale = scale
-        if q.device.type == "cuda":
-            return _launch_v1(q, k, v, bias, scale)
-        return _v1_fwd_plain(q, k, v, bias, scale)
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, bias = ctx.saved_tensors
-        if q.device.type == "cuda":
-            dq, dk, dv = _launch_v1_bwd(q, k, v, g, bias, ctx.scale)
-        else:
-            dq, dk, dv = _v1_bwd_plain(q, k, v, g, bias, ctx.scale)
-        return dq, dk, dv, None, None
+def _v1_cuda(q, k, v, bias, scale):
+    return _launch_v1(q, k, v, bias, scale)
+
+
+def _v1_cpu(q, k, v, bias, scale):
+    return _v1_fwd_plain(q, k, v, bias, scale)
+
+
+def _v1_fake(q, k, v, bias, scale):
+    return torch.empty_like(q)
+
+
+def _v1_bwd_cuda(q, k, v, bias, g, scale):
+    return _launch_v1_bwd(q, k, v, g, bias, scale)
+
+
+def _v1_bwd_cpu(q, k, v, bias, g, scale):
+    # three outputs of their own, not views of one packed dqkv
+    return tuple(t.clone(memory_format=torch.contiguous_format) for t in _v1_bwd_plain(q, k, v, g, bias, scale))
+
+
+def _v1_bwd_fake(q, k, v, bias, g, scale):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _v1_setup_context(ctx, inputs, output):
+    """Saves q, k, v and the key bias, as the TPU custom VJP ``_flash_fwd`` does."""
+    q, k, v, bias, scale = inputs
+    ctx.save_for_backward(q, k, v, bias)
+    ctx.scale = scale
+
+
+def _v1_backward(ctx, g):
+    """(dq, dk, dv); the key bias and the scale get no gradient."""
+    q, k, v, bias = ctx.saved_tensors
+    return (*_V1_BWD_OP(q, k, v, bias, g, ctx.scale), None, None)
+
+
+for _name, _cuda, _cpu, _fake in (("flash_attention", _v1_cuda, _v1_cpu, _v1_fake),
+                                  ("flash_attention_bwd", _v1_bwd_cuda, _v1_bwd_cpu, _v1_bwd_fake)):
+    _LIB.impl(_name, _cuda, "CUDA")
+    _LIB.impl(_name, _cpu, "CPU")
+    torch.library.register_fake(f"m3l::{_name}", _fake, lib=_LIB)
+torch.library.register_autograd("m3l::flash_attention", _v1_backward, setup_context=_v1_setup_context, lib=_LIB)
+_V1_OP = torch.ops.m3l.flash_attention.default
+_V1_BWD_OP = torch.ops.m3l.flash_attention_bwd.default
 
 
 def flash_attention(
@@ -520,5 +596,5 @@ def flash_attention(
         if key_mask.shape != (b, n) or key_mask.dtype != torch.bool or key_mask.device != q.device:
             raise ValueError(f"flash_attention: key_mask must be bool ({b}, {n}) on {q.device}")
         bias = _key_bias(_v1_mask(key_mask, h)).contiguous()
-    out = _FlashV1.apply(_collapse(q), _collapse(k), _collapse(v), bias, float(_v1_scale(q, scale)))
+    out = _V1_OP(_collapse(q), _collapse(k), _collapse(v), bias, float(_v1_scale(q, scale)))
     return _uncollapse(out, h)

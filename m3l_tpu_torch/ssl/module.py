@@ -4,11 +4,13 @@
   differentiates it with respect to :meth:`SSLModule.trainable_parameters`.
 * :meth:`SSLModule.on_train_batch_end`: the post-update hook (EMA teachers, loss centers).
 * :meth:`SSLModule.configure_optimizer`: AdamW with the weight-decay split (>= 2-D parameters
-  decayed) and the warm-up-cosine lr / cosine wd schedules.
+  decayed) and the warm-up-cosine lr / cosine wd schedules; the flat-buffer AdamW
+  (``train/optim.py`` :class:`FlatAdamW`) where a module sets ``_flat_optimizer``, as JAX's
+  ``scripts/bench_ssl.py`` does.
 
 :class:`WDSplitAdamW` is ``optax.inject_hyperparams(optax.adamw)(lr, wd, b1, b2, mask=wd_mask)``
 on ``torch.optim.AdamW`` with two parameter groups, optionally behind ``clip_by_global_norm``
-and ``optax.MultiSteps``, as the Trainer chains them.
+and ``optax.MultiSteps`` (``train/optim.py`` :class:`GradientChain`), as the Trainer chains them.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Callable, Iterable, Optional, Sequence
 import torch
 from torch import nn
 
+from ..train.optim import FlatAdamW, GradientChain
 from .schedulers import cosine_wd_schedule, warmup_cosine_schedule
 
 
@@ -35,9 +38,7 @@ class SSLModule(nn.Module):
     def on_train_batch_end(self, aux: dict, step: int) -> None:
         """Post-update hook (EMA, centers). Default: nothing."""
 
-    def configure_optimizer(self, steps_per_epoch: int, epochs: int) -> "WDSplitAdamW":
-        if getattr(self, "_flat_optimizer", False):
-            raise NotImplementedError("the flat-buffer AdamW opt-in is not ported")
+    def configure_optimizer(self, steps_per_epoch: int, epochs: int) -> GradientChain:
         return default_wd_split_optimizer(
             self.trainable_parameters().values(),
             base_lr=getattr(self, "base_lr", 1e-4),
@@ -49,6 +50,8 @@ class SSLModule(nn.Module):
             weight_decay=getattr(self, "weight_decay", 0.04),
             final_weight_decay=getattr(self, "final_weight_decay", None),
             betas=getattr(self, "betas", (0.9, 0.999)),
+            # the flat-buffer AdamW: an opt-in, set on the module before fit()
+            flat=getattr(self, "_flat_optimizer", False),
         )
 
 
@@ -64,19 +67,11 @@ def wd_mask(params: Iterable[torch.Tensor]) -> list[bool]:
     return [p.dim() >= 2 for p in params]
 
 
-def _global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(g * g) for g in grads))
-
-
-class WDSplitAdamW:
+class WDSplitAdamW(GradientChain):
     """AdamW over ``params`` in two groups (decayed where :func:`wd_mask` holds, else not), lr and
     wd read from their schedules at the pre-increment count before every update, as optax's
-    ``inject_hyperparams`` does. The update is -lr (m_hat / (sqrt(v_hat) + eps) + wd p).
-
-    ``clip_norms`` are applied in order before the update, each as ``optax.clip_by_global_norm``:
-    g * max / |g| only where |g| > max (no epsilon). With ``every_k`` > 1, as ``optax.MultiSteps``,
-    :meth:`step` averages k gradients (acc += (g - acc) / (n + 1)) and applies them on the k-th
-    call; only that call advances :attr:`count`, and so the schedules."""
+    ``inject_hyperparams`` does. The update is -lr (m_hat / (sqrt(v_hat) + eps) + wd p), behind
+    the chain's clipping and accumulation (:class:`GradientChain`)."""
 
     def __init__(
         self,
@@ -88,40 +83,15 @@ class WDSplitAdamW:
         clip_norms: Sequence[float] = (),
         every_k: int = 1,
     ):
-        self.params = list(params)
+        super().__init__(params, clip_norms, every_k)
         decay = [p for p, m in zip(self.params, wd_mask(self.params)) if m]
         no_decay = [p for p, m in zip(self.params, wd_mask(self.params)) if not m]
         groups = [{"params": decay}, {"params": no_decay, "weight_decay": 0.0}]
         self.adamw = torch.optim.AdamW([g for g in groups if g["params"]], lr=0.0, betas=tuple(betas), eps=eps, weight_decay=0.0)
         self._decay_group = self.adamw.param_groups[0] if decay else None
         self.learning_rate, self.weight_decay = learning_rate, weight_decay
-        self.clip_norms, self.every_k = tuple(clip_norms), every_k
-        self.count = 0
-        self.mini_step = 0
-        self.acc: list[torch.Tensor] | None = None
 
-    def _grads(self) -> list[torch.Tensor]:
-        return [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
-
-    def zero_grad(self) -> None:
-        for p in self.params:
-            p.grad = None
-
-    @torch.no_grad()
-    def step(self) -> bool:
-        """One call per batch, from the parameters' gradients; returns whether it updated them."""
-        grads = self._grads()
-        if self.every_k > 1:
-            if self.acc is None:
-                self.acc = [torch.zeros_like(g) for g in grads]
-            self.acc = [a + (g - a) / (self.mini_step + 1) for a, g in zip(self.acc, grads)]
-            if self.mini_step < self.every_k - 1:
-                self.mini_step += 1
-                return False
-            grads, self.acc, self.mini_step = self.acc, None, 0
-        for max_norm in self.clip_norms:
-            norm = _global_norm(grads)
-            grads = [torch.where(norm < max_norm, g, (g / norm) * max_norm) for g in grads]
+    def _apply(self, grads: list[torch.Tensor]) -> None:
         for p, g in zip(self.params, grads):
             p.grad = g
         wd = self.weight_decay(self.count) if callable(self.weight_decay) else self.weight_decay
@@ -130,17 +100,14 @@ class WDSplitAdamW:
         if self._decay_group is not None:
             self._decay_group["weight_decay"] = wd
         self.adamw.step()
-        self.count += 1
-        return True
 
     def state_dict(self) -> dict:
-        return {"adamw": self.adamw.state_dict(), "count": self.count, "mini_step": self.mini_step, "acc": self.acc}
+        return {"adamw": self.adamw.state_dict(), **super().state_dict()}
 
     def load_state_dict(self, d: dict) -> None:
         """Restore a :meth:`state_dict`; AdamW's moments land on their parameters' devices."""
         self.adamw.load_state_dict(d["adamw"])
-        self.count, self.mini_step = int(d["count"]), int(d["mini_step"])
-        self.acc = None if d["acc"] is None else [a.to(p.device) for a, p in zip(d["acc"], self.params)]
+        super().load_state_dict(d)
 
 
 def default_wd_split_optimizer(
@@ -156,7 +123,12 @@ def default_wd_split_optimizer(
     final_weight_decay: Optional[float] = None,
     betas=(0.9, 0.999),
     clip_norm: Optional[float] = None,
-) -> WDSplitAdamW:
+    flat: bool = False,
+) -> GradientChain:
+    """AdamW with the weight-decay split and the schedules: :class:`WDSplitAdamW`, or with
+    ``flat`` the flat-buffer :class:`FlatAdamW` (the same updates up to rounding order), each
+    behind global-norm clipping at ``clip_norm`` when it is set, as ``optax.chain`` puts it."""
     lr = warmup_cosine_schedule(base_lr, start_lr, final_lr, warmup_epochs * steps_per_epoch, total_steps)
     wd = cosine_wd_schedule(weight_decay, final_weight_decay, total_steps) if final_weight_decay is not None else weight_decay
-    return WDSplitAdamW(params, lr, wd, betas=betas, clip_norms=() if clip_norm is None else (clip_norm,))
+    adamw = FlatAdamW if flat else WDSplitAdamW
+    return adamw(params, lr, wd, betas=betas, clip_norms=() if clip_norm is None else (clip_norm,))

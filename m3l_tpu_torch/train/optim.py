@@ -1,5 +1,6 @@
 """Adam over one flat f32 moment pair: :class:`FlatAdam`, the counterpart of
-``m3l_tpu/train/optim.py`` ``flat_adam``.
+``m3l_tpu/train/optim.py`` ``flat_adam``; AdamW over flat f32 buffers: :class:`FlatAdamW`, the
+counterpart of ``flat_adamw``, behind the SSL Trainer's chain (:class:`GradientChain`).
 
 The same math as ``optax.chain(optax.clip_by_global_norm(c), optax.adam(lr, eps=...))``: the
 gradients of all parameters are raveled into one f32 vector, clipped by their global norm
@@ -11,6 +12,12 @@ JAX package this is plain XLA, not a Pallas kernel; here it is plain PyTorch.
 
 Unlike the JAX version, which returns updates for donated parameters, :meth:`FlatAdam.step`
 updates the parameters in place.
+
+:class:`FlatAdamW` is ``flat_adamw``: the reference's weight-decay split (decay only parameters of
+2 or more dimensions) as a flat 0/1 mask, and -lr (mu_hat / (sqrt(nu_hat) + eps) + wd mask p) for
+the update, lr and wd scalars or schedules read at the pre-increment count. Its parameters live in
+one flat f32 buffer (each parameter becomes a view of it), so the whole update is a few
+elementwise passes over three vectors with no copy back.
 """
 from __future__ import annotations
 
@@ -81,3 +88,114 @@ class FlatAdam:
         self.mu = d["mu"].to(dev, torch.float32, copy=True)
         self.nu = d["nu"].to(dev, torch.float32, copy=True)
 
+
+
+def _global_norm(grads) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(g * g) for g in grads))
+
+
+class GradientChain:
+    """What the SSL Trainer chains in front of an AdamW, over ``params``' gradients: ``clip_norms``
+    applied in order, each as ``optax.clip_by_global_norm`` (g * max / |g| only where |g| > max,
+    no epsilon); with ``every_k`` > 1, as ``optax.MultiSteps``, :meth:`step` averages k gradients
+    (acc += (g - acc) / (n + 1)) and applies them on the k-th call, and only that call advances
+    :attr:`count`, and so the schedules. A subclass applies the gradients in :meth:`_apply`."""
+
+    def __init__(self, params: Iterable[torch.nn.Parameter], clip_norms=(), every_k: int = 1):
+        self.params = list(params)
+        self.clip_norms, self.every_k = tuple(clip_norms), every_k
+        self.count = 0
+        self.mini_step = 0
+        self.acc: list[torch.Tensor] | None = None
+
+    def _grads(self) -> list[torch.Tensor]:
+        return [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    def _apply(self, grads: list[torch.Tensor]) -> None:
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def step(self) -> bool:
+        """One call per batch, from the parameters' gradients; returns whether it updated them."""
+        grads = self._grads()
+        if self.every_k > 1:
+            if self.acc is None:
+                self.acc = [torch.zeros_like(g) for g in grads]
+            self.acc = [a + (g - a) / (self.mini_step + 1) for a, g in zip(self.acc, grads)]
+            if self.mini_step < self.every_k - 1:
+                self.mini_step += 1
+                return False
+            grads, self.acc, self.mini_step = self.acc, None, 0
+        for max_norm in self.clip_norms:
+            norm = _global_norm(grads)
+            grads = [torch.where(norm < max_norm, g, (g / norm) * max_norm) for g in grads]
+        self._apply(grads)
+        self.count += 1
+        return True
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "mini_step": self.mini_step, "acc": self.acc}
+
+    def load_state_dict(self, d: dict) -> None:
+        self.count, self.mini_step = int(d["count"]), int(d["mini_step"])
+        self.acc = None if d["acc"] is None else [a.to(p.device) for a, p in zip(d["acc"], self.params)]
+
+
+class FlatAdamW(GradientChain):
+    """AdamW over one flat f32 buffer each for the parameters, the first and the second moment,
+    with a flat 0/1 decay mask (1 on parameters of 2 or more dimensions). ``learning_rate`` and
+    ``weight_decay`` are scalars or schedules of the step count. Every parameter must be f32; each
+    becomes a view of :attr:`flat`, so build the optimizer after the module is on its device."""
+
+    def __init__(
+        self,
+        params: Iterable[torch.nn.Parameter],
+        learning_rate: float | Callable[[int], float],
+        weight_decay: float | Callable[[int], float],
+        betas=(0.9, 0.999),
+        eps: float = 1e-8,
+        clip_norms=(),
+        every_k: int = 1,
+    ):
+        super().__init__(params, clip_norms, every_k)
+        if any(p.dtype != torch.float32 for p in self.params):
+            raise TypeError("FlatAdamW: every parameter must be float32")
+        self.learning_rate, self.weight_decay, (self.b1, self.b2), self.eps = learning_rate, weight_decay, betas, eps
+        dev = self.params[0].device
+        self.flat = torch.cat([p.detach().reshape(-1) for p in self.params])
+        self.mask = torch.cat([torch.full((p.numel(),), float(p.dim() >= 2), device=dev) for p in self.params])
+        offset = 0
+        for p in self.params:
+            p.data = self.flat[offset : offset + p.numel()].view_as(p)
+            offset += p.numel()
+        self.mu = torch.zeros_like(self.flat)
+        self.nu = torch.zeros_like(self.flat)
+
+    def _apply(self, grads: list[torch.Tensor]) -> None:
+        g = torch.cat([x.reshape(-1) for x in grads])
+        t = self.count + 1
+        self.mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
+        self.nu.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
+        mu_hat = self.mu / (1.0 - self.b1**t)
+        nu_hat = self.nu / (1.0 - self.b2**t)
+        lr = self.learning_rate(self.count) if callable(self.learning_rate) else self.learning_rate
+        wd = self.weight_decay(self.count) if callable(self.weight_decay) else self.weight_decay
+        self.flat.add_(-lr * (mu_hat / (torch.sqrt(nu_hat) + self.eps) + wd * self.mask * self.flat))
+
+    def state_dict(self) -> dict:
+        """The chain's state and both flat moments (the JAX ``FlatAdamWState`` but the mask, which
+        the parameters' shapes give)."""
+        return {**super().state_dict(), "mu": self.mu, "nu": self.nu}
+
+    def load_state_dict(self, d: dict) -> None:
+        """Restore a :meth:`state_dict`; the moments land on the parameters' device."""
+        for k in ("mu", "nu"):
+            if tuple(d[k].shape) != tuple(self.mu.shape):
+                raise ValueError(f"FlatAdamW: saved {k} has {tuple(d[k].shape)} values, this optimizer {tuple(self.mu.shape)}")
+        super().load_state_dict(d)
+        self.mu.copy_(d["mu"])
+        self.nu.copy_(d["nu"])

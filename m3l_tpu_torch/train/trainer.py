@@ -1,7 +1,7 @@
 """SSL training loop (counterpart of ``m3l_tpu/train/trainer.py``).
 
 Epoch fit and validation loops, gradient accumulation and clipping (``optax.MultiSteps`` and
-``clip_by_global_norm`` semantics, :class:`..ssl.module.WDSplitAdamW`), the module's lr / wd
+``clip_by_global_norm`` semantics, :class:`.optim.GradientChain`), the module's lr / wd
 schedules, ``last.ckpt`` every epoch with periodic ``epoch-%04d.ckpt`` and log-spaced
 trainable-only ``task-%04d.ckpt``, resume from ``last.ckpt``, and a save on SIGTERM / SIGUSR1.
 
@@ -17,14 +17,16 @@ from __future__ import annotations
 import os
 import signal
 import time
-from typing import Iterable, Optional
+from typing import TYPE_CHECKING, Iterable, Optional
 
 import numpy as np
 import torch
 
-from ..ssl.module import SSLModule
 from ..utils.device import resolve_device
 from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
+
+if TYPE_CHECKING:  # ssl.module imports train.optim: a run-time import here would be circular
+    from ..ssl.module import SSLModule
 
 
 class Trainer:

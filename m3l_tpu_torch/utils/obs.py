@@ -44,7 +44,9 @@ def vt_load(x: dict, frame_stack: int = 1) -> dict:
                 f"tactile channels {tac.shape[1]} not divisible into 3-channel sensors x frame_stack {frame_stack}"
             )
         # de-interleave: sensor k, frame f lives at channels f*per_frame + 3k + {0,1,2}
-        base = (torch.arange(frame_stack)[:, None] * per_frame + torch.arange(3)[None, :]).reshape(-1).to(tac.device)
+        # built on the obs's device: no host-to-device copy per request
+        base = (torch.arange(frame_stack, device=tac.device)[:, None] * per_frame
+                + torch.arange(3, device=tac.device)[None, :]).reshape(-1)
         for k in range(per_frame // 3):
             sel = tac.index_select(1, base + 3 * k).permute(0, 2, 3, 1)  # (B, H, W, 3*fs)
             out[f"tactile{k + 1}"] = _unit_range(sel)

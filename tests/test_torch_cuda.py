@@ -719,3 +719,79 @@ def test_f32_multimodal_transformer_matches_the_cpu(card, shared):
     assert (out.cpu() - ref).abs().max() <= 1e-5
     for (name, a), b in zip(gpu.named_parameters(), cpu.parameters()):
         assert (a.grad.cpu() - b.grad).norm() <= 1e-5 * b.grad.norm(), name
+
+
+# --------------------------------------------------------------------------------------------- #
+# the m3l:: operators on the card, and a torch.export artifact exported on the CPU run there
+# --------------------------------------------------------------------------------------------- #
+OPERATORS = ["flash_attention_qkv", "flash_attention_qkv_bwd", "flash_attention", "flash_attention_bwd"]
+
+
+def operator_args(card, name: str, masked: bool):
+    """Small f32 arguments of each operator on the card: batch 2, N 10, 2 heads of 8 (v1: 4 x 10 x 8)."""
+    g = torch.Generator(device=card).manual_seed(0)
+    grad = not name.endswith("bwd")
+    if name.startswith("flash_attention_qkv"):
+        qkv = torch.randn(2, 10, 48, generator=g, device=card).requires_grad_(grad)
+        bias = fa._key_bias(torch.rand(2, 10, generator=g, device=card) > 0.3) if masked else None
+        return (qkv, bias, 2, 8**-0.5) if grad else (qkv, bias, torch.randn(2, 10, 16, generator=g, device=card), 2, 8**-0.5)
+    q, k, v = (torch.randn(4, 10, 8, generator=g, device=card).requires_grad_(grad) for _ in range(3))
+    bias = fa._key_bias(torch.rand(4, 10, generator=g, device=card) > 0.3) if masked else None
+    return (q, k, v, bias, 8**-0.5) if grad else (q, k, v, bias, torch.randn(4, 10, 8, generator=g, device=card), 8**-0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("name", OPERATORS)
+def test_opcheck_on_the_card(card, name, masked):
+    """The operators' CUDA implementations against their fake ones and autograd formulas (the
+    backward operators have none of their own: the kernels are differentiated once)."""
+    from torch.library import opcheck
+
+    no_autograd = dict(test_utils=("test_schema", "test_faketensor", "test_aot_dispatch_dynamic"))
+    opcheck(getattr(torch.ops.m3l, name).default, operator_args(card, name, masked), **(no_autograd if name.endswith("bwd") else {}))
+
+
+@pytest.mark.cuda
+def test_artifact_exported_on_the_cpu_launches_the_kernel_on_the_card(card, tmp_path):
+    import numpy as np
+
+    from m3l_tpu_torch import serve
+    from m3l_tpu_torch.kernels import reset_launches
+    from m3l_tpu_torch.models import VTTConfig
+
+    torch.manual_seed(0)
+    cfg = VTTConfig(dim=64, depth=2, heads=2, mlp_dim=128, num_tactiles=2, frame_stack=1)
+    policy = serve.build_policy(cfg, decoder_depth=2, decoder_heads=2, dtype=torch.float32, device="cpu")
+    obs = serve.random_obs(np.random.default_rng(0), 2, frame_stack=1)
+    path = str(tmp_path / "policy.pt2")
+    serve.save_artifact(path, serve.export_policy(policy, obs, action_low=[-1.0] * 3, action_high=[1.0] * 3))
+    program = serve.load_artifact(path, device=card)
+    assert sum(str(n.target) == "m3l.flash_attention_qkv.default" for n in program.graph.nodes) == 3
+    server = serve.PolicyServer(copy.deepcopy(policy).to(card), action_low=[-1.0] * 3, action_high=[1.0] * 3)
+    reset_launches()
+    with torch.inference_mode():
+        got = program.module()(server.to_device(obs)).cpu().numpy()
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {KERNEL: 3}
+    np.testing.assert_allclose(got, server(obs), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_export_policy_on_another_device_than_the_policys(card):
+    """``device=`` exports a copy of the policy there (JAX's ``platforms``); the policy stays put."""
+    import numpy as np
+
+    from m3l_tpu_torch import serve
+    from m3l_tpu_torch.models import VTTConfig
+
+    torch.manual_seed(0)
+    cfg = VTTConfig(dim=64, depth=1, heads=2, mlp_dim=128, num_tactiles=2, frame_stack=1)
+    policy = serve.build_policy(cfg, decoder_depth=1, decoder_heads=2, dtype=torch.float32, device=card)
+    obs = serve.random_obs(np.random.default_rng(1), 2, frame_stack=1)
+    program = serve.export_policy(policy, obs, device="cpu")
+    assert policy.log_std.device.type == "cuda"
+    with torch.inference_mode():
+        got = program.module()({k: torch.as_tensor(v) for k, v in obs.items()}).numpy()
+    cpu = serve.PolicyServer(copy.deepcopy(policy).to("cpu"))
+    np.testing.assert_array_equal(got, cpu(obs))

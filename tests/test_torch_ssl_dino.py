@@ -198,20 +198,20 @@ def count_attention(monkeypatch):
     """Count the packed attention's forward and backward calls (CPU: its plain versions) in
     LAUNCHES, and those with a key mask in MASKED_LAUNCHES, as the CUDA wrappers count their
     launches."""
-    fwd, bwd = fa._FlashQKV.forward, fa._FlashQKV.backward
+    fwd, bwd = fa._fwd_plain, fa._bwd_plain
 
-    def forward(ctx, qkv, bias, *args):
+    def forward(qkv, num_heads, bias, scale):
         LAUNCHES[fa.KERNEL] += 1
         MASKED_LAUNCHES[fa.KERNEL] += bias is not None
-        return fwd(ctx, qkv, bias, *args)
+        return fwd(qkv, num_heads, bias, scale)
 
-    def backward(ctx, g):
+    def backward(qkv, g, num_heads, bias, scale):
         LAUNCHES[fa.BWD_KERNEL] += 1
-        MASKED_LAUNCHES[fa.BWD_KERNEL] += ctx.saved_tensors[1] is not None
-        return bwd(ctx, g)
+        MASKED_LAUNCHES[fa.BWD_KERNEL] += bias is not None
+        return bwd(qkv, g, num_heads, bias, scale)
 
-    monkeypatch.setattr(fa._FlashQKV, "forward", staticmethod(forward))
-    monkeypatch.setattr(fa._FlashQKV, "backward", staticmethod(backward))
+    monkeypatch.setattr(fa, "_fwd_plain", forward)
+    monkeypatch.setattr(fa, "_bwd_plain", backward)
 
 
 def dino_launches(depth: int) -> tuple[dict, dict]:

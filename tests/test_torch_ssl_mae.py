@@ -220,18 +220,18 @@ def test_adamw_steps_equal_optax(warmup, clip, every_k, final_wd):
 def count_attention(monkeypatch):
     """Count the packed attention's forward and backward calls (CPU: its plain versions) in
     LAUNCHES, as the CUDA wrappers count their launches."""
-    fwd, bwd = fa._FlashQKV.forward, fa._FlashQKV.backward
+    fwd, bwd = fa._fwd_plain, fa._bwd_plain
 
-    def forward(ctx, *args):
+    def forward(*args):
         LAUNCHES[fa.KERNEL] += 1
-        return fwd(ctx, *args)
+        return fwd(*args)
 
-    def backward(ctx, g):
+    def backward(*args):
         LAUNCHES[fa.BWD_KERNEL] += 1
-        return bwd(ctx, g)
+        return bwd(*args)
 
-    monkeypatch.setattr(fa._FlashQKV, "forward", staticmethod(forward))
-    monkeypatch.setattr(fa._FlashQKV, "backward", staticmethod(backward))
+    monkeypatch.setattr(fa, "_fwd_plain", forward)
+    monkeypatch.setattr(fa, "_bwd_plain", backward)
 
 
 @pytest.mark.parametrize("masked_only,layers", [(True, 2), (False, 3)])
