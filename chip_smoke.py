@@ -156,6 +156,24 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    own gradients within OPTIM_GRAD_TOL, 12 + 12 launches a step, and the step ms and the optimizer's
    ms of each; then the ``GumbelVectorQuantizer`` (its defaults on 8 x 196 ViT-small tokens) in hard
    training mode on the card against the CPU with the same uniform draws (VQ_TOL).
+16. the mesh (``m3l_tpu_torch/train/mesh.py``): the card is one H100, so the ranks of each group
+   share cuda:0 over gloo (nccl refuses two ranks on one device). The kernels are built first, by
+   this process; each rank only loads them. Against the single-process run on the card from the same
+   weights, buffer, indices and masks (MESH_TOL): (a) the flagship PPO+MAE ``train()`` (full width,
+   rollout 1024, minibatch 512, one epoch: two updates) in bf16 at dp 2, mp 2 and dp 2 x mp 2, and in
+   f32 with TF32 off at dp 2 x mp 2; (b) SAC at the SAC CLI's width and batch at dp 2 x mp 2,
+   ``train_steps(2)`` in bf16 and ``train_steps(1)`` in f32; (c) one MAE Trainer epoch at
+   mae_vit.yaml's width (f32, two batches of 64) at mp 2, its loss, each parameter's AdamW moments
+   and the parameters; (d) ``cli.train.main`` with ``--mesh_devices 2
+   --mesh_mp 2`` for one iteration, whose checkpoint restores into a single-process PPOMAE that
+   predicts the mesh's actions (SLICE_TOL); (e) a 1-rank nccl mesh through the same code, bit-equal
+   to no mesh (cuDNN deterministic for both). Every rank holds the replicated parameters bit-identical
+   to rank 0's and makes the single process's attention calls at batch / dp and heads / mp, each on
+   its dtype's body, at shapes phase 3 held (MESH_SHAPES). Each rank warms up on a throwaway copy
+   of its case before the timed run, and a 2-rank job shows where a dp 2 update's time goes (the
+   single-process update alone and with the other rank's at once, and a torch.profiler trace). A
+   rank's exception fails the phase. Ranks sharing one card measure no scaling: the update ms per
+   rank it prints show the shared card and gloo's host-staged collectives.
 
 Phase 3 also holds both packed kernels to their plain versions at the shapes of the SSL, probe,
 force-field, VTDINO, multimodal and PPO-variant paths (SSL_SHAPES, f32 and bf16, with and without a random key
@@ -176,7 +194,7 @@ and count the launches with a key mask (``MASKED_LAUNCHES``); so do phases 12 an
 The last lines are a {"kernels": [...]} JSON line, {"slice": ...}, {"train": ...},
 {"bench_attention": ...}, {"cli": ...}, {"sac": ...}, {"ssl": ...}, {"ssl_distill": ...},
 {"ssl_vjepa": ...}, {"evaluate": ...}, {"forcefield": ...}, {"vtdino": ...}, {"variants": ...},
-{"export": ...} and {"optim": ...} JSON lines, the card line as nvidia-smi prints it, and
+{"export": ...}, {"optim": ...} and {"mesh": ...} JSON lines, the card line as nvidia-smi prints it, and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -293,6 +311,13 @@ SSL_SHAPES = [(64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32), (64, 197, 6,
               (4, 197, 6, 64), (1, 37, 3, 64), (64, 76, 6, 64), (256, 76, 6, 64), (256, 193, 4, 64), (1024, 193, 4, 64),
               (256, 64, 8, 32), (4, 197, 12, 64), (4, 50, 12, 64), (4, 295, 12, 64),
               (1536, 30, 6, 64), (192, 30, 6, 64), (512, 3, 4, 64), (512, 75, 4, 64), (512, 15, 4, 64), (512, 50, 4, 64)]
+# each rank's share of phase 16's meshes, which hold heads / mp heads and batch / dp rows: the
+# flagship PPO+MAE update (its policy on 192 tokens, its MAE encoder on the 10 kept) at dp 2, mp 2
+# (the CLI's mesh too) and dp 2 x mp 2 with the rollout's 8 envs at mp 2, SAC's batch of 256 at
+# dp 2 x mp 2, and the MAE Trainer's ViT-small encoder (49 kept patches, 6 heads) at mp 2. Phase 16
+# fails if a rank runs a shape that phase 3 did not hold (HELD_SHAPES)
+MESH_SHAPES = [(256, 192, 4, 64), (256, 10, 4, 64), (512, 192, 2, 64), (512, 10, 2, 64), (8, 192, 2, 64), (256, 192, 2, 64),
+               (256, 10, 2, 64), (128, 192, 2, 64), (128, 10, 2, 64), (64, 49, 3, 64)]
 # the same kernels under the key masks the self-distillation paths give them (distill_mask): DINO's
 # global view and its four local views at once, the I-JEPA predictor's context, and VTDINO's global
 # and local views at its defaults and at its bf16 recipe
@@ -300,7 +325,7 @@ DISTILL_MASKED = [("global block", (64, 197, 6, 64)), ("local blocks", (256, 197
                   ("VTDINO global block", (64, 76, 6, 64)), ("VTDINO local blocks", (256, 76, 6, 64)),
                   ("VTDINO recipe global block", (256, 193, 4, 64)), ("VTDINO recipe local blocks", (1024, 193, 4, 64))]
 # each timed in f32 and bf16, unmasked: the SSL shapes, DINO's four local views at once, the training shape
-TIMED_SHAPES = SSL_SHAPES + [(256, 197, 6, 64), (SERVE_B, SERVE_N, SERVE_H, SERVE_DH)]
+TIMED_SHAPES = SSL_SHAPES + MESH_SHAPES + [(256, 197, 6, 64), (SERVE_B, SERVE_N, SERVE_H, SERVE_DH)]
 ALL_KERNELS = (KERNEL, BWD_KERNEL, V1_KERNEL, V1_BWD_KERNEL)
 CKPT_DIR = Path(__file__).resolve().parent / "smoke_checkpoints"
 MAE_CKPT = CKPT_DIR / "mae_vit_last.ckpt"  # phase 9's last.ckpt, kept for phase 11 and removed at the end
@@ -413,13 +438,18 @@ def split_heads(qkv, cot, h):
     return q, k, v, cot.view(b, n, h, thd // (3 * h))
 
 
+FWD_SHAPES = [(b, n, 4, 64) for b in (8, 512) for n in (10, 192)] + [(64, 196, 16, 64)]
+BWD_SHAPES = [(512, 192, 4, 64), (512, TRAIN_N_KEPT, 4, 64), (8, 192, 4, 64), (64, 196, 16, 64)]
+# the packed kernels' shapes that check_attention holds against their plain versions, by direction
+HELD_SHAPES = {"fwd": set(FWD_SHAPES + SSL_SHAPES + MESH_SHAPES), "bwd": set(BWD_SHAPES + SSL_SHAPES + MESH_SHAPES)}
+
+
 def check_attention() -> dict:
     """Every kernel against its plain version at every listed shape; returns the max abs errors
     at the training shape (B=512, N=192, bf16, no mask) keyed by kernel."""
-    fwd = [(b, n, 4, 64) for b in (8, 512) for n in (10, 192)] + [(64, 196, 16, 64)]
-    bwd = [(512, 192, 4, 64), (512, TRAIN_N_KEPT, 4, 64), (8, 192, 4, 64), (64, 196, 16, 64)]
     errs = {}
-    for kind, shapes in (("forward", fwd + SSL_SHAPES), ("backward", bwd + SSL_SHAPES), ("v1 forward", bwd), ("v1 backward", bwd)):
+    for kind, shapes in (("forward", FWD_SHAPES + SSL_SHAPES + MESH_SHAPES), ("backward", BWD_SHAPES + SSL_SHAPES + MESH_SHAPES),
+                         ("v1 forward", BWD_SHAPES), ("v1 backward", BWD_SHAPES)):
         cases = [(s, dt, m) for s in shapes for dt in (torch.bfloat16, torch.float32) for m in (False, True)]
         for i, ((b, n, h, dh), dtype, masked) in enumerate(cases):
             qkv, cot, mask = packed_qkv(b, n, h, dh, dtype, masked, seed=i)
@@ -2519,6 +2549,337 @@ def vq_check(quantizer_cls) -> dict:
     return errs
 
 
+# Phase 16: the mesh (m3l_tpu_torch/train/mesh.py) on the card. The card is one H100, so the ranks
+# of each group share cuda:0 and talk over gloo (nccl refuses two ranks on one device); a 1-rank
+# group runs nccl. Each mesh run is held against the single-process run on the card from the same
+# weights, buffer, indices and masks: the flagship PPO+MAE train() (rollout 1024: two minibatches
+# of 512, one epoch) in bf16 at dp 2, mp 2 and dp 2 x mp 2 and in f32 (TF32 off) at dp 2 x mp 2,
+# SAC at the SAC CLI's width at dp 2 x mp 2 (train_steps(2) in bf16, (1) in f32), one MAE Trainer epoch at
+# mae_vit.yaml's width (f32, 2 batches of 64) at mp 2, the training CLI at --mesh_devices 2
+# --mesh_mp 2, and a 1-rank nccl mesh bit-equal to no mesh. Shared ranks measure no scaling.
+MESH_ENVS, MESH_STEPS, MESH_LR, MESH_TIMEOUT = 8, 128, 1e-4, 600
+MESH_SAC_ENVS, MESH_SAC_TRANSITIONS = 4, 80
+MESH_MAE_BATCHES = 2
+# all-reduce sizes timed on the 2-rank group: the flagship's flat gradient (6.21 M parameters, f32)
+# and one of mp 2's g / f sums at full tokens (512 x 192 x 256 f32), with 1 MB for the latency
+MESH_ALLREDUCE_MB = [1, 24.84, 96]
+MESH_MAE_OVERRIDES = ["model.algorithm.warmup_epochs=0"]  # warm-up 0: the first steps move the parameters
+# mesh against single process on the card: each metric within rtol * |single| + atol; each
+# optimizer's flat first moment (after the run: a sum of its gradients, decayed) within moment_rel of
+# the single process's in norm; each parameter within param_per_lr * lr of the single process's; for
+# MAE the loss within loss_rel, each parameter's AdamW moments within moment_rel of their norm. Set
+# from runs on the H100 (NVIDIA H100 80GB HBM3, 700.00 W; the largest reading of each kind in
+# brackets), about 10x each: f32 PPO (TF32 off) metrics (1.386e-7 relative), moments (1.499e-7),
+# parameters (7.451e-5 lr; 3e-3 lr as phase 5's card-vs-CPU update); f32 SAC, one step, metrics
+# (6.340e-8), moments (1.713e-7), parameters (4.595e-4 lr; 5e-2 lr since Adam's first step moves a
+# parameter whose gradient is near zero by up to its gradient's noise over eps, ~1e-2 lr: two-step
+# runs read 7.457e-3 and 1.017e-2 lr); f32 MAE loss (equal), moments (7.955e-7), parameters (1.993e-3
+# lr). bf16 PPO at dp 2, mp 2 and dp 2 x mp 2 metrics (7.421e-5), moments (1.226e-3),
+# parameters (0.105 lr). bf16 SAC is a coarse check: metrics (1.013e-4), moments (the actor's Adam,
+# whose gradient comes through the critic on bf16 features: 1.791e-2), parameters (3.413 lr; a
+# gradient element near zero whose sign differs moves its parameter ~lr the other way in each Adam
+# step, two steps of two runs: up to ~5 lr apart, so that bound cannot tell much); the f32 SAC case
+# carries the strict check.
+MESH_TOL = {"ppo_float32": dict(rtol=2e-6, atol=1e-7, moment_rel=2e-6, param_per_lr=3e-3),
+            "ppo_bfloat16": dict(rtol=1e-3, atol=1e-5, moment_rel=1.5e-2, param_per_lr=1.0),
+            "sac_float32": dict(rtol=2e-6, atol=1e-7, moment_rel=2e-6, param_per_lr=5e-2),
+            "sac_bfloat16": dict(rtol=1e-3, atol=1e-5, moment_rel=0.2, param_per_lr=6.0),
+            "mae_float32": dict(loss_rel=1e-6, moment_rel=8e-6, param_per_lr=2e-2)}
+
+
+def mesh_ppo_case(dtype: str, seed: int = 16) -> dict:
+    """The flagship PPO+MAE case of phase 16: full width (serve.build_policy's defaults), a random
+    rollout of 128 steps x 8 envs at frame stack 4, minibatch 512, one epoch."""
+    torch.manual_seed(seed)
+    init = build_policy(dtype=torch.float32, device="cpu").state_dict()
+    rng = np.random.default_rng(seed)
+    t, e = MESH_STEPS, MESH_ENVS
+    obs = random_obs(rng, t * e)
+    normal = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
+    buffer = {"obs": {k: v.reshape(t, e, *v.shape[1:]) for k, v in obs.items()}, "actions": normal(t, e, ACTION_DIM),
+              "rewards": normal(t, e), "episode_starts": (rng.random((t, e)) < 0.01).astype(np.float32), "values": normal(t, e),
+              "log_probs": normal(t, e) - 3.0}
+    return dict(vtt=dict(frame_stack=FRAME_STACK), decoder_depth=3, decoder_heads=4, dtype=dtype, init=init, n_envs=e, n_steps=t,
+                kw=dict(learning_rate=MESH_LR, batch_size=TRAIN_BATCH, n_epochs=1, seed=seed), buffer=buffer,
+                last_obs=random_obs(rng, e), last_episode_starts=np.zeros(e, np.float32),
+                bf16_reduced_precision_reduction=torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
+
+
+def mesh_sac_case(dtype: str, seed: int = 17) -> dict:
+    """SAC at the CLI's width and batch (256, MAE batch 256, separate), in ``dtype``, a device ring
+    of 80 steps x 4 envs; two gradient steps in bf16, one in f32. (The second step's gradients are
+    taken at parameters the first step's Adam moved apart: f32 noise on a gradient element near zero
+    moves its parameter by up to ~1e-2 lr, and the actor's second gradient then differed by up to
+    2.673e-3 of its norm on the H100, where one step reads ~1e-7.)"""
+    torch.manual_seed(seed)
+    init = sac_policy(torch.float32, "cpu").state_dict()
+    rng = np.random.default_rng(seed)
+    n = MESH_SAC_ENVS
+    transitions = [(random_obs(rng, n), rng.uniform(-1, 1, (n, ACTION_DIM)).astype(np.float32), rng.normal(size=n).astype(np.float32),
+                    np.zeros(n, bool), [{} for _ in range(n)]) for _ in range(MESH_SAC_TRANSITIONS)]
+    return dict(vtt=dict(frame_stack=FRAME_STACK), decoder_depth=3, decoder_heads=4, dtype=dtype, init=init, n_envs=n,
+                kw=dict(batch_size=SAC_BATCH, mae_batch_size=SAC_BATCH, buffer_size=4096, learning_starts=0, device_buffer=True, seed=seed),
+                transitions=transitions, steps=2 if dtype == "bfloat16" else 1,
+                bf16_reduced_precision_reduction=torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
+
+
+def mesh_mae_case(ckpt_dir: str, seed: int = 18) -> dict:
+    """One Trainer epoch of MAE at mae_vit.yaml's width (ViT-small, f32), warm-up 0, two batches
+    of 64 with their masking noise."""
+    torch.manual_seed(seed)
+    overrides = list(MESH_MAE_OVERRIDES)
+    module = ssl_models(overrides)
+    rng = np.random.default_rng(seed)
+    enc = module.encoder
+    batches = [rng.random((SSL_BATCH, *enc.img_size, enc.in_chans), dtype=np.float32) for _ in range(MESH_MAE_BATCHES)]
+    noises = [rng.random((SSL_BATCH, module.num_patches), dtype=np.float32) for _ in range(MESH_MAE_BATCHES)]
+    return dict(config=SSL_CONFIG, overrides=overrides, dtype="float32", init=module.state_dict(), batches=batches, noises=noises,
+                epochs=1, ckpt_dir=ckpt_dir)
+
+
+def mesh_compare(label: str, got: dict, got_state: dict, want: dict, want_state: dict, opt_keys, lr: float, kind: str) -> dict:
+    """The mesh run (rank 0's metrics and gathered state) against the single process's, to
+    MESH_TOL[kind]; fails past it. Returns the readings."""
+    tol = MESH_TOL[kind]
+    excess = max(abs(got[k] - v) - (tol["rtol"] * abs(v) + tol["atol"]) for k, v in want.items())
+    metric_rel = max(abs(got[k] - v) / max(abs(v), 1e-30) for k, v in want.items())
+    moments = {k: ((got_state[k]["mu"].cpu() - want_state[k]["mu"].cpu()).norm() / want_state[k]["mu"].cpu().norm()).item()
+               for k in opt_keys if want_state.get(k) is not None}
+    moment_rel = max(moments.values())
+    per_lr = max((got_state["policy"][k].float().cpu() - w.float().cpu()).abs().max().item() / lr for k, w in want_state["policy"].items())
+    readings = dict(metric_excess=excess, metric_rel_max=metric_rel, moment_rel=moment_rel, moment_rel_by_optimizer=moments,
+                    param_per_lr=per_lr, tol=tol)
+    print(f"  {label}: metrics largest relative error {metric_rel:.3e} (excess over rtol {tol['rtol']} / atol {tol['atol']}: "
+          f"{excess:.3e}), first moments {', '.join(f'{k} {v:.3e}' for k, v in moments.items())} of their norm (tol "
+          f"{tol['moment_rel']}), parameters {per_lr:.3e} lr "
+          f"from the single process's (tol {tol['param_per_lr']})")
+    if excess > 0 or moment_rel > tol["moment_rel"] or per_lr > tol["param_per_lr"]:
+        fail(f"mesh {label} disagrees with the single process: metrics {got} vs {want}; {readings}")
+    return readings
+
+
+def expected_calls(single: Counter, dp: int, mp: int, split: int) -> dict:
+    """The single-process run's attention calls {(direction, batch, heads): n} as each rank of a dp x
+    mp mesh must make them: the calls on the global batch ``split`` at split / dp rows (the
+    rollout's last observation is not split), every call at heads / mp."""
+    out = Counter()
+    for (kind, b, h), n in single.items():
+        out[(kind, b // dp if b == split else b, h // mp)] += n
+    return dict(out)
+
+
+def mesh_check_ranks(label: str, ranks: list, single_calls: dict, dp: int, mp: int, dtype: str, split: int) -> dict:
+    """Every rank: replicated parameters bit-identical to rank 0's (shards to their dp group's), the
+    same metrics, attention calls of the single process at batch / dp and heads / mp, each launch on
+    its dtype's body. Returns rank 0's launches and each rank's update milliseconds."""
+    body = "tensor_core" if dtype == "bfloat16" else "tf32x3"
+    want_calls = expected_calls(single_calls, dp, mp, split)
+    for r, res in enumerate(ranks):
+        if not res["replicated"]:
+            fail(f"mesh {label}: rank {r}'s replicated parameters differ from rank 0's")
+        if res.get("metrics") != ranks[0].get("metrics"):
+            fail(f"mesh {label}: rank {r}'s metrics differ from rank 0's")
+        if dict(res["attention"]) != want_calls:
+            fail(f"mesh {label}: rank {r} made attention calls {res['attention']}, expected {want_calls}")
+        fwd, bwd = res["launches"].get(KERNEL, 0), res["launches"].get(BWD_KERNEL, 0)
+        if res["fwd_bodies"] != ({body: fwd} if fwd else {}) or res["bwd_bodies"] != ({body: bwd} if bwd else {}):
+            fail(f"mesh {label}: rank {r}'s launches {res['launches']} took bodies {res['fwd_bodies']} / {res['bwd_bodies']}, expected {body}")
+    return dict(launches_rank0=ranks[0]["launches"], launches_all_ranks=dict(sum((Counter(r["launches"]) for r in ranks), Counter())),
+                update_ms_by_rank=[r.get("update_ms") for r in ranks])
+
+
+def mesh_phase() -> dict:
+    """Phase 16 (see the comment above MESH_ENVS)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from m3l_tpu_torch.train import mesh_workers as mw
+    from m3l_tpu_torch.train.mesh import launch, make_mesh
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="mesh_smoke_", dir=Path(__file__).resolve().parent) as tmp:
+        tmp = Path(tmp)
+        cases, singles = {}, {}
+        t0 = time.perf_counter()
+        for dtype in ("bfloat16", "float32"):
+            case = cases[dtype] = mesh_ppo_case(dtype)
+            torch.save(case, tmp / f"ppo_{dtype}.pt")
+            mw.ppo_case(case, device="cuda").train()  # a warm-up: the timed updates are not the process's first of this model
+            model = mw.ppo_case(case, device="cuda")
+            update_ms = mw.timed(model, "minibatch_update", model.device)
+            optimizer_ms = mw.timed(model.optimizer, "step", model.device)
+            with mw.AttentionLog(torch.device("cuda")) as log:
+                metrics = model.train()
+            torch.cuda.synchronize()
+            singles[dtype] = dict(metrics=metrics, state=model.state_dict(), calls=dict(log.calls), counts=log.counts, update_ms=update_ms,
+                                  optimizer_ms=optimizer_ms)
+            updates = model.n_minibatches
+            want = {KERNEL: 12 * updates + 5, BWD_KERNEL: 12 * updates}
+            if {k: log.counts["launches"].get(k, 0) for k in want} != want:
+                fail(f"mesh single-process {dtype} train(): launches {log.counts['launches']}, expected {want}")
+        sac_singles, cases_sac = {}, {}
+        for dtype in ("bfloat16", "float32"):
+            sac = mesh_sac_case(dtype)
+            cases_sac[dtype] = sac["steps"]
+            torch.save(sac, tmp / f"sac_{dtype}.pt")
+            mw.sac_case(sac, device="cuda").train_steps(sac["steps"])
+            model = mw.sac_case(sac, device="cuda")
+            update_ms = mw.timed(model, "update", model.device)
+            with mw.AttentionLog(torch.device("cuda")) as log:
+                metrics = model.train_steps(sac["steps"])
+            sac_singles[dtype] = dict(metrics=metrics, state=model.state_dict(), calls=dict(log.calls), update_ms=update_ms,
+                                      lr=model.actor_optimizer.learning_rate)
+        mae = mesh_mae_case(str(tmp / "mae_mesh"))
+        torch.save(mae, tmp / "mae.pt")
+        mw.mae_fit(dict(mae, ckpt_dir=None), device="cuda", record=False)
+        with mw.AttentionLog(torch.device("cuda")) as mae_log:
+            mae_hist, mae_module, mae_moments = mw.mae_fit(dict(mae, ckpt_dir=None), device="cuda")
+        torch.save({"moments": mae_moments, "state": {n: p.detach().cpu() for n, p in mae_module.named_parameters()}}, tmp / "mae_ref.pt")
+        print(f"  single-process references on the card: {time.perf_counter() - t0:.1f} s")
+
+        cli_steps = TRAIN_BATCH  # one rollout of 512 samples: one minibatch update
+        cli_argv = ["--env", "FakeInsertion", "--n_envs", str(MESH_ENVS), "--rollout_length", str(cli_steps),
+                    "--ppo_epochs", "1", "--total_timesteps", str(cli_steps), "--subproc", "False", "--verbose", "0"]
+        obs = random_obs(np.random.default_rng(19), MESH_ENVS)
+        jobs2 = [(mw.ppo_rank, (str(tmp / "ppo_bfloat16.pt"), 2, 1, "cuda", True)), (mw.ppo_rank, (str(tmp / "ppo_bfloat16.pt"), 2, 2, "cuda", True)),
+                 (mw.mae_rank, (str(tmp / "mae.pt"), 2, 2, "cuda", str(tmp / "mae_ref.pt"), True)),
+                 (mw.cli_rank, ("train", cli_argv + ["--mesh_devices", "2", "--mesh_mp", "2"], str(tmp / "cli.ckpt"), obs)),
+                 (mw.allreduce_rank, (2, MESH_ALLREDUCE_MB, "cuda")), (mw.sharing_rank, (str(tmp / "ppo_bfloat16.pt"), 2, "cuda"))]
+        jobs4 = [(mw.ppo_rank, (str(tmp / "ppo_bfloat16.pt"), 4, 2, "cuda", True)), (mw.ppo_rank, (str(tmp / "ppo_float32.pt"), 4, 2, "cuda", True)),
+                 (mw.sac_rank, (str(tmp / "sac_bfloat16.pt"), 4, 2, "cuda", True)), (mw.sac_rank, (str(tmp / "sac_float32.pt"), 4, 2, "cuda", True))]
+        groups, job_s = {}, {}
+        for world, jobs in ((2, jobs2), (4, jobs4)):
+            t0 = time.perf_counter()
+            ranks = launch(mw.jobs_rank, jobs, world=world, device="cuda", timeout=MESH_TIMEOUT)
+            groups[world] = [[result for result, _ in r] for r in ranks]
+            job_s[world] = [max(r[i][1] for r in ranks) for i in range(len(jobs))]
+            print(f"  {world} ranks on cuda:0 over gloo: {time.perf_counter() - t0:.1f} s, start-up included; each job "
+                  f"{', '.join(f'{t:.1f}' for t in job_s[world])} s")
+        out["group_job_s"] = {str(w): v for w, v in job_s.items()}
+        ran = {key for group in groups.values() for rank in group for res in rank for key in (res.get("shapes", {}) if isinstance(res, dict) else {})}
+        unheld = sorted(s for s in ran if tuple(s[1:]) not in HELD_SHAPES[s[0]])
+        print(f"  every rank's attention shapes (direction, B, N, H, Dh), each held against its plain version in phase 3: {sorted(ran)}")
+        if unheld:
+            fail(f"mesh: ranks ran the packed kernels at shapes phase 3 did not hold: {unheld}")
+        out["rank_shapes"] = [list(s) for s in sorted(ran)]
+
+        # (a) the flagship update
+        runs = {"bf16_dp2": (groups[2], 0, 2, 1, "bfloat16"), "bf16_mp2": (groups[2], 1, 1, 2, "bfloat16"),
+                "bf16_dp2xmp2": (groups[4], 0, 2, 2, "bfloat16"), "f32_dp2xmp2": (groups[4], 1, 2, 2, "float32")}
+        for label, (group, job, dp, mp, dtype) in runs.items():
+            ranks = [r[job] for r in group]
+            ref = singles[dtype]
+            info = mesh_check_ranks(label, ranks, ref["calls"], dp, mp, dtype, TRAIN_BATCH)
+            ms = [statistics.median(m) for m in info["update_ms_by_rank"]]
+            opt_ms = [statistics.median(r["optimizer_ms"]) for r in ranks]
+            print(f"  (a) PPO+MAE train() {label}: replicated parameters bit-identical on every rank; per rank {ranks[0]['attention']} "
+                  f"attention calls; update ms by rank (median) {', '.join(f'{m:.2f}' for m in ms)}, single process "
+                  f"{statistics.median(ref['update_ms']):.2f}; of it the optimizer step (the flat gradient's dp all-reduce, clip and "
+                  f"Adam) {', '.join(f'{m:.2f}' for m in opt_ms)}, single process {statistics.median(ref['optimizer_ms']):.2f}")
+            readings = mesh_compare(label, ranks[0]["metrics"], ranks[0]["state"], ref["metrics"], ref["state"], ("policy_opt_state",),
+                                    MESH_LR, f"ppo_{dtype}")
+            out[label] = dict(info, **readings, dp=dp, mp=mp, update_ms_median_by_rank=ms, single_update_ms_median=statistics.median(ref["update_ms"]),
+                              optimizer_ms_median_by_rank=opt_ms, single_optimizer_ms_median=statistics.median(ref["optimizer_ms"]),
+                              attention_calls_rank0={str(k): v for k, v in ranks[0]["attention"].items()})
+
+        # (b) SAC, bf16 and f32
+        for job, (label, dtype) in enumerate((("sac_dp2xmp2", "bfloat16"), ("sac_f32_dp2xmp2", "float32")), start=2):
+            ranks, ref = [r[job] for r in groups[4]], sac_singles[dtype]
+            info = mesh_check_ranks(label, ranks, ref["calls"], 2, 2, dtype, SAC_BATCH)
+            ms = [statistics.median(m) for m in info["update_ms_by_rank"]]
+            print(f"  (b) SAC train_steps({cases_sac[dtype]}) {label}: replicated parameters bit-identical on every rank; gradient step ms by rank "
+                  f"(median) {', '.join(f'{m:.2f}' for m in ms)}, single process {statistics.median(ref['update_ms']):.2f}")
+            readings = mesh_compare(label, ranks[0]["metrics"], ranks[0]["state"], ref["metrics"], ref["state"],
+                                    ("actor_opt", "critic_opt", "ent_opt", "mae_opt"), ref["lr"], f"sac_{dtype}")
+            out[label] = dict(info, **readings, update_ms_median_by_rank=ms, single_update_ms_median=statistics.median(ref["update_ms"]))
+
+        # (c) MAE through the Trainer at mp 2
+        ranks = [r[2] for r in groups[2]]
+        for r, res in enumerate(ranks):
+            if not res["replicated"] or res["history"][-1]["train_loss"] != ranks[0]["history"][-1]["train_loss"]:
+                fail(f"mesh mae: rank {r} disagrees with rank 0")
+            want = expected_calls(mae_log.calls, 1, 2, SSL_BATCH)
+            n = res["launches"].get(KERNEL, 0)
+            if dict(res["attention"]) != want or res["fwd_bodies"] != ({"tf32x3": n} if n else {}):
+                fail(f"mesh mae: rank {r} made attention calls {res['attention']} on {res['fwd_bodies']}, expected {want} on tf32x3")
+        loss_rel = abs(ranks[0]["history"][-1]["train_loss"] - mae_hist[-1]["train_loss"]) / abs(mae_hist[-1]["train_loss"])
+        readings, tol = ranks[0]["readings"], MESH_TOL["mae_float32"]
+        step_ms = [statistics.median(r["history"][-1]["step_ms"]) for r in ranks]
+        print(f"  (c) MAE Trainer epoch (mae_vit.yaml, f32, {MESH_MAE_BATCHES} x {SSL_BATCH}) mp2: loss rel err {loss_rel:.3e} (tol "
+              f"{tol['loss_rel']}), AdamW moments {readings['moment_rel']:.3e} of their norm ({readings['moment_worst']}; tol "
+              f"{tol['moment_rel']}), parameters {readings['param_per_lr']:.3e} lr ({readings['param_worst']}; tol {tol['param_per_lr']}) from "
+              f"the single process's; step ms by rank (median) {', '.join(f'{m:.2f}' for m in step_ms)}, single process "
+              f"{statistics.median(mae_hist[-1]['step_ms']):.2f}")
+        if loss_rel > tol["loss_rel"] or readings["moment_rel"] > tol["moment_rel"] or readings["param_per_lr"] > tol["param_per_lr"]:
+            fail(f"mesh mae: the mp 2 Trainer epoch disagrees with the single process: loss rel {loss_rel}, {readings}")
+        out["mae_mp2"] = dict(launches_rank0=ranks[0]["launches"], loss_rel=loss_rel, **readings, tol=tol,
+                              step_ms_median_by_rank=step_ms, single_step_ms_median=statistics.median(mae_hist[-1]["step_ms"]),
+                              launches_all_ranks=dict(sum((Counter(r["launches"]) for r in ranks), Counter())))
+
+        # (d) the training CLI at --mesh_devices 2 --mesh_mp 2; its checkpoint into one process
+        ranks = [r[3] for r in groups[2]]
+        env = train_env()
+        try:
+            single = train_cli.build_model(train_cli.build_parser().parse_args(cli_argv), env)
+            single.load(str(tmp / "cli.ckpt"))
+            acts = single.predict(obs)
+        finally:
+            env.close()
+        err = float(np.abs(acts - ranks[0]["actions"]).max())
+        print(f"  (d) cli.train --mesh_devices 2 --mesh_mp 2: {ranks[0]['mesh']}, {ranks[0]['num_timesteps']} steps, launches per rank "
+              f"{ranks[0]['launches']}; its checkpoint in one process predicts the mesh's actions to {err:.3e} (tol {SLICE_TOL})")
+        if ranks[0]["num_timesteps"] != cli_steps or single.num_timesteps != ranks[0]["num_timesteps"] or err > SLICE_TOL:
+            fail("mesh cli: the mesh run's checkpoint does not restore into one process")
+        # each rank: the rollout's forwards and last_values' on the 8 envs, then one update, all at 4 / 2 heads
+        want = {("fwd", MESH_ENVS, 2): 5 * (cli_steps // MESH_ENVS) + 5, ("fwd", cli_steps, 2): 12, ("bwd", cli_steps, 2): 12}
+        for r, res in enumerate(ranks):
+            n = res["launches"].get(KERNEL, 0)
+            if dict(res["attention"]) != want or res["fwd_bodies"] != ({"tensor_core": n} if n else {}):
+                fail(f"mesh cli: rank {r} made attention calls {res['attention']} on {res['fwd_bodies']}, expected {want} on tensor_core")
+        out["cli_mesh2x2"] = dict(launches_rank0=ranks[0]["launches"], actions_max_abs_err=err, mesh=ranks[0]["mesh"],
+                                  launches_all_ranks=dict(sum((Counter(r["launches"]) for r in ranks), Counter())))
+
+        allreduce = groups[2][0][4]
+        print(f"  gloo all_reduce of f32 CUDA tensors over 2 ranks on cuda:0, ms (median of 3): "
+              f"{', '.join(f'{mb} MB {ms:.2f}' for mb, ms in allreduce.items())}")
+        out["gloo_allreduce_ms_2_ranks"] = {str(k): v for k, v in allreduce.items()}
+        sharing = [r[5] for r in groups[2]]
+        for r, res in enumerate(sharing):
+            print(f"  where the bf16 dp 2 update's time goes, rank {r}: single-process update in the process's first train() "
+                  f"{res['first_ms']:.2f} ms, alone {res['alone_ms']:.2f} ms, with the other "
+                  f"rank's at once {res['together_ms']:.2f} ms; dp 2 mesh update {res['mesh_ms']:.2f} ms (traced {res['traced_mesh_ms']:.2f}), "
+                  f"device kernels {res['mesh_device_ms']:.2f} ms of it; host time of its own per update: "
+                  + ", ".join(f"{h['name']} {h['self_ms']:.2f} ms x{h['calls']:g}" for h in res["host_top"]))
+        out["sharing_dp2"] = sharing
+
+        # (e) a 1-rank nccl mesh through the same code, bit-equal to no mesh (cuDNN deterministic for both)
+        torch.backends.cudnn.deterministic = True
+        try:
+            plain = mw.ppo_case(cases["bfloat16"], device="cuda")
+            plain_metrics = plain.train()
+            mesh = make_mesh(1, device="cuda")
+            if mesh.backend != "nccl":
+                fail(f"mesh nccl: a 1-rank mesh on the card runs {mesh.backend}")
+            probe = torch.ones(1, device="cuda")
+            dist.all_reduce(probe)
+            reset_launches()
+            meshed = mw.ppo_case(cases["bfloat16"], mesh, mesh.device)
+            mesh_metrics = meshed.train()
+            torch.cuda.synchronize()
+            nccl_launches = {k: LAUNCHES[k] for k in (KERNEL, BWD_KERNEL)}
+            same = mesh_metrics == plain_metrics and all(torch.equal(a, b) for a, b in zip(meshed.policy.parameters(), plain.policy.parameters()))
+        finally:
+            torch.backends.cudnn.deterministic = False
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        print(f"  (e) 1-rank {repr(mesh)}: all_reduce {probe.item():.0f}, train() bit-equal to no mesh: {same}")
+        if not same or probe.item() != 1.0:
+            fail("mesh nccl: the 1-rank nccl mesh differs from no mesh")
+        out["nccl_1rank"] = dict(launches=nccl_launches, bit_equal=same)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2621,6 +2982,9 @@ def main() -> int:
 
         print("[15] the flat-buffer AdamW against the default on MAE steps, and the Gumbel quantizer, card vs CPU")
         optim = optim_phase()
+
+        print("[16] the mesh: PPO+MAE, SAC and the MAE Trainer on dp x mp ranks sharing the card over gloo, the CLI, a 1-rank nccl mesh")
+        meshed = mesh_phase()
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)  # MAE_CKPT and whatever a failed phase left
 
@@ -2642,7 +3006,11 @@ def main() -> int:
                     variants_check=sum(c["launches"].get(name, 0) for c in variants["f32_check"].values()),
                     **{f"variant_{cli}": variants[cli]["launches"][name] for cli in VARIANT_CLIS},
                     **{run: variants[run]["launches"].get(name, 0) for run in ("reconstruct_early_conv", "reconstruct_patch", "eval_callback")},
-                    export=exported["launches"].get(name, 0), optim=optim["launches"].get(name, 0))
+                    export=exported["launches"].get(name, 0), optim=optim["launches"].get(name, 0),
+                    **{f"mesh_{run}": meshed[run]["launches_all_ranks"].get(name, 0)
+                       for run in ("bf16_dp2", "bf16_mp2", "bf16_dp2xmp2", "f32_dp2xmp2", "sac_dp2xmp2", "sac_f32_dp2xmp2", "mae_mp2",
+                               "cli_mesh2x2")},
+                    mesh_nccl_1rank=meshed["nccl_1rank"]["launches"].get(name, 0))
 
     def ssl_shapes(kind):
         """The packed kernel of this direction at the SSL slices' shapes and the training shape, f32
@@ -2704,6 +3072,7 @@ def main() -> int:
     print(json.dumps({"variants": variants}))
     print(json.dumps({"export": exported}))
     print(json.dumps({"optim": optim}))
+    print(json.dumps({"mesh": meshed}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

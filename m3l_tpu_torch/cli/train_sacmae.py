@@ -1,8 +1,9 @@
 """SAC+MAE training entry point on the card (counterpart of ``m3l_tpu/cli/train_sacmae.py``), with
-the same flags and defaults and one more: ``--device`` (default ``cuda``). ``--mesh_devices`` and
-``--mesh_mp`` other than 1 raise, as does ``--device cuda`` without a card, before any env or
-model is built (``cli.train.check_config``). Only ``Fake*`` envs are built (``--allow_fake``
-lets the fake stand in for the unported families), as in the PPO CLI.
+the same flags and defaults and one more: ``--device`` (default ``cuda``). ``--mesh_devices N
+--mesh_mp M`` trains on a dp x mp mesh of N ranks as the PPO CLI does (``cli/train.py``): rank 0
+owns the envs, logs and saves; the flags, and ``--device cuda`` without a card, are checked
+before any env or model is built (``cli.train.check_config``). Only ``Fake*`` envs are built
+(``--allow_fake`` lets the fake stand in for the unported families), as in the PPO CLI.
 
 Example (tiny run on the CPU):
     python -m m3l_tpu_torch.cli.train_sacmae --env FakeInsertion --total_timesteps 64 \\
@@ -12,7 +13,7 @@ Example (tiny run on the CPU):
 from __future__ import annotations
 
 import argparse
-import os
+import sys
 
 import numpy as np
 import torch
@@ -20,7 +21,8 @@ import torch
 from ..envs import make_env, make_vec_env
 from ..models import VTMAE, VTT, VTTConfig
 from ..rl import SACMAE, MAEFeatures, SACActorCritic
-from .train import check_config, str2bool
+from ..train.mesh import env_spec, is_main
+from .train import build_mesh, callbacks, check_config, mesh_widths, run_meshed, str2bool
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -75,18 +77,21 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device_buffer", type=str2bool, default=False, help="keep the replay ring in device memory (no per-gradient-step host-to-device batch copy)")
     parser.add_argument("--timeout_capacity", type=int, default=4096, help="device-buffer truncated-episode side-ring slots; raise for large rings with short episodes")
     parser.add_argument("--subproc", type=str2bool, default=True)
-    parser.add_argument("--mesh_devices", type=int, default=1, help="multi-device training is not ported yet: 1 only")
-    parser.add_argument("--mesh_mp", type=int, default=1, help="tensor parallelism is not ported yet: 1 only")
+    parser.add_argument(
+        "--mesh_devices", type=int, default=1,
+        help="train on a mesh of N ranks over torch.distributed (nccl with a card each, gloo on a shared card or the CPU); 0 = every visible card, 1 = one process",
+    )
+    parser.add_argument("--mesh_mp", type=int, default=1, help="Megatron-style tensor-parallel degree within the mesh (mesh = dp x mp)")
     parser.add_argument("--device", type=str, default="cuda", help="torch device to train on (cuda, or cpu for tests)")
     parser.add_argument("--verbose", type=int, default=1)
     parser.add_argument("--tensorboard_dir", type=str, default=None, help="enable TensorBoard logging and checkpoints")
     return parser
 
 
-def build_model(config, env) -> SACMAE:
+def build_model(config, env, mesh=None) -> SACMAE:
     """VTT (depth 4, 4 heads, mlp 2 * dim) -> VTMAE (decoder depth 3, 4 heads) -> MAEFeatures ->
     SACActorCritic -> SACMAE, wired as the JAX CLI wires them. Weights are drawn from torch's
-    global generator, seeded with ``config.seed``."""
+    global generator, seeded with ``config.seed`` (every rank of a ``mesh`` the same)."""
     num_tactiles = 0
     if config.state_type in ("vision_and_touch", "touch"):
         num_tactiles = 2
@@ -136,34 +141,43 @@ def build_model(config, env) -> SACMAE:
         seed=config.seed,
         verbose=config.verbose,
         device=config.device,
+        mesh=mesh,
     )
 
 
 def main(argv: list[str] | None = None) -> SACMAE:
+    """Train from the command line; returns the model (on a mesh started here, rank 0's
+    ``cli.train.summary``)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     config = build_parser().parse_args(argv)
-    check_config(config)
+    check_config(config, mesh_widths(config))
+    if (config.mesh_devices, config.mesh_mp) != (1, 1):
+        return run_meshed(_main, argv, config)
+    return _main(argv)
+
+
+def _main(argv) -> SACMAE:
+    config = build_parser().parse_args(argv)
+    mesh = build_mesh(config)
+    main_rank = is_main(mesh)
+    if mesh is not None and main_rank and config.verbose:
+        print(f"[mesh] {mesh}")
     np.random.seed(config.seed)
-    env_fns = [
-        make_env(config.env, i, config.seed, config.state_type, frame_stack=config.frame_stack, allow_fake=config.allow_fake)
-        for i in range(config.n_envs)
-    ]
-    env = make_vec_env(env_fns, subproc=config.subproc)
+    env = None
+    if main_rank:  # rank 0 owns the envs
+        env_fns = [
+            make_env(config.env, i, config.seed, config.state_type, frame_stack=config.frame_stack, allow_fake=config.allow_fake)
+            for i in range(config.n_envs)
+        ]
+        env = make_vec_env(env_fns, subproc=config.subproc)
     logger = None
     try:
-        model = build_model(config, env)
-        callback = None
-        if config.tensorboard_dir:
-            from ..rl.callbacks import CallbackList, CheckpointCallback, TensorboardCallback
-            from ..utils.loggers import TensorBoardLogger
-
-            logger = TensorBoardLogger(config.tensorboard_dir)
-            callback = CallbackList([
-                TensorboardCallback(logger),
-                CheckpointCallback(config.save_freq, os.path.join(config.tensorboard_dir, "checkpoints"), save_replay_buffer=True),
-            ])
+        model = build_model(config, env_spec(env, mesh), mesh)
+        callback, logger = callbacks(config, mesh, save_replay_buffer=True)
         model.learn(total_timesteps=config.total_timesteps, callback=callback)
     finally:
-        env.close()
+        if env is not None:
+            env.close()
         if logger is not None:
             logger.close()
     return model

@@ -52,9 +52,9 @@ class CheckpointCallback:
             return True
         self._last_save = algo.num_timesteps
         path = os.path.join(self.save_path, f"model_{algo.num_timesteps}_steps.ckpt")
-        algo.save(path)
+        algo.save(path)  # collective under a mesh; rank 0 writes
         buf = getattr(algo, "buffer", None)
-        if self.save_replay_buffer and hasattr(buf, "dones"):
+        if self.save_replay_buffer and hasattr(buf, "dones") and getattr(algo, "_is_main", True):
             np.savez_compressed(
                 path + ".replay.npz", pos=buf.pos, full=buf.full, actions=buf.actions, rewards=buf.rewards,
                 dones=buf.dones, timeouts=buf.timeouts, **{f"obs_{k}": v for k, v in buf.obs.items()},

@@ -27,6 +27,22 @@ seeded from ``seed``; they never match JAX's. :meth:`train_phase` takes the perm
 masks as arguments, so a test can hand in its own. Checkpoints (:meth:`save`, :meth:`load`) are
 torch state dicts, with the reward normalizer's state in a ``.vecnorm.pkl`` file beside them;
 loading puts every tensor on this model's device.
+
+Under a ``mesh`` (``train/mesh.py``; JAX's ``mesh=``) the result is the single-process one on the
+global batch. The parameters are sharded (``shard_module``) before the optimizers are built, and
+the optimizers sum the gradients over the dp group. Rank 0 owns the envs, as JAX's single
+controller does: every rank runs the rollout forward (collective under mp) with the same
+generator, rank 0 steps the envs and broadcasts what they return together with its actions,
+values and log-probabilities, so every rank holds the buffer the single-process run would hold.
+:meth:`sample_updates` draws the global permutation and masks identically on every rank, and each
+rank takes its dp rows of each minibatch and of its mask. Each rank's loss is its share of the
+global one (its rows' mean times rows / batch), the separate mode's MAE chunks included, whose
+rows may all lie on one rank. The advantages are normalised over the whole minibatch, which every
+rank holds (bit-equal to the single process, with no collective); ``approx_kl`` (read by the
+``target_kl`` gate, so every rank stops at the same minibatch) and the logged metrics are summed
+over the ranks; ``explained_variance`` is taken over the whole buffer. :meth:`save` writes the
+single-process format from rank 0; :meth:`load` reads it into a mesh, each rank taking its shard.
+Every method that runs the policy is collective under a mesh: every rank calls it.
 """
 from __future__ import annotations
 
@@ -40,6 +56,7 @@ import torch
 
 from ..ops.masking import ModalMask
 from ..train.checkpoint import load_checkpoint, save_checkpoint
+from ..train.mesh import Mesh, env_spec, gather_state, is_main, on_main, shard_module, shard_state, tree_map
 from ..train.optim import FlatAdam
 from ..utils.device import resolve_device
 from ..utils.obs import vt_load
@@ -79,8 +96,11 @@ class PPOMAE:
         seed: int = 0,
         verbose: int = 0,
         device: str | torch.device | None = None,
+        mesh: Mesh | None = None,
     ):
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        env = env_spec(env, mesh)
         self.env = env
         self.n_envs = env.num_envs
         self.n_steps = n_steps
@@ -109,9 +129,11 @@ class PPOMAE:
         self.n_minibatches = n // batch_size
 
         self.policy = policy.to(self.device)
-        self.optimizer = FlatAdam(self.policy.parameters(), learning_rate, eps=1e-5, max_grad_norm=max_grad_norm)
+        if mesh is not None:
+            shard_module(self.policy, mesh)
+        self.optimizer = FlatAdam(self.policy.parameters(), learning_rate, eps=1e-5, max_grad_norm=max_grad_norm, mesh=mesh)
         # the reference's mae_optimizer: Adam over the MAE's parameters only, no clip
-        self.mae_optimizer = FlatAdam(self.policy.features.mae.parameters(), mae_lr) if self.separate_optimizer else None
+        self.mae_optimizer = FlatAdam(self.policy.features.mae.parameters(), mae_lr, mesh=mesh) if self.separate_optimizer else None
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
         self.reward_normalizer = RewardNormalizer(self.n_envs, gamma=gamma, enabled=norm_reward)
@@ -129,12 +151,14 @@ class PPOMAE:
     def _to_device(self, obs: dict) -> dict:
         return {k: torch.as_tensor(np.ascontiguousarray(v)).to(self.device) for k, v in obs.items()}
 
+    @property
+    def _is_main(self) -> bool:
+        return is_main(self.mesh)
+
     # ------------------------------------------------------------------ #
     # the update phase
     # ------------------------------------------------------------------ #
     def _ppo_losses(self, values, log_prob, entropy, old_values, old_log_prob, advantages, returns):
-        if self.normalize_advantage:
-            advantages = (advantages - advantages.mean()) / (advantages.std(correction=1) + 1e-8)
         ratio = torch.exp(log_prob - old_log_prob)
         pl1 = advantages * ratio
         pl2 = advantages * torch.clamp(ratio, 1.0 - self.clip_range, 1.0 + self.clip_range)
@@ -153,42 +177,64 @@ class PPOMAE:
                        approx_kl=approx_kl, clip_fraction=clip_fraction, loss=total)
         return total, metrics
 
-    def _mae_chunk_updates(self, x: dict, masks: list[ModalMask]) -> torch.Tensor:
+    def _mae_chunk_updates(self, x: dict, masks: list[ModalMask], rows: slice) -> torch.Tensor:
         """Separate mode: one MAE Adam step per chunk of ``mae_batch_size`` samples of the packed
-        minibatch, chunk i with ``masks[i]``; returns the last chunk's loss."""
+        minibatch, chunk i with ``masks[i]``; returns the last chunk's loss. ``x`` holds the
+        minibatch's ``rows``: under a mesh each rank steps on its share of each chunk's loss (its
+        rows' mean times rows / chunk, zero where it holds none of the chunk)."""
         bs = self.mae_batch_size
+        lo, hi = rows.start, rows.stop
         for i, mask in enumerate(masks):
-            loss = self.policy.features.mae_loss({k: v[i * bs : (i + 1) * bs] for k, v in x.items()}, mask)
+            a, b = max(i * bs, lo), min((i + 1) * bs, hi)
             self.mae_optimizer.zero_grad()
-            loss.backward()
+            if b > a:
+                chunk_mask = tree_map(lambda t: t[a - i * bs : b - i * bs], mask)  # noqa: B023
+                loss = self.policy.features.mae_loss({k: v[a - lo : b - lo] for k, v in x.items()}, chunk_mask)
+                if (b - a) != bs:
+                    loss = loss * ((b - a) / bs)
+                loss.backward()
+                share = loss.detach()
+            else:
+                share = torch.zeros((), device=self.device)
             self.mae_optimizer.step()
-        return loss.detach()
+        return share
 
     def minibatch_update(self, data: dict, idx: torch.Tensor, advantages: torch.Tensor, returns: torch.Tensor, mask) -> dict | None:
         """One update on the samples ``idx`` of the device-resident rollout. ``mask`` is the MAE
         mask: one :class:`ModalMask` in joint mode, one per MAE chunk in separate mode, None for
         plain PPO. Returns the step's metrics as detached device scalars, or None when the
-        ``target_kl`` gate stops it (then no PPO update is applied)."""
+        ``target_kl`` gate stops it (then no PPO update is applied). Under a mesh ``idx`` and
+        ``mask`` are the global ones; this rank takes its rows."""
+        n = idx.shape[0]
+        rows = self.mesh.rows(n) if self.mesh is not None else slice(0, n)
+        adv = advantages[idx]
+        if self.normalize_advantage:  # over the whole minibatch, ddof=1
+            adv = (adv - adv.mean()) / (adv.std(correction=1) + 1e-8)
+        idx, adv = idx[rows], adv[rows]
         x = vt_load({k: v[idx] for k, v in data["obs"].items()}, frame_stack=self.frame_stack)
         actions = data["actions"][idx]
         joint = self.train_mae and not self.separate_optimizer
         if self.separate_optimizer:
-            mae_loss = self._mae_chunk_updates(x, mask)
+            mae_loss = self._mae_chunk_updates(x, mask, rows)
         if joint:
-            values, log_prob, entropy, mae_loss = self.policy.evaluate_actions_packed_with_mae(x, actions, mask)
+            values, log_prob, entropy, mae_loss = self.policy.evaluate_actions_packed_with_mae(x, actions, tree_map(lambda t: t[rows], mask))
         else:
             values, log_prob, entropy = self.policy.evaluate_actions_packed(x, actions)
         if not self.train_mae:
             mae_loss = torch.zeros((), device=self.device)
-        total, metrics = self._ppo_losses(
-            values, log_prob, entropy, data["values"][idx], data["log_probs"][idx], advantages[idx], returns[idx]
-        )
+        total, metrics = self._ppo_losses(values, log_prob, entropy, data["values"][idx], data["log_probs"][idx], adv, returns[idx])
+        loss = total + mae_loss if joint else total
+        metrics["mae_loss"] = mae_loss
+        if self.mesh is not None:  # this rank's shares (the separate mode's MAE loss is one already), summed over the ranks
+            scale = (rows.stop - rows.start) / n
+            loss = loss * scale
+            shares = torch.stack([metrics[k] * (1.0 if k == "mae_loss" and self.separate_optimizer else scale) for k in METRICS])
+            metrics = dict(zip(METRICS, self.mesh.global_mean(shares)))
         if self.target_kl is not None and not bool(metrics["approx_kl"] <= 1.5 * self.target_kl):
             return None
         self.optimizer.zero_grad()
-        (total + mae_loss if joint else total).backward()
+        loss.backward()
         self.optimizer.step()
-        metrics["mae_loss"] = mae_loss
         return {k: v.detach() for k, v in metrics.items()}
 
     def train_phase(
@@ -245,6 +291,8 @@ class PPOMAE:
         return idx, [draw(self.batch_size) for _ in range(len(idx))]
 
     def train(self) -> dict:
+        """The update phase on the collected rollout: :meth:`sample_updates`, then
+        :meth:`train_phase`."""
         data = self.buffer.to_device(self.device)
         with torch.inference_mode():
             last_values = self.policy.predict_values(self._to_device(self._last_obs))
@@ -260,14 +308,17 @@ class PPOMAE:
     # ------------------------------------------------------------------ #
     def collect_rollouts(self) -> None:
         if self._last_obs is None:
-            self._last_obs = self.env.reset()
+            self._last_obs = on_main(self.mesh, lambda: self.env.reset())
         self.buffer.reset()
         while not self.buffer.full:
             with torch.inference_mode():
                 actions, values, log_probs = self.policy.step(self._to_device(self._last_obs), self.generator)
-            actions = actions.cpu().numpy()
-            clipped = np.clip(actions, self._action_low, self._action_high)
-            new_obs, rewards, dones, infos = self.env.step(clipped)
+            step = (actions.cpu().numpy(), values.cpu().numpy(), log_probs.cpu().numpy())
+
+            def env_step(step=step):
+                return (*step, *self.env.step(np.clip(step[0], self._action_low, self._action_high)))
+
+            actions, values, log_probs, new_obs, rewards, dones, infos = on_main(self.mesh, env_step)
             self.num_timesteps += self.n_envs
 
             rewards = self.reward_normalizer(rewards, dones)
@@ -291,7 +342,7 @@ class PPOMAE:
                 if "episode" in info:
                     self.ep_info_buffer.append(info["episode"])
 
-            self.buffer.add(self._last_obs, actions, rewards, self._last_episode_starts, values.cpu().numpy(), log_probs.cpu().numpy())
+            self.buffer.add(self._last_obs, actions, rewards, self._last_episode_starts, values, log_probs)
             self._last_obs = new_obs
             self._last_episode_starts = dones.astype(np.float32)
 
@@ -308,7 +359,7 @@ class PPOMAE:
             t_train = time.time() - t0
             self.iteration += 1
             self.iteration_seconds.append({"collect": t_collect, "train": t_train})
-            if self.verbose and self.iteration % log_interval == 0:
+            if self.verbose and self._is_main and self.iteration % log_interval == 0:
                 ep_rew = np.mean([e["r"] for e in self.ep_info_buffer]) if self.ep_info_buffer else float("nan")
                 ep_len = np.mean([e["l"] for e in self.ep_info_buffer]) if self.ep_info_buffer else float("nan")
                 ep_suc = np.mean([e.get("s", 0.0) for e in self.ep_info_buffer]) if self.ep_info_buffer else float("nan")
@@ -334,8 +385,10 @@ class PPOMAE:
     # checkpoints
     # ------------------------------------------------------------------ #
     def state_dict(self) -> dict:
+        """Parameters, optimizer states, normalizer and step count in the single-process layout
+        (under a mesh gathered: collective, and the policy's state only on rank 0)."""
         return {
-            "policy": self.policy.state_dict(),
+            "policy": gather_state(self.policy, self.mesh),
             "policy_opt_state": self.optimizer.state_dict(),
             "mae_opt_state": None if self.mae_optimizer is None else self.mae_optimizer.state_dict(),
             "reward_normalizer": self.reward_normalizer.state_dict(),
@@ -344,8 +397,8 @@ class PPOMAE:
 
     def load_state_dict(self, d: dict) -> None:
         """Restore a :meth:`state_dict` into this (architecture-compatible) model; parameters and
-        optimizer moments are copied onto this model's device."""
-        self.policy.load_state_dict(d["policy"])
+        optimizer moments are copied onto this model's device (under a mesh, each rank's shares)."""
+        self.policy.load_state_dict(shard_state(d["policy"], self.policy, self.mesh))
         self.optimizer.load_state_dict(d["policy_opt_state"])
         if d.get("mae_opt_state") is not None and self.mae_optimizer is not None:
             self.mae_optimizer.load_state_dict(d["mae_opt_state"])
@@ -357,6 +410,8 @@ class PPOMAE:
         """Write the model, optimizer and normalizer state: ``path`` and ``path.vecnorm.pkl``
         (SB3 ``model.save`` plus ``CheckpointCallback``'s ``save_vecnormalize``)."""
         sd = self.state_dict()
+        if not self._is_main:
+            return
         normalizer = sd.pop("reward_normalizer")
         save_checkpoint(path, sd)
         with open(f"{path}.vecnorm.pkl", "wb") as f:

@@ -35,6 +35,19 @@ package's fused ``multi_update``); it returns the last step's metrics. On the ho
 ``features.post``, MAE), critic, entropy, and in separate mode the MAE's. Checkpoints
 (:meth:`save`, :meth:`load`) are torch state dicts with the reward normalizer's state in a
 ``.vecnorm.pkl`` file beside them.
+
+Under a ``mesh`` (``train/mesh.py``; JAX's ``mesh=``) the result is the single-process one on the
+global batch. The policy (the MAE and ``features.post``; the actor and critic MLPs match no
+tensor-parallel rule and stay replicated, as in JAX) is sharded before the Adams are built, and
+each Adam sums its gradients over the dp group. Rank 0 owns the envs: every rank picks the
+step's actions (collective under mp), rank 0 steps the envs and broadcasts its actions and what
+the envs return, so every rank's replay ring, on the host or the device, holds the same
+transitions. Every replay index and all noise are drawn up front, identically on every rank;
+:meth:`update` takes the global batch and randomness and each rank keeps its dp rows. Each loss
+is this rank's share of the global one (its rows' mean times rows / batch), the MAE chunks
+included, and the metrics are summed over the ranks. The polyak update is local and
+elementwise. Checkpoints are written from rank 0 in the single-process layout; every method that
+runs the policy is collective under a mesh.
 """
 from __future__ import annotations
 
@@ -47,6 +60,7 @@ import numpy as np
 import torch
 
 from ..train.checkpoint import load_checkpoint, save_checkpoint
+from ..train.mesh import Mesh, env_spec, gather_state, is_main, on_main, put_batch, shard_module, shard_state, tree_map
 from ..train.optim import FlatAdam
 from ..utils.device import resolve_device
 from ..utils.obs import vt_load
@@ -92,8 +106,11 @@ class SACMAE:
         seed: int = 0,
         verbose: int = 0,
         device: str | torch.device | None = None,
+        mesh: Mesh | None = None,
     ):
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        env = env_spec(env, mesh)
         self.env = env
         self.n_envs = env.num_envs
         self.learning_starts = learning_starts
@@ -115,6 +132,8 @@ class SACMAE:
             self.fixed_ent_coef = float(ent_coef)
 
         self.policy = policy.to(self.device)
+        if mesh is not None:
+            shard_module(self.policy, mesh)
         p = self.policy
         with torch.no_grad():
             if self.auto_ent:
@@ -125,10 +144,10 @@ class SACMAE:
         mae_ids = {id(q) for q in mae_params}
         grouped = mae_ids | {id(q) for m in (p.critic, p.critic_target) for q in m.parameters()} | {id(p.log_ent_coef)}
         actor_params = [q for q in p.parameters() if id(q) not in grouped]  # actor heads + features.post
-        self.actor_optimizer = FlatAdam(actor_params + mae_params, learning_rate)
-        self.critic_optimizer = FlatAdam(p.critic.parameters(), learning_rate)
-        self.ent_optimizer = FlatAdam([p.log_ent_coef], learning_rate)
-        self.mae_optimizer = FlatAdam(mae_params, mae_lr) if separate_optimizer else None
+        self.actor_optimizer = FlatAdam(actor_params + mae_params, learning_rate, mesh=mesh)
+        self.critic_optimizer = FlatAdam(p.critic.parameters(), learning_rate, mesh=mesh)
+        self.ent_optimizer = FlatAdam([p.log_ent_coef], learning_rate, mesh=mesh)
+        self.mae_optimizer = FlatAdam(mae_params, mae_lr, mesh=mesh) if separate_optimizer else None
 
         if device_buffer:
             self.buffer = DeviceReplayBuffer(buffer_size, self.n_envs, env.observation_space, self.action_dim,
@@ -152,6 +171,10 @@ class SACMAE:
     def _to_device(self, obs: dict) -> dict:
         return {k: torch.as_tensor(np.ascontiguousarray(v)).to(self.device) for k, v in obs.items()}
 
+    @property
+    def _is_main(self) -> bool:
+        return is_main(self.mesh)
+
     # ------------------------------------------------------------------ #
     # the gradient step
     # ------------------------------------------------------------------ #
@@ -172,18 +195,37 @@ class SACMAE:
     def update(self, batch: dict, masks: list, noise_pi: torch.Tensor, noise_next: torch.Tensor) -> dict:
         """One gradient step on ``batch`` (tensors on the device: obs, next_obs, actions, rewards,
         dones) with injected randomness (see :meth:`sample_randomness`). Returns the metrics as
-        detached device scalars."""
+        detached device scalars. Under a mesh the batch and the randomness are the global ones;
+        this rank keeps its rows and steps on its share of each loss."""
         p = self.policy
+        n = batch["actions"].shape[0]
+        rows = self.mesh.rows(n) if self.mesh is not None else slice(0, n)
+        scale = (rows.stop - rows.start) / n
+        if self.mesh is not None:
+            batch = put_batch(batch, self.mesh)
+            noise_pi, noise_next = noise_pi[rows], noise_next[rows]
+
+        def share(loss):
+            return loss if self.mesh is None else loss * scale
+
         x = vt_load(batch["obs"], frame_stack=self.frame_stack)
         x_next = vt_load(batch["next_obs"], frame_stack=self.frame_stack)
         metrics = {}
 
-        # 1) MAE update(s) on replay observations
+        # 1) MAE update(s) on replay observations, each chunk's rows where this rank holds them
         if self.separate_optimizer:
             bs = self.mae_batch_size
             for i, mask in enumerate(masks):
-                mae_loss = p.features.mae_loss({k: v[i * bs : (i + 1) * bs] for k, v in x.items()}, mask)
-                _adam_step(self.mae_optimizer, mae_loss)
+                a, b = max(i * bs, rows.start), min((i + 1) * bs, rows.stop)
+                if b > a:
+                    chunk_mask = tree_map(lambda t: t[a - i * bs : b - i * bs], mask)  # noqa: B023
+                    mae_loss = p.features.mae_loss({k: v[a - rows.start : b - rows.start] for k, v in x.items()}, chunk_mask)
+                    if b - a != bs:
+                        mae_loss = mae_loss * ((b - a) / bs)
+                    _adam_step(self.mae_optimizer, mae_loss)
+                else:
+                    mae_loss = torch.zeros((), device=self.device)
+                    self.mae_optimizer.step()  # no rows here: zero gradients into the dp sum
             metrics["mae_loss"] = mae_loss.detach()
 
         with torch.no_grad():
@@ -196,11 +238,11 @@ class SACMAE:
         if self.auto_ent:
             ent_coef = torch.exp(p.log_ent_coef.detach())
             target = (log_prob + self.target_entropy).detach()
-            _adam_step(self.ent_optimizer, -(p.log_ent_coef * target).mean())
-            metrics["ent_coef_loss"] = -(torch.log(ent_coef) * target).mean()
+            _adam_step(self.ent_optimizer, share(-(p.log_ent_coef * target).mean()))
+            metrics["ent_coef_loss"] = share(-(torch.log(ent_coef) * target).mean())
         else:
             ent_coef = torch.tensor(self.fixed_ent_coef, device=self.device)
-        metrics["ent_coef"] = ent_coef
+        metrics["ent_coef"] = share(ent_coef)
 
         # 4) critic update against the min-twin target (no gradient into the extractor)
         with torch.no_grad():
@@ -208,7 +250,7 @@ class SACMAE:
             next_q = p.critic_target(next_feats, next_actions).min(dim=-1).values - ent_coef * next_logp
             target_q = batch["rewards"] + (1.0 - batch["dones"]) * self.gamma * next_q
         q = p.critic(feats_sg, batch["actions"])
-        critic_loss = 0.5 * ((q - target_q[:, None]) ** 2).mean(dim=0).sum()
+        critic_loss = share(0.5 * ((q - target_q[:, None]) ** 2).mean(dim=0).sum())
         _adam_step(self.critic_optimizer, critic_loss)
         metrics["critic_loss"] = critic_loss.detach()
 
@@ -216,10 +258,11 @@ class SACMAE:
         if self.separate_optimizer:
             feats = feats_sg
         else:
-            feats, mae_loss = p.features.features_and_mae_loss(x, masks[0])
+            feats, mae_loss = p.features.features_and_mae_loss(x, tree_map(lambda t: t[rows], masks[0]))
+            mae_loss = share(mae_loss)
         a, logp = p.actor.action_log_prob(feats, noise_pi)
         q_pi = p.critic(feats, a).min(dim=-1).values
-        actor_loss = (ent_coef * logp - q_pi).mean()
+        actor_loss = share((ent_coef * logp - q_pi).mean())
         _adam_step(self.actor_optimizer, actor_loss if self.separate_optimizer else actor_loss + mae_loss)
         metrics["actor_loss"] = actor_loss.detach()
         if not self.separate_optimizer:
@@ -230,6 +273,8 @@ class SACMAE:
             for t, c in zip(p.critic_target.parameters(), p.critic.parameters()):
                 t.copy_((1.0 - self.tau) * t + self.tau * c)
         self._n_updates += 1
+        if self.mesh is not None:
+            metrics = dict(zip(metrics, self.mesh.global_mean(torch.stack(list(metrics.values())))))
         return metrics
 
     def _ready(self) -> bool:
@@ -282,11 +327,11 @@ class SACMAE:
     def learn(self, total_timesteps: int, callback=None, log_interval: int = 4):
         t_start = time.time()
         if self._last_obs is None:
-            self._last_obs = self.env.reset()
+            self._last_obs = on_main(self.mesh, lambda: self.env.reset())
         episode_num = 0
         while self.num_timesteps < total_timesteps:
             actions = self._act(self._last_obs)
-            new_obs, rewards, dones, infos = self.env.step(actions)
+            actions, new_obs, rewards, dones, infos = on_main(self.mesh, lambda a=actions: (a, *self.env.step(a)))
             self.num_timesteps += self.n_envs
             rewards = self.reward_normalizer(rewards, dones)
             for info in infos:
@@ -300,7 +345,7 @@ class SACMAE:
                 self.last_metrics = self.train_steps(self.gradient_steps)
             if callback is not None and callback(self) is False:
                 break
-            if self.verbose and episode_num and episode_num % log_interval == 0 and any("episode" in i for i in infos):
+            if self.verbose and self._is_main and episode_num and episode_num % log_interval == 0 and any("episode" in i for i in infos):
                 ep_rew = np.mean([e["r"] for e in self.ep_info_buffer])
                 ep_suc = np.mean([e.get("s", 0.0) for e in self.ep_info_buffer])
                 fps = int(self.num_timesteps / (time.time() - t_start))
@@ -327,16 +372,19 @@ class SACMAE:
                 "mae_opt": self.mae_optimizer}
 
     def state_dict(self) -> dict:
+        """The single-process layout (under a mesh gathered: collective, the policy's state on
+        rank 0 only)."""
         return {
-            "policy": self.policy.state_dict(),
+            "policy": gather_state(self.policy, self.mesh),
             **{k: None if opt is None else opt.state_dict() for k, opt in self._optimizers().items()},
             "reward_normalizer": self.reward_normalizer.state_dict(),
             "num_timesteps": self.num_timesteps,
         }
 
     def load_state_dict(self, d: dict) -> None:
-        """Restore a :meth:`state_dict` into this (architecture-compatible) model, onto its device."""
-        self.policy.load_state_dict(d["policy"])
+        """Restore a :meth:`state_dict` into this (architecture-compatible) model, onto its device
+        (under a mesh, each rank's shares)."""
+        self.policy.load_state_dict(shard_state(d["policy"], self.policy, self.mesh))
         for k, opt in self._optimizers().items():
             if opt is not None and d.get(k) is not None:
                 opt.load_state_dict(d[k])
@@ -347,6 +395,8 @@ class SACMAE:
     def save(self, path: str) -> None:
         """Write the model, optimizer and normalizer state: ``path`` and ``path.vecnorm.pkl``."""
         sd = self.state_dict()
+        if not self._is_main:
+            return
         normalizer = sd.pop("reward_normalizer")
         save_checkpoint(path, sd)
         with open(f"{path}.vecnorm.pkl", "wb") as f:

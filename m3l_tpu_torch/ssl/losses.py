@@ -2,9 +2,12 @@
 ``m3l_tpu/ssl/losses.py``).
 
 The center is an explicit tensor, (1, K) for CLS outputs or (1, 1, K) for patch tokens, which the
-caller keeps (a module buffer) and replaces with :func:`update_center`'s result. This is the
-single-device form: the JAX functions' ``axis_name`` reductions across replicas have no
-counterpart here yet, so every sum is over this process's batch.
+caller keeps (a module buffer) and replaces with :func:`update_center`'s result. Every sum here is
+over the batch it is given. A JAX mesh run takes them over the global batch (GSPMD, no
+``axis_name``); on the port's mesh (``train/mesh.py``) each rank holds only its rows, so the center,
+the Sinkhorn-Knopp sums, KoLeo's nearest neighbours and iBOT's masked counts would each need a
+global reduction (KoLeo a differentiable gather). Those are not written yet: the modules that use
+these losses refuse a mesh (``SSLModule.use_mesh``).
 """
 from __future__ import annotations
 

@@ -19,6 +19,7 @@ from typing import Callable, Iterable, Optional, Sequence
 import torch
 from torch import nn
 
+from ..train.mesh import gather_like, shard_like
 from ..train.optim import FlatAdamW, GradientChain
 from .schedulers import cosine_wd_schedule, warmup_cosine_schedule
 
@@ -37,6 +38,16 @@ class SSLModule(nn.Module):
 
     def on_train_batch_end(self, aux: dict, step: int) -> None:
         """Post-update hook (EMA, centers). Default: nothing."""
+
+    def use_mesh(self, mesh) -> None:
+        """Train under ``mesh`` (``train/mesh.py``): the loss becomes this rank's share of the
+        global batch's. A module whose loss takes statistics over the whole batch needs global
+        reductions for that; this default raises, and a module that has them overrides it."""
+        raise NotImplementedError(
+            f"{type(self).__name__} under a mesh: its loss needs global reductions over the batch (the DINO center, "
+            "Sinkhorn-Knopp's sums, KoLeo's nearest neighbours, iBOT's masked counts) that the port does not have yet; "
+            "MAEModule trains on a mesh"
+        )
 
     def configure_optimizer(self, steps_per_epoch: int, epochs: int) -> GradientChain:
         return default_wd_split_optimizer(
@@ -101,12 +112,29 @@ class WDSplitAdamW(GradientChain):
             self._decay_group["weight_decay"] = wd
         self.adamw.step()
 
+    def _ordered(self) -> list[nn.Parameter]:
+        """The parameters in the order ``torch.optim`` numbers them in its state dict."""
+        return [p for g in self.adamw.param_groups for p in g["params"]]
+
+    def _map_moments(self, sd: dict, fn) -> dict:
+        params = self._ordered()
+        state = {i: {k: fn(v, params[i]) if k in ("exp_avg", "exp_avg_sq") else v for k, v in st.items()} for i, st in sd["state"].items()}
+        return {**sd, "state": state}
+
     def state_dict(self) -> dict:
-        return {"adamw": self.adamw.state_dict(), **super().state_dict()}
+        """AdamW's state and the chain's, in the single-process layout (collective under a mesh)."""
+        adamw = self.adamw.state_dict()
+        if self.mesh is not None:
+            adamw = self._map_moments(adamw, lambda t, p: gather_like(t, p, self.mesh))
+        return {"adamw": adamw, **super().state_dict()}
 
     def load_state_dict(self, d: dict) -> None:
-        """Restore a :meth:`state_dict`; AdamW's moments land on their parameters' devices."""
-        self.adamw.load_state_dict(d["adamw"])
+        """Restore a :meth:`state_dict`; AdamW's moments land on their parameters' devices (under
+        a mesh, this rank's shares)."""
+        adamw = d["adamw"]
+        if self.mesh is not None:
+            adamw = self._map_moments(adamw, lambda t, p: shard_like(t.to(p.device), p, self.mesh))
+        self.adamw.load_state_dict(adamw)
         super().load_state_dict(d)
 
 

@@ -3,10 +3,11 @@
 discovery, trainer.py:101-108).
 
 Rank and world size come from SLURM, OpenMPI or torchrun variables. :func:`initialize_distributed`
-starts a ``torch.distributed`` process group when the world size is above 1 (nccl on the card,
-gloo when the CPU is asked for) and is a no-op returning False otherwise. Preemption requeue is the
-Trainer's SIGTERM / SIGUSR1 save plus :func:`slurm_requeue`. Multi-device training itself (the
-JAX mesh) is not ported: the Trainer's ``mesh=`` raises.
+starts a ``torch.distributed`` process group when the world size is above 1, on the backend of
+``train/mesh.py``'s rule (nccl when every rank of this host has a card of its own, gloo when ranks
+share a card or run on the CPU), and is a no-op returning False otherwise. Multi-device training
+itself is ``train/mesh.py`` (``make_mesh`` over the group, ``launch`` to start one).
+Preemption requeue is the Trainer's SIGTERM / SIGUSR1 save plus :func:`slurm_requeue`.
 """
 from __future__ import annotations
 
@@ -31,10 +32,13 @@ def get_world_size() -> int:
 
 def initialize_distributed(coordinator_address: str | None = None, device: str = "cuda") -> bool:
     """Join a ``torch.distributed`` process group of :func:`get_world_size` processes as rank
-    :func:`get_local_rank`, over nccl for ``device`` cuda and gloo for cpu; the rendezvous is
-    ``coordinator_address`` (``host:port``) or, without it, torch's ``env://`` (MASTER_ADDR,
-    MASTER_PORT). Returns True if a group was started, False (nothing done) for one process."""
+    :func:`get_local_rank`, on the mesh's backend rule (``train/mesh.py`` ``backend_for``); the
+    rendezvous is ``coordinator_address`` (``host:port``) or, without it, torch's ``env://``
+    (MASTER_ADDR, MASTER_PORT). Returns True if a group was started, False (nothing done) for one
+    process."""
     import torch.distributed as dist
+
+    from .mesh import backend_for
 
     world = get_world_size()
     if world <= 1:
@@ -42,7 +46,7 @@ def initialize_distributed(coordinator_address: str | None = None, device: str =
     if device not in ("cuda", "cpu"):
         raise ValueError(f"initialize_distributed: device {device!r} is neither cuda nor cpu")
     init_method = f"tcp://{coordinator_address}" if coordinator_address else "env://"
-    dist.init_process_group("nccl" if device == "cuda" else "gloo", init_method=init_method, world_size=world, rank=get_local_rank())
+    dist.init_process_group(backend_for(world, device), init_method=init_method, world_size=world, rank=get_local_rank())
     return True
 
 

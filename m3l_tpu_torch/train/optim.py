@@ -13,6 +13,14 @@ JAX package this is plain XLA, not a Pallas kernel; here it is plain PyTorch.
 Unlike the JAX version, which returns updates for donated parameters, :meth:`FlatAdam.step`
 updates the parameters in place.
 
+Under a mesh (``train/mesh.py``) every optimizer here takes the mesh: the dp reduction is one
+all-reduce of the flat gradient, before the clip, with the replicated part then taken from the
+mp group's first rank; the global norm under mp is the replicated parameters' sum of squares plus
+the mp-group sum of the sharded parameters'. The moments stay local: elementwise over this rank's
+shards, they are the single-process moments' shares. (JAX switches to leaf-wise optax under a mesh
+because a raveled vector cannot carry shardings; the port's flat buffer of local shards carries
+none either, so it keeps its flat optimizers.)
+
 :class:`FlatAdamW` is ``flat_adamw``: the reference's weight-decay split (decay only parameters of
 2 or more dimensions) as a flat 0/1 mask, and -lr (mu_hat / (sqrt(nu_hat) + eps) + wd mask p) for
 the update, lr and wd scalars or schedules read at the pre-increment count. Its parameters live in
@@ -25,6 +33,8 @@ from typing import Callable, Iterable
 
 import torch
 
+from .mesh import Mesh, gather_flat, gather_like, reduce_flat_grad, shard_flat, shard_like, sharded_mask, sum_of_squares
+
 
 class FlatAdam:
     def __init__(
@@ -35,9 +45,12 @@ class FlatAdam:
         b2: float = 0.999,
         eps: float = 1e-8,
         max_grad_norm: float | None = None,
+        mesh: Mesh | None = None,
     ):
         self.params = list(params)
         self.learning_rate, self.b1, self.b2, self.eps, self.max_grad_norm = learning_rate, b1, b2, eps, max_grad_norm
+        self.mesh = mesh
+        self._sharded = sharded_mask(self.params) if mesh is not None else None
         n = sum(p.numel() for p in self.params)
         dev = self.params[0].device
         self.count = 0
@@ -55,10 +68,13 @@ class FlatAdam:
 
     @torch.no_grad()
     def step(self) -> None:
-        """One clipped Adam update from the parameters' gradients, applied in place."""
+        """One clipped Adam update from the parameters' gradients (under a mesh, their sum over
+        the dp group), applied in place."""
         g = self.flat_grad()
+        if self.mesh is not None:
+            reduce_flat_grad(g, self.mesh, self._sharded)
         if self.max_grad_norm is not None:
-            gnorm = torch.sqrt(torch.sum(torch.square(g)))
+            gnorm = torch.sqrt(sum_of_squares(g, self.mesh, self._sharded))
             g = g * torch.clamp(self.max_grad_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
         lr = self.learning_rate(self.count) if callable(self.learning_rate) else self.learning_rate
         self.count += 1
@@ -74,19 +90,24 @@ class FlatAdam:
             offset += p.numel()
 
     def state_dict(self) -> dict:
-        """The step count and both flat moments (the JAX ``FlatAdamState``)."""
-        return {"count": self.count, "mu": self.mu, "nu": self.nu}
+        """The step count and both flat moments (the JAX ``FlatAdamState``); under a mesh in the
+        single-process layout, each parameter's moments gathered (collective)."""
+        return {"count": self.count, "mu": gather_flat(self.mu, self.params, self.mesh), "nu": gather_flat(self.nu, self.params, self.mesh)}
 
     def load_state_dict(self, d: dict) -> None:
-        """Restore a :meth:`state_dict`; the moments land on the parameters' device, whatever
-        device they were saved from."""
+        """Restore a :meth:`state_dict` (single-process layout); the moments land on the
+        parameters' device, whatever device they were saved from, and under a mesh each rank
+        keeps its shares."""
         dev = self.mu.device
+        moments = {}
         for k in ("mu", "nu"):
-            if tuple(d[k].shape) != tuple(self.mu.shape):
+            full = d[k].to(dev, torch.float32)
+            local = shard_flat(full, self.params, self.mesh)
+            if tuple(local.shape) != tuple(self.mu.shape):
                 raise ValueError(f"FlatAdam: saved {k} has {tuple(d[k].shape)} values, this optimizer {tuple(self.mu.shape)}")
+            moments[k] = local.clone()
         self.count = int(d["count"])
-        self.mu = d["mu"].to(dev, torch.float32, copy=True)
-        self.nu = d["nu"].to(dev, torch.float32, copy=True)
+        self.mu, self.nu = moments["mu"], moments["nu"]
 
 
 
@@ -99,7 +120,8 @@ class GradientChain:
     applied in order, each as ``optax.clip_by_global_norm`` (g * max / |g| only where |g| > max,
     no epsilon); with ``every_k`` > 1, as ``optax.MultiSteps``, :meth:`step` averages k gradients
     (acc += (g - acc) / (n + 1)) and applies them on the k-th call, and only that call advances
-    :attr:`count`, and so the schedules. A subclass applies the gradients in :meth:`_apply`."""
+    :attr:`count`, and so the schedules. A subclass applies the gradients in :meth:`_apply`.
+    Under a mesh (:meth:`set_mesh`) each call's gradients are first summed over the dp group."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], clip_norms=(), every_k: int = 1):
         self.params = list(params)
@@ -107,9 +129,24 @@ class GradientChain:
         self.count = 0
         self.mini_step = 0
         self.acc: list[torch.Tensor] | None = None
+        self.set_mesh(None)
+
+    def set_mesh(self, mesh: Mesh | None) -> None:
+        """Reduce every later step's gradients over ``mesh`` (the parameters already sharded)."""
+        self.mesh = mesh
+        self._sharded = sharded_mask(self.params) if mesh is not None else None
 
     def _grads(self) -> list[torch.Tensor]:
-        return [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        if self.mesh is None:
+            return grads
+        flat = reduce_flat_grad(torch.cat([g.reshape(-1) for g in grads]), self.mesh, self._sharded)
+        return [t.view_as(p) for t, p in zip(torch.split(flat, [p.numel() for p in self.params]), self.params)]
+
+    def _norm(self, grads: list[torch.Tensor]) -> torch.Tensor:
+        if self.mesh is None:
+            return _global_norm(grads)
+        return torch.sqrt(sum_of_squares(torch.cat([g.reshape(-1) for g in grads]), self.mesh, self._sharded))
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -131,18 +168,21 @@ class GradientChain:
                 return False
             grads, self.acc, self.mini_step = self.acc, None, 0
         for max_norm in self.clip_norms:
-            norm = _global_norm(grads)
+            norm = self._norm(grads)
             grads = [torch.where(norm < max_norm, g, (g / norm) * max_norm) for g in grads]
         self._apply(grads)
         self.count += 1
         return True
 
     def state_dict(self) -> dict:
-        return {"count": self.count, "mini_step": self.mini_step, "acc": self.acc}
+        """The counts and the accumulated gradients, in the single-process layout (collective
+        under a mesh)."""
+        acc = None if self.acc is None else [gather_like(a, p, self.mesh) for a, p in zip(self.acc, self.params)]
+        return {"count": self.count, "mini_step": self.mini_step, "acc": acc}
 
     def load_state_dict(self, d: dict) -> None:
         self.count, self.mini_step = int(d["count"]), int(d["mini_step"])
-        self.acc = None if d["acc"] is None else [a.to(p.device) for a, p in zip(d["acc"], self.params)]
+        self.acc = None if d["acc"] is None else [shard_like(a.to(p.device), p, self.mesh) for a, p in zip(d["acc"], self.params)]
 
 
 class FlatAdamW(GradientChain):
@@ -189,13 +229,15 @@ class FlatAdamW(GradientChain):
     def state_dict(self) -> dict:
         """The chain's state and both flat moments (the JAX ``FlatAdamWState`` but the mask, which
         the parameters' shapes give)."""
-        return {**super().state_dict(), "mu": self.mu, "nu": self.nu}
+        return {**super().state_dict(), "mu": gather_flat(self.mu, self.params, self.mesh), "nu": gather_flat(self.nu, self.params, self.mesh)}
 
     def load_state_dict(self, d: dict) -> None:
-        """Restore a :meth:`state_dict`; the moments land on the parameters' device."""
-        for k in ("mu", "nu"):
-            if tuple(d[k].shape) != tuple(self.mu.shape):
+        """Restore a :meth:`state_dict`; the moments land on the parameters' device (under a mesh,
+        this rank's shares)."""
+        local = {k: shard_flat(d[k].to(self.mu.device), self.params, self.mesh) for k in ("mu", "nu")}
+        for k, v in local.items():
+            if tuple(v.shape) != tuple(self.mu.shape):
                 raise ValueError(f"FlatAdamW: saved {k} has {tuple(d[k].shape)} values, this optimizer {tuple(self.mu.shape)}")
         super().load_state_dict(d)
-        self.mu.copy_(d["mu"])
-        self.nu.copy_(d["nu"])
+        self.mu.copy_(local["mu"])
+        self.nu.copy_(local["nu"])

@@ -11,6 +11,18 @@ Randomness comes from a ``torch.Generator`` on that device, seeded from ``seed``
 batch i always uses the generator seeded from (seed, i), so validation numbers are comparable
 across epochs. A ``torch.profiler`` trace covers the steps of ``profile_steps`` when
 ``profile_dir`` is set.
+
+With ``mesh`` (``train/mesh.py``) :meth:`fit` computes the single-process result on the global
+batch, as JAX's GSPMD Trainer does: it shards the module (``shard_module``) before
+``configure_optimizer``, every rank loads the same global batch and keeps its dp rows (JAX's
+``_place``), the module draws its noise for the global batch and keeps the same rows, each rank's
+loss is its share of the global one, the optimizer sums the gradients over the dp group, the
+logged losses are summed over the ranks, and rank 0 alone writes the checkpoints (in the
+single-process layout, so a mesh run resumes from a single-process one and the reverse). A module
+takes a mesh through :meth:`~..ssl.module.SSLModule.use_mesh`: ``MAEModule`` does; the modules
+whose losses need global reductions the port does not have yet raise there. Under a mesh no
+preemption handler is installed (a save is collective and cannot run inside a signal handler)
+and no reconstruction images are logged.
 """
 from __future__ import annotations
 
@@ -24,6 +36,7 @@ import torch
 
 from ..utils.device import resolve_device
 from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
+from .mesh import gather_state, is_main, put_batch, shard_module, shard_state
 
 if TYPE_CHECKING:  # ssl.module imports train.optim: a run-time import here would be circular
     from ..ssl.module import SSLModule
@@ -50,9 +63,8 @@ class Trainer:
         logger=None,
         device: str | torch.device | None = "cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError("Trainer: multi-device (mesh) training is not ported")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.max_epochs = max_epochs
         self.grad_accum_steps = grad_accum_steps
         self.clip_gradients = clip_gradients
@@ -60,10 +72,10 @@ class Trainer:
         self.ckpt_dir = ckpt_dir
         self.save_every = save_ckpt_every_n_epochs
         self.log_every = log_every_n_steps
-        self.verbose = verbose
+        self.verbose = verbose if is_main(mesh) else 0  # rank 0 alone prints and logs
         self.profile_dir = profile_dir
         self.profile_steps = profile_steps
-        self.logger = logger
+        self.logger = logger if is_main(mesh) else None
         self.log_images_every = log_images_every_n_epochs
         self.global_step = 0
         self.current_epoch = 0
@@ -92,11 +104,15 @@ class Trainer:
     def _save(self, module: SSLModule, optimizer, name: str, trainable_only: bool = False):
         if self.ckpt_dir is None:
             return
+        state = gather_state(module, self.mesh)  # collective under a mesh; None off rank 0
+        opt_state = None if trainable_only else optimizer.state_dict()
+        if not is_main(self.mesh):
+            return
         if trainable_only:
             # task checkpoints keep only what the optimizer trains
-            payload = {"model": {k: p.detach() for k, p in module.trainable_parameters().items()}}
+            payload = {"model": {k: state[k] for k in module.trainable_parameters()}}
         else:
-            payload = {"model": module.state_dict(), "opt": optimizer.state_dict()}
+            payload = {"model": state, "opt": opt_state}
         payload.update(global_step=self.global_step, current_epoch=self.current_epoch)
         save_checkpoint(os.path.join(self.ckpt_dir, name), payload)
 
@@ -107,7 +123,7 @@ class Trainer:
         if last is None:
             return False
         payload = load_checkpoint(last, map_location=self.device)
-        module.load_state_dict(payload["model"])
+        module.load_state_dict(shard_state(payload["model"], module, self.mesh))
         optimizer.load_state_dict(payload["opt"])
         self.global_step = int(payload["global_step"])
         self.current_epoch = int(payload["current_epoch"])
@@ -116,7 +132,15 @@ class Trainer:
         return True
 
     def _place(self, batch: dict) -> dict:
-        return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+        """The batch on the device; under a mesh this rank's dp rows of it."""
+        return put_batch({k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}, self.mesh)
+
+    def _global(self, loss: torch.Tensor, scalars: dict) -> tuple[torch.Tensor, dict]:
+        """Under a mesh, the global values of this rank's loss and scalar shares (one collective)."""
+        if self.mesh is None:
+            return loss, scalars
+        vals = self.mesh.global_mean(torch.stack([loss, *scalars.values()]))
+        return vals[0], dict(zip(scalars, vals[1:]))
 
     def _val_generator(self, index: int) -> torch.Generator:
         """The generator of validation batch ``index``: the same in every epoch."""
@@ -134,7 +158,7 @@ class Trainer:
         optimizer.step()
         optimizer.zero_grad()
         module.on_train_batch_end(aux, self.global_step)
-        return loss.detach(), self._scalars(aux)
+        return self._global(loss.detach(), self._scalars(aux))
 
     # ------------------------------------------------------------------ #
     def fit(
@@ -145,15 +169,21 @@ class Trainer:
         steps_per_epoch: Optional[int] = None,
     ):
         steps_per_epoch = steps_per_epoch or len(train_loader)
+        if self.mesh is not None:
+            module.use_mesh(self.mesh)  # raises for a module whose loss the mesh cannot take yet
         module.to(self.device)
         if hasattr(module, "setup_schedules"):
             module.setup_schedules(steps_per_epoch, self.max_epochs)
+        if self.mesh is not None:  # sharded before the optimizer is built, as JAX's Trainer does
+            shard_module(module, self.mesh)
         optimizer = module.configure_optimizer(steps_per_epoch, self.max_epochs)
+        optimizer.set_mesh(self.mesh)
         if self.clip_gradients is not None:
             optimizer.clip_norms = (self.clip_gradients, *optimizer.clip_norms)
         optimizer.every_k = self.grad_accum_steps
         self._try_resume(module, optimizer)
-        self._install_signal_handlers(module, optimizer)
+        if self.mesh is None:
+            self._install_signal_handlers(module, optimizer)
 
         history = []
         profiler = None
@@ -208,8 +238,9 @@ class Trainer:
         losses, scalars = [], {}
         for bi, batch in enumerate(val_loader):
             loss, aux = module.validation_loss(self._place(batch), self._val_generator(bi), self.global_step)
+            loss, aux = self._global(loss, self._scalars(aux))
             losses.append(loss)
-            for kk, vv in self._scalars(aux).items():
+            for kk, vv in aux.items():
                 scalars.setdefault(kk, []).append(float(vv))
         if self.logger is not None and scalars:
             self.logger.log_scalars({f"val/{kk}": float(np.mean(vv)) for kk, vv in scalars.items()}, self.global_step)
@@ -220,6 +251,7 @@ class Trainer:
         provide ``reconstruction_images(batch, generator) -> {name: (H, W, C)}``."""
         if (
             self.logger is None
+            or self.mesh is not None
             or not hasattr(self.logger, "log_image")
             or not hasattr(module, "reconstruction_images")
             or not self.log_images_every

@@ -69,10 +69,11 @@ def test_cli_checks_its_flags_before_building(monkeypatch):
         raise AssertionError("an env was built before the flags were checked")
 
     monkeypatch.setattr(cli, "make_env", no_env)
-    with pytest.raises(ValueError, match="multi-device"):
-        cli.main(TINY + ["--mesh_devices", "2"])
-    with pytest.raises(ValueError, match="multi-device"):
-        cli.main(TINY + ["--mesh_mp", "2"])
+    # an impossible mesh: a rank count mp does not divide, an mp that does not divide the 4 heads
+    with pytest.raises(ValueError, match="mp to divide the rank count"):
+        cli.main(TINY + ["--mesh_devices", "3", "--mesh_mp", "2"])
+    with pytest.raises(ValueError, match="does not divide the model's heads"):
+        cli.main(TINY + ["--mesh_devices", "3", "--mesh_mp", "3"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main([a if a != "cpu" else "cuda" for a in TINY])

@@ -417,3 +417,22 @@ def test_distributed_helpers_single_process(monkeypatch):
     assert get_local_rank() == 3 and get_world_size() == 8 and not is_main_process()
     with pytest.raises(ValueError, match="neither cuda nor cpu"):
         initialize_distributed(device="mps")
+
+
+def test_initialize_distributed_follows_the_mesh_backend_rule(monkeypatch):
+    """nccl when every rank of the host has a card of its own, gloo when ranks share one or run on
+    the CPU (train/mesh.py backend_for); the group is not started here, only asked for."""
+    started = []
+    monkeypatch.setattr(torch.distributed, "init_process_group", lambda backend, **kw: started.append((backend, kw["world_size"])))
+    for var in ("SLURM_PROCID", "OMPI_COMM_WORLD_RANK", "SLURM_NTASKS", "OMPI_COMM_WORLD_SIZE", "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    monkeypatch.setenv("RANK", "1")
+    for cards, device, want in ((4, "cuda", "nccl"), (1, "cuda", "gloo"), (4, "cpu", "gloo")):
+        monkeypatch.setattr(torch.cuda, "device_count", lambda n=cards: n)
+        assert initialize_distributed("localhost:29500", device=device) is True
+        assert started[-1] == (want, 4), (cards, device, started[-1])
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")  # two hosts of two ranks, two cards each
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    initialize_distributed("localhost:29500", device="cuda")
+    assert started[-1] == ("nccl", 4)
