@@ -166,10 +166,18 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    mae_vit.yaml's width (f32, two batches of 64) at mp 2, its loss, each parameter's AdamW moments
    and the parameters; (d) ``cli.train.main`` with ``--mesh_devices 2
    --mesh_mp 2`` for one iteration, whose checkpoint restores into a single-process PPOMAE that
-   predicts the mesh's actions (SLICE_TOL); (e) a 1-rank nccl mesh through the same code, bit-equal
-   to no mesh (cuDNN deterministic for both). Every rank holds the replicated parameters bit-identical
-   to rank 0's and makes the single process's attention calls at batch / dp and heads / mp, each on
-   its dtype's body, at shapes phase 3 held (MESH_SHAPES). Each rank warms up on a throwaway copy
+   predicts the mesh's actions (SLICE_TOL); (f) the SSL families through the Trainer at dp 2 x mp 2,
+   all five in one group of four ranks, each at its config's width and depth (dino_vit.yaml,
+   dinov2_vit.yaml with its centering, ijepa_vit.yaml, vjepa_vit.yaml with ``data.out_format=video``,
+   VTDINO at phase 12's defaults; warm-up 0, f32 with TF32 off, two steps on a global batch of 16): each
+   step's loss and scalars, AdamW's moments, the parameters, the teachers and the centers against the
+   single process on the card on fixed bounds (MESH_SSL_TOL), every rank at the family's launches a
+   step (MESH_SSL: DINO and DINOv2 50 + 26, 36 + 24 key-masked; I-JEPA 48 + 36, 36 + 36; V-JEPA 30 +
+   18; VTDINO 12 + 8, all key-masked); (e) a 1-rank nccl mesh through the same code, bit-equal
+   to no mesh (cuDNN deterministic for both). Every rank holds the replicated parameters (and, in (f),
+   buffers) bit-identical to rank 0's and makes the single process's attention calls at batch / dp and
+   heads / mp, each on its dtype's body, at shapes phase 3 held (MESH_SHAPES; the masked ones of (f)
+   also under their key masks in 3c). Each rank warms up on a throwaway copy
    of its case before the timed run, and a 2-rank job shows where a dp 2 update's time goes (the
    single-process update alone and with the other rank's at once, and a torch.profiler trace). A
    rank's exception fails the phase. Ranks sharing one card measure no scaling: the update ms per
@@ -182,9 +190,9 @@ whole-head limit (LENGTH_CASES, B=2, H=4, with and without a key mask: a longer 
 tiles, with the bits it would have staged whole), timing bf16 and f32 at B=2, N=784, Dh=64 (3b);
 and under the key masks of the self-distillation paths (3c, DISTILL_MASKED: DINO's global block at
 (64, 197, 6, 64), its local blocks at (256, 197, 6, 64), I-JEPA's cut context at (64, 392, 12,
-32), and VTDINO's block masks tiled over its three modalities at its defaults and at its bf16
-recipe), f32 and bf16, each timed beside SDPA under the same mask, its bound counting only the kept
-keys. It prints err/tol for each case.
+32), VTDINO's block masks tiled over its three modalities at its defaults and at its bf16
+recipe, and each rank's share of those of phase 16 (f)), f32 and bf16, each timed beside SDPA under
+the same mask, its bound counting only the kept keys. It prints err/tol for each case.
 
 Each phase after the kernel checks runs with the launch counts set to 0 just before it and read
 just after; phases 4-8 also fail unless every bf16 forward launch, and in phases 5-8 every bf16
@@ -314,16 +322,29 @@ SSL_SHAPES = [(64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32), (64, 197, 6,
 # each rank's share of phase 16's meshes, which hold heads / mp heads and batch / dp rows: the
 # flagship PPO+MAE update (its policy on 192 tokens, its MAE encoder on the 10 kept) at dp 2, mp 2
 # (the CLI's mesh too) and dp 2 x mp 2 with the rollout's 8 envs at mp 2, SAC's batch of 256 at
-# dp 2 x mp 2, and the MAE Trainer's ViT-small encoder (49 kept patches, 6 heads) at mp 2. Phase 16
-# fails if a rank runs a shape that phase 3 did not hold (HELD_SHAPES)
+# dp 2 x mp 2, and the MAE Trainer's ViT-small encoder (49 kept patches, 6 heads) at mp 2. Then
+# (f)'s SSL families at dp 2 x mp 2 on a global batch of 16 (8 rows a rank, 3 of the ViT-small's 6
+# heads): DINO's global view, teacher pass and probe pass (1 register + 196 patches), its four
+# local views at once, DINOv2's two global views at once, the probe decoder (196 tokens, 4 of 8
+# heads of 32); the I-JEPA context and target encoders (196 patches) and its predictor (196 context
+# + 196 mask tokens, 6 of 12 heads of 32); the V-JEPA context encoder (49 kept) and predictor (49 +
+# 147, 6 of 12 heads); VTDINO's global and four local views (1 + 3 x 25 tokens). Phase 16 fails if
+# a rank runs a shape that phase 3 did not hold (HELD_SHAPES)
 MESH_SHAPES = [(256, 192, 4, 64), (256, 10, 4, 64), (512, 192, 2, 64), (512, 10, 2, 64), (8, 192, 2, 64), (256, 192, 2, 64),
-               (256, 10, 2, 64), (128, 192, 2, 64), (128, 10, 2, 64), (64, 49, 3, 64)]
+               (256, 10, 2, 64), (128, 192, 2, 64), (128, 10, 2, 64), (64, 49, 3, 64),
+               (8, 197, 3, 64), (32, 197, 3, 64), (16, 197, 3, 64), (8, 196, 4, 32), (8, 196, 3, 64), (8, 392, 6, 32), (8, 49, 3, 64),
+               (8, 196, 6, 32), (8, 76, 3, 64), (32, 76, 3, 64)]
 # the same kernels under the key masks the self-distillation paths give them (distill_mask): DINO's
 # global view and its four local views at once, the I-JEPA predictor's context, and VTDINO's global
-# and local views at its defaults and at its bf16 recipe
+# and local views at its defaults and at its bf16 recipe; then each rank's share of them in phase 16
+# (f): DINO's global view, its local views, DINOv2's two global views, the I-JEPA context encoder's
+# and predictor's contexts, and VTDINO's global and local views
 DISTILL_MASKED = [("global block", (64, 197, 6, 64)), ("local blocks", (256, 197, 6, 64)), ("context", (64, 392, 12, 32)),
                   ("VTDINO global block", (64, 76, 6, 64)), ("VTDINO local blocks", (256, 76, 6, 64)),
-                  ("VTDINO recipe global block", (256, 193, 4, 64)), ("VTDINO recipe local blocks", (1024, 193, 4, 64))]
+                  ("VTDINO recipe global block", (256, 193, 4, 64)), ("VTDINO recipe local blocks", (1024, 193, 4, 64)),
+                  ("rank global block", (8, 197, 3, 64)), ("rank local blocks", (32, 197, 3, 64)), ("rank DINOv2 global block", (16, 197, 3, 64)),
+                  ("rank encoder context", (8, 196, 3, 64)), ("rank context", (8, 392, 6, 32)),
+                  ("rank VTDINO global block", (8, 76, 3, 64)), ("rank VTDINO local blocks", (32, 76, 3, 64))]
 # each timed in f32 and bf16, unmasked: the SSL shapes, DINO's four local views at once, the training shape
 TIMED_SHAPES = SSL_SHAPES + MESH_SHAPES + [(256, 197, 6, 64), (SERVE_B, SERVE_N, SERVE_H, SERVE_DH)]
 ALL_KERNELS = (KERNEL, BWD_KERNEL, V1_KERNEL, V1_BWD_KERNEL)
@@ -362,21 +383,21 @@ def packed_qkv(b, n, h, dh, dtype, masked, seed):
 
 
 def distill_mask(kind: str, b: int, n: int, seed: int) -> torch.Tensor:
-    """A key mask (B, N) of the self-distillation paths, drawn by the port's samplers. "context":
-    the I-JEPA context block on the 14 x 14 grid cut by four target blocks, then 196 visible mask
-    tokens (the predictor, N = 392). Otherwise the register key, then block masks on the square
-    patch grid (DINO: 14 x 14; "VTDINO ...": per modality, tiled over the image and two tactile
+    """A key mask (B, N) of the self-distillation paths, drawn by the port's samplers. "... context":
+    the I-JEPA context block on the 14 x 14 grid cut by four target blocks, then, for the predictor
+    (N = 392), 196 visible mask tokens. Otherwise the register key, then block masks on the square
+    patch grid (DINO: 14 x 14; "... VTDINO ...": per modality, tiled over the image and two tactile
     segments as ``MultimodalVTT`` does): "... global block", one global block avoiding four local
     ones, as ``DINOModule.sample_masks`` draws it; "... local blocks", local blocks, 4 per sample (B
     / 4 samples, mask-major)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     ones = torch.ones(b, 1, dtype=torch.bool, device="cuda")
-    if kind == "context":
+    if kind.endswith("context"):
         grid = (14, 14)
         tgt = sample_block_masks(g, b, grid, (0.15, 0.2), 4)
         ctx = cut_context(sample_block_masks(g, b, grid, (0.85, 1.0), 1)[0], tgt)
-        return torch.cat([ctx, ones.expand(b, 196)], dim=1)
-    modalities = 3 if kind.startswith("VTDINO") else 1
+        return torch.cat([ctx, torch.ones(b, n - 196, dtype=torch.bool, device="cuda")], dim=1)
+    modalities = 3 if "VTDINO" in kind else 1
     side = math.isqrt((n - 1) // modalities)
     grid = (side, side)
     if kind.endswith("global block"):
@@ -2556,7 +2577,8 @@ def vq_check(quantizer_cls) -> dict:
 # of 512, one epoch) in bf16 at dp 2, mp 2 and dp 2 x mp 2 and in f32 (TF32 off) at dp 2 x mp 2,
 # SAC at the SAC CLI's width at dp 2 x mp 2 (train_steps(2) in bf16, (1) in f32), one MAE Trainer epoch at
 # mae_vit.yaml's width (f32, 2 batches of 64) at mp 2, the training CLI at --mesh_devices 2
-# --mesh_mp 2, and a 1-rank nccl mesh bit-equal to no mesh. Shared ranks measure no scaling.
+# --mesh_mp 2, the five other SSL families through the Trainer at dp 2 x mp 2 (MESH_SSL), and a
+# 1-rank nccl mesh bit-equal to no mesh. Shared ranks measure no scaling.
 MESH_ENVS, MESH_STEPS, MESH_LR, MESH_TIMEOUT = 8, 128, 1e-4, 600
 MESH_SAC_ENVS, MESH_SAC_TRANSITIONS = 4, 80
 MESH_MAE_BATCHES = 2
@@ -2631,7 +2653,7 @@ def mesh_mae_case(ckpt_dir: str, seed: int = 18) -> dict:
     module = ssl_models(overrides)
     rng = np.random.default_rng(seed)
     enc = module.encoder
-    batches = [rng.random((SSL_BATCH, *enc.img_size, enc.in_chans), dtype=np.float32) for _ in range(MESH_MAE_BATCHES)]
+    batches = [{"image": rng.random((SSL_BATCH, *enc.img_size, enc.in_chans), dtype=np.float32)} for _ in range(MESH_MAE_BATCHES)]
     noises = [rng.random((SSL_BATCH, module.num_patches), dtype=np.float32) for _ in range(MESH_MAE_BATCHES)]
     return dict(config=SSL_CONFIG, overrides=overrides, dtype="float32", init=module.state_dict(), batches=batches, noises=noises,
                 epochs=1, ckpt_dir=ckpt_dir)
@@ -2658,13 +2680,14 @@ def mesh_compare(label: str, got: dict, got_state: dict, want: dict, want_state:
     return readings
 
 
-def expected_calls(single: Counter, dp: int, mp: int, split: int) -> dict:
+def expected_calls(single: Counter, dp: int, mp: int, split: int | None) -> dict:
     """The single-process run's attention calls {(direction, batch, heads): n} as each rank of a dp x
     mp mesh must make them: the calls on the global batch ``split`` at split / dp rows (the
-    rollout's last observation is not split), every call at heads / mp."""
+    rollout's last observation is not split; with ``split`` None every call is on the global batch,
+    or on M views of it, and splits), every call at heads / mp."""
     out = Counter()
     for (kind, b, h), n in single.items():
-        out[(kind, b // dp if b == split else b, h // mp)] += n
+        out[(kind, b // dp if split is None or b == split else b, h // mp)] += n
     return dict(out)
 
 
@@ -2686,6 +2709,120 @@ def mesh_check_ranks(label: str, ranks: list, single_calls: dict, dp: int, mp: i
             fail(f"mesh {label}: rank {r}'s launches {res['launches']} took bodies {res['fwd_bodies']} / {res['bwd_bodies']}, expected {body}")
     return dict(launches_rank0=ranks[0]["launches"], launches_all_ranks=dict(sum((Counter(r["launches"]) for r in ranks), Counter())),
                 update_ms_by_rank=[r.get("update_ms") for r in ranks])
+
+
+# (f) the SSL families through the Trainer at dp 2 x mp 2, at their configs' widths and depths:
+# DINO, DINOv2 (its default centering) and I-JEPA from their experiment configs, V-JEPA from
+# vjepa_vit.yaml with data.out_format=video, VTDINO at MultimodalVTT's and VTDINOModule's defaults;
+# each with warm-up 0, f32 with TF32 off, two Trainer steps on a global batch of 16 whose masks the
+# Trainer's generator draws alike on every rank and in the single process. Each step launches the
+# family's single-process counts on every rank (forward, backward; then those with a key mask).
+MESH_SSL_BATCH, MESH_SSL_STEPS = 16, 2
+MESH_SSL = {"dino": (dict(config=str(EXPERIMENTS / "dino_vit.yaml")), DISTILL_LAUNCHES["dino"]),
+            "dinov2": (dict(config=str(EXPERIMENTS / "dinov2_vit.yaml")), DISTILL_LAUNCHES["dinov2"]),
+            "ijepa": (dict(config=str(EXPERIMENTS / "ijepa_vit.yaml")), DISTILL_LAUNCHES["ijepa"]),
+            "vjepa": (dict(config=VJEPA_CONFIG, overrides=VJEPA_OVERRIDES), (VJEPA_LAUNCHES, (0, 0))),
+            "vtdino": (dict(family="vtdino", encoder={}, module={}), VTDINO_LAUNCHES["f32"])}
+# mesh against single process on the card: each step's loss and logged scalars within rtol * |single|
+# + atol; each parameter's AdamW moments after each step within moment_rel of their norm; each
+# trained parameter within param_per_lr * lr of the single process's and within update_rel of the
+# norm of the single process's update of it; the EMA teachers within teacher_per_lr * lr (the key
+# third of each packed qkv bias apart, within key_bias_per_lr * lr: its gradient is zero
+# analytically, so f32 noise, which Adam divides by its own size); the centers within center_abs.
+# Set from runs on the H100 (NVIDIA H100 80GB HBM3, 700.00 W; the largest reading of the five
+# families in brackets, the same in two calls): steps 2.319e-7 relative, moments 1.518e-5 (VTDINO's
+# head), parameters 0.6216 lr (an element of VTDINO's head whose gradient is near zero: Adam divides
+# it by its own size; the parameter as a whole reads 8.331e-4 of its update), teachers 1.239e-2 lr
+# (1 - momentum of that), centers 1.118e-8, key biases 3.755e-2 lr; each bound about 10x its reading
+# but the parameters', ~2.5x (Adam moves an element at most ~lr a step in either run).
+MESH_SSL_TOL = dict(rtol=3e-6, atol=1e-7, moment_rel=1.5e-4, param_per_lr=1.5, update_rel=8e-3, teacher_per_lr=0.1, center_abs=1e-7,
+                    key_bias_per_lr=0.4)
+MESH_SSL_READINGS = ("moment_rel", "param_per_lr", "update_rel", "teacher_per_lr", "center_abs", "key_bias_per_lr")
+
+
+def mesh_ssl_case(family: str, seed: int) -> dict:
+    """Phase 16 (f)'s case of ``family``: its module's seeded weights (built on the CPU), two global
+    batches of MESH_SSL_BATCH from ``seed``."""
+    from m3l_tpu_torch.train import mesh_workers as mw
+
+    spec, _ = MESH_SSL[family]
+    if "config" in spec:
+        case = dict(config=spec["config"], overrides=[*spec.get("overrides", ()), "model.algorithm.warmup_epochs=0"])
+    else:
+        case = dict(spec, module=dict(spec["module"], warmup_epochs=0))
+    torch.manual_seed(seed)
+    module = mw.ssl_module(dict(case, init=None))
+    rng = np.random.default_rng(seed)
+    if family == "vtdino":
+        batches = [vtdino_batch(MESH_SSL_BATCH, seed + i) for i in range(MESH_SSL_STEPS)]
+    else:
+        enc = getattr(module, "student_backbone", None) or module.context_encoder
+        frames = (enc.num_frames,) if enc.is_video else ()
+        batches = [{"image": rng.random((MESH_SSL_BATCH, *frames, *enc.img_size, enc.in_chans), dtype=np.float32)}
+                   for _ in range(MESH_SSL_STEPS)]
+    return dict(case, dtype="float32", init=module.state_dict(), batches=batches, epochs=1)
+
+
+def mesh_ssl(tmp: Path) -> tuple[dict, list]:
+    """Phase 16 (f): each family's single process on the card, then all five in one group of four
+    ranks (dp 2 x mp 2) held against them. Returns the readings by family and the ranks' attention
+    shapes."""
+    from m3l_tpu_torch.train import mesh_workers as mw
+    from m3l_tpu_torch.train.mesh import launch
+
+    out, singles, jobs = {}, {}, []
+    t0 = time.perf_counter()
+    for i, (family, (_, launches)) in enumerate(MESH_SSL.items()):
+        case = mesh_ssl_case(family, 60 + i)
+        torch.save(case, tmp / f"ssl_{family}.pt")
+        with mw.AttentionLog(torch.device("cuda")) as log:
+            _, module, steps, moments = mw.ssl_fit(case, device="cuda")
+        torch.cuda.synchronize()
+        (fwd, bwd), (mfwd, mbwd) = launches
+        counts = log.counts
+        want = ({KERNEL: fwd * MESH_SSL_STEPS, BWD_KERNEL: bwd * MESH_SSL_STEPS}, {KERNEL: mfwd * MESH_SSL_STEPS, BWD_KERNEL: mbwd * MESH_SSL_STEPS})
+        if ({k: counts["launches"].get(k, 0) for k in want[0]}, {k: counts["masked"].get(k, 0) for k in want[1]}) != want:
+            fail(f"mesh ssl {family}: the single process launched {counts['launches']} ({counts['masked']} with a key mask), expected {want}")
+        torch.save({"moments": moments, "state": {k: v.detach().cpu() for k, v in module.state_dict().items()}}, tmp / f"ssl_{family}_ref.pt")
+        singles[family] = dict(steps=steps, calls=dict(log.calls), want=want)
+        jobs.append((mw.ssl_rank, (str(tmp / f"ssl_{family}.pt"), 4, 2, "cuda", str(tmp / f"ssl_{family}_ref.pt"))))
+        del module, moments
+        torch.cuda.empty_cache()
+    print(f"  (f) single-process references of {', '.join(MESH_SSL)} on the card: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    group = launch(mw.jobs_rank, jobs, world=4, device="cuda", timeout=MESH_TIMEOUT)
+    job_s = [max(r[i][1] for r in group) for i in range(len(jobs))]
+    print(f"  (f) 4 ranks on cuda:0 over gloo: {time.perf_counter() - t0:.1f} s, start-up included; each family "
+          f"{', '.join(f'{f} {t:.1f}' for f, t in zip(MESH_SSL, job_s))} s")
+    tol, shapes = MESH_SSL_TOL, []
+    for i, family in enumerate(MESH_SSL):
+        ranks, single = [r[i][0] for r in group], singles[family]
+        want_calls = expected_calls(single["calls"], 2, 2, None)
+        for r, res in enumerate(ranks):
+            if not res["replicated"] or res["steps"] != ranks[0]["steps"]:
+                fail(f"mesh ssl {family}: rank {r}'s replicated parameters, buffers or steps differ from rank 0's")
+            fwd, bwd = res["launches"].get(KERNEL, 0), res["launches"].get(BWD_KERNEL, 0)
+            if dict(res["attention"]) != want_calls or ({KERNEL: fwd, BWD_KERNEL: bwd}, {k: res["masked"].get(k, 0) for k in (KERNEL, BWD_KERNEL)}) != \
+                    single["want"] or res["fwd_bodies"] != {"tf32x3": fwd} or res["bwd_bodies"] != {"tf32x3": bwd}:
+                fail(f"mesh ssl {family}: rank {r} made attention calls {res['attention']} (expected {want_calls}), launches "
+                     f"{res['launches']} with {res['masked']} key-masked (expected {single['want']}) on {res['fwd_bodies']} / {res['bwd_bodies']}")
+            shapes += list(res["shapes"])
+        got, want = ranks[0]["steps"], single["steps"]
+        excess = max(abs(g[k] - v) - (tol["rtol"] * abs(v) + tol["atol"]) for g, w in zip(got, want) for k, v in w.items())
+        step_rel = max(abs(g[k] - v) / max(abs(v), 1e-30) for g, w in zip(got, want) for k, v in w.items())
+        readings = ranks[0]["readings"]
+        print(f"  (f) {family} at dp 2 x mp 2, {MESH_SSL_STEPS} steps of {MESH_SSL_BATCH}: replicated parameters and buffers bit-identical on "
+              f"every rank; per rank {ranks[0]['launches'].get(KERNEL, 0)} + {ranks[0]['launches'].get(BWD_KERNEL, 0)} launches "
+              f"({ranks[0]['masked'].get(KERNEL, 0)} + {ranks[0]['masked'].get(BWD_KERNEL, 0)} key-masked) on tf32x3; losses "
+              f"{[round(st['loss'], 5) for st in got]}; steps' scalars largest relative error {step_rel:.3e} (excess over rtol "
+              f"{tol['rtol']} / atol {tol['atol']}: {excess:.3e}); " + ", ".join(
+                  f"{k} {readings[k]:.3e} ({readings[k + '_worst']}; tol {tol[k]})" for k in MESH_SSL_READINGS))
+        if excess > 0 or any(readings[k] > tol[k] for k in MESH_SSL_READINGS):
+            fail(f"mesh ssl {family}: the dp 2 x mp 2 run disagrees with the single process: steps {got} vs {want}; {readings}")
+        out[family] = dict(readings, tol=tol, steps=got, single_steps=want, step_rel_max=step_rel, step_excess=excess, seconds=job_s[i],
+                           launches_rank0=ranks[0]["launches"], masked_rank0=ranks[0]["masked"],
+                           launches_all_ranks=dict(sum((Counter(r["launches"]) for r in ranks), Counter())))
+    return out, shapes
 
 
 def mesh_phase() -> dict:
@@ -2732,10 +2869,11 @@ def mesh_phase() -> dict:
                                       lr=model.actor_optimizer.learning_rate)
         mae = mesh_mae_case(str(tmp / "mae_mesh"))
         torch.save(mae, tmp / "mae.pt")
-        mw.mae_fit(dict(mae, ckpt_dir=None), device="cuda", record=False)
+        mw.ssl_fit(dict(mae, ckpt_dir=None), device="cuda", record=False)
         with mw.AttentionLog(torch.device("cuda")) as mae_log:
-            mae_hist, mae_module, mae_moments = mw.mae_fit(dict(mae, ckpt_dir=None), device="cuda")
-        torch.save({"moments": mae_moments, "state": {n: p.detach().cpu() for n, p in mae_module.named_parameters()}}, tmp / "mae_ref.pt")
+            mae_hist, mae_module, _, mae_moments = mw.ssl_fit(dict(mae, ckpt_dir=None), device="cuda")
+        torch.save({"moments": mae_moments, "state": {n: v.detach().cpu() for n, v in mae_module.state_dict().items()}}, tmp / "mae_ref.pt")
+        del mae_module, mae_moments
         print(f"  single-process references on the card: {time.perf_counter() - t0:.1f} s")
 
         cli_steps = TRAIN_BATCH  # one rollout of 512 samples: one minibatch update
@@ -2743,7 +2881,7 @@ def mesh_phase() -> dict:
                     "--ppo_epochs", "1", "--total_timesteps", str(cli_steps), "--subproc", "False", "--verbose", "0"]
         obs = random_obs(np.random.default_rng(19), MESH_ENVS)
         jobs2 = [(mw.ppo_rank, (str(tmp / "ppo_bfloat16.pt"), 2, 1, "cuda", True)), (mw.ppo_rank, (str(tmp / "ppo_bfloat16.pt"), 2, 2, "cuda", True)),
-                 (mw.mae_rank, (str(tmp / "mae.pt"), 2, 2, "cuda", str(tmp / "mae_ref.pt"), True)),
+                 (mw.ssl_rank, (str(tmp / "mae.pt"), 2, 2, "cuda", str(tmp / "mae_ref.pt"), True)),
                  (mw.cli_rank, ("train", cli_argv + ["--mesh_devices", "2", "--mesh_mp", "2"], str(tmp / "cli.ckpt"), obs)),
                  (mw.allreduce_rank, (2, MESH_ALLREDUCE_MB, "cuda")), (mw.sharing_rank, (str(tmp / "ppo_bfloat16.pt"), 2, "cuda"))]
         jobs4 = [(mw.ppo_rank, (str(tmp / "ppo_bfloat16.pt"), 4, 2, "cuda", True)), (mw.ppo_rank, (str(tmp / "ppo_float32.pt"), 4, 2, "cuda", True)),
@@ -2807,11 +2945,12 @@ def mesh_phase() -> dict:
         readings, tol = ranks[0]["readings"], MESH_TOL["mae_float32"]
         step_ms = [statistics.median(r["history"][-1]["step_ms"]) for r in ranks]
         print(f"  (c) MAE Trainer epoch (mae_vit.yaml, f32, {MESH_MAE_BATCHES} x {SSL_BATCH}) mp2: loss rel err {loss_rel:.3e} (tol "
-              f"{tol['loss_rel']}), AdamW moments {readings['moment_rel']:.3e} of their norm ({readings['moment_worst']}; tol "
-              f"{tol['moment_rel']}), parameters {readings['param_per_lr']:.3e} lr ({readings['param_worst']}; tol {tol['param_per_lr']}) from "
-              f"the single process's; step ms by rank (median) {', '.join(f'{m:.2f}' for m in step_ms)}, single process "
-              f"{statistics.median(mae_hist[-1]['step_ms']):.2f}")
-        if loss_rel > tol["loss_rel"] or readings["moment_rel"] > tol["moment_rel"] or readings["param_per_lr"] > tol["param_per_lr"]:
+              f"{tol['loss_rel']}), AdamW moments {readings['moment_rel']:.3e} of their norm ({readings['moment_rel_worst']}; tol "
+              f"{tol['moment_rel']}), parameters {readings['param_per_lr']:.3e} lr ({readings['param_per_lr_worst']}) and the key thirds of the "
+              f"qkv biases {readings['key_bias_per_lr']:.3e} lr (tol {tol['param_per_lr']} both) from the single process's; step ms by rank "
+              f"(median) {', '.join(f'{m:.2f}' for m in step_ms)}, single process {statistics.median(mae_hist[-1]['step_ms']):.2f}")
+        if loss_rel > tol["loss_rel"] or readings["moment_rel"] > tol["moment_rel"] or \
+                max(readings["param_per_lr"], readings["key_bias_per_lr"]) > tol["param_per_lr"]:
             fail(f"mesh mae: the mp 2 Trainer epoch disagrees with the single process: loss rel {loss_rel}, {readings}")
         out["mae_mp2"] = dict(launches_rank0=ranks[0]["launches"], loss_rel=loss_rel, **readings, tol=tol,
                               step_ms_median_by_rank=step_ms, single_step_ms_median=statistics.median(mae_hist[-1]["step_ms"]),
@@ -2852,6 +2991,16 @@ def mesh_phase() -> dict:
                   f"device kernels {res['mesh_device_ms']:.2f} ms of it; host time of its own per update: "
                   + ", ".join(f"{h['name']} {h['self_ms']:.2f} ms x{h['calls']:g}" for h in res["host_top"]))
         out["sharing_dp2"] = sharing
+
+        # (f) the SSL families through the Trainer at dp 2 x mp 2
+        t0 = time.perf_counter()
+        ssl_out, ssl_shapes = mesh_ssl(tmp)
+        unheld = sorted({s for s in ssl_shapes if tuple(s[1:]) not in HELD_SHAPES[s[0]]})
+        print(f"  (f) every rank's attention shapes, each held against its plain version in phase 3: {sorted(set(ssl_shapes))}; "
+              f"{time.perf_counter() - t0:.1f} s in all")
+        if unheld:
+            fail(f"mesh ssl: ranks ran the packed kernels at shapes phase 3 did not hold: {unheld}")
+        out["ssl"] = dict(ssl_out, rank_shapes=[list(s) for s in sorted(set(ssl_shapes))], seconds=time.perf_counter() - t0)
 
         # (e) a 1-rank nccl mesh through the same code, bit-equal to no mesh (cuDNN deterministic for both)
         torch.backends.cudnn.deterministic = True
@@ -3010,6 +3159,7 @@ def main() -> int:
                     **{f"mesh_{run}": meshed[run]["launches_all_ranks"].get(name, 0)
                        for run in ("bf16_dp2", "bf16_mp2", "bf16_dp2xmp2", "f32_dp2xmp2", "sac_dp2xmp2", "sac_f32_dp2xmp2", "mae_mp2",
                                "cli_mesh2x2")},
+                    **{f"mesh_ssl_{family}": meshed["ssl"][family]["launches_all_ranks"].get(name, 0) for family in MESH_SSL},
                     mesh_nccl_1rank=meshed["nccl_1rank"]["launches"].get(name, 0))
 
     def ssl_shapes(kind):

@@ -36,7 +36,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--wandb_entity", type=str, default=None)
     parser.add_argument(
         "--env", type=str, default="tactile_envs/Insertion-v0",
-        help="FakeInsertion (the only ported family); tactile_envs/Insertion-v0 | Door | HandManipulate*-v1 | MuJoCoPixels/<id> raise",
+        help="FakeInsertion or MuJoCoPixels/TouchPress-v0 (needs mujoco; one tactile sensor); tactile_envs/Insertion-v0 | Door | "
+             "HandManipulate*-v1 | other MuJoCoPixels/<id> raise",
     )
     parser.add_argument("--n_envs", type=int, default=1)  # the reference's SAC is single-env by default
     parser.add_argument("--state_type", type=str, default="vision_and_touch", choices=["vision", "touch", "vision_and_touch"])

@@ -10,6 +10,12 @@ Every view runs at full length (registers + all patches) with an attention key m
 of one kind batched into one (M*B, ...) pass. The masks come from :meth:`DINOModule.sample_masks`
 (a torch generator), and :meth:`DINOModule.forward_loss` takes them and the temperature as
 arguments, so a test can pass in what the JAX module drew.
+
+On a mesh (``SSLModule.use_mesh``) the masks are drawn for the global batch and each rank keeps
+its rows (outside ``sample_masks``, so a replaced ``sample_masks`` hands out global masks too), the
+loss, the probe's and the temperature are shares, and the center's batch mean is the global
+batch's. The teacher EMA is local: under mp each teacher shard moves toward the student shard of
+the same heads.
 """
 from __future__ import annotations
 
@@ -180,15 +186,28 @@ class DINOModule(SSLModule):
         target = patchify(x, self.patch_size, self.patch_size).float()
         return torch.mean((pred.float() - target) ** 2)
 
+    def own_masks(self, generator: Optional[torch.Generator], rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`sample_masks` for the global batch of which this rank holds ``rows``, cut to this
+        rank's rows (axis 1 of each (M, B, N) mask)."""
+        global_masks, local_masks = self.sample_masks(generator, self.global_rows(rows))
+        return self.own_rows(global_masks, 1), self.own_rows(local_masks, 1)
+
     def training_loss(self, batch: dict, generator: Optional[torch.Generator], step: int):
         x = as_float_image(batch["image"])
-        global_masks, local_masks = self.sample_masks(generator, x.shape[0])
+        return self._distill_loss(x, x, generator, step)
+
+    def _distill_loss(self, x, image: torch.Tensor, generator: Optional[torch.Generator], step: int):
+        """The loss and aux of the inputs ``x`` whose first modality is ``image``: the DINO loss
+        under this step's masks and temperature, plus the probe's."""
+        global_masks, local_masks = self.own_masks(generator, image.shape[0])
         temp = self._temp_fn(step)
         ssl_loss, teacher_logits = self.forward_loss(x, global_masks, local_masks, temp)
-        aux = {"ssl_loss": ssl_loss, "teacher_logits": teacher_logits, "teacher_temp": torch.tensor(temp, dtype=torch.float32)}
+        ssl_loss = self.share(ssl_loss)
+        temp_share = self.share(torch.tensor(temp, dtype=torch.float32, device=image.device))
+        aux = {"ssl_loss": ssl_loss, "teacher_logits": teacher_logits, "teacher_temp": temp_share}
         loss = ssl_loss
         if self.recon_probe is not None:
-            aux["reconstruction_loss"] = probe = self.probe_loss(x)
+            aux["reconstruction_loss"] = probe = self.share(self.probe_loss(x))
             loss = loss + probe
         aux["loss"] = loss
         return loss, aux
@@ -200,7 +219,7 @@ class DINOModule(SSLModule):
     @torch.no_grad()
     def on_train_batch_end(self, aux: dict, step: int) -> None:
         """The center's EMA (momentum 0.9), then the teachers' EMA at the scheduled momentum."""
-        self.center.copy_(update_center(self.center, aux["teacher_logits"], momentum=0.9))
+        self.center.copy_(update_center(self.center, aux["teacher_logits"], momentum=0.9, mesh=self.mesh))
         self._teacher_ema(step)
 
     def _teacher_ema(self, step: int) -> None:

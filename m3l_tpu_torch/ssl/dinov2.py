@@ -6,6 +6,10 @@ normalisation by centering or Sinkhorn-Knopp (over the kept patch tokens only), 
 separate iBOT head, the all-pairs iBOT loss over every patch position weighted by the teacher
 view's keep mask (static shapes, no gather), KoLeo on the pre-head CLS tokens of each global
 view, and the masked patch-center update.
+
+On a mesh each term is this rank's share of the global batch's: the CLS cross-entropy over its
+rows / dp, iBOT over the global kept counts, KoLeo with neighbours from the whole global view;
+Sinkhorn-Knopp and both centers take their sums over the dp group.
 """
 from __future__ import annotations
 
@@ -83,25 +87,26 @@ class DINOv2Module(DINOModule):
                 t_probs_cls = softmax_center_teacher(self.center, t_cls, teacher_temp)
                 t_probs_patch = softmax_center_teacher(self.ibot_center.reshape(1, -1), t_patch, teacher_temp)
             else:
-                t_probs_cls = sinkhorn_knopp_teacher(t_cls, teacher_temp)
+                t_probs_cls = sinkhorn_knopp_teacher(t_cls, teacher_temp, mesh=self.mesh)
                 # the rows of patches a view does not keep are left out of the transport problem
                 t_probs_patch = sinkhorn_knopp_teacher(
-                    t_patch.reshape(-1, t_patch.shape[-1]), teacher_temp, n_samples=keep.sum(), sample_mask=keep.reshape(-1)
+                    t_patch.reshape(-1, t_patch.shape[-1]), teacher_temp, n_samples=keep.sum(), sample_mask=keep.reshape(-1),
+                    mesh=self.mesh,
                 ).reshape(t_patch.shape)
 
         # the teacher's global views swapped, so crop A distills crop B
         t_views = list(t_probs_cls.reshape(mg, b, -1))
         t_views = t_views[1:] + t_views[:1]
         n_terms = max(ml * mg, 1) + (mg - 1) * mg
-        dino_loss = dino_cross_entropy(student_views, t_views, self.student_temp) / n_terms
+        dino_loss = self.share(dino_cross_entropy(student_views, t_views, self.student_temp) / n_terms)
 
         n = s_patch.shape[1]
         ibot = ibot_patch_loss_all_pairs(
-            s_patch.reshape(mg, b, n, -1), t_probs_patch.reshape(mg, b, n, -1), keep.reshape(mg, b, n), self.student_temp
+            s_patch.reshape(mg, b, n, -1), t_probs_patch.reshape(mg, b, n, -1), keep.reshape(mg, b, n), self.student_temp, mesh=self.mesh
         ) / mg
 
         s_cls_prehead = student_global["x_norm_regtokens"][:, 0].reshape(mg, b, -1)
-        koleo = self.koleo_weight * sum(koleo_loss(s_cls_prehead[i]) for i in range(mg))
+        koleo = self.koleo_weight * sum(koleo_loss(s_cls_prehead[i], mesh=self.mesh) for i in range(mg))
 
         aux = {
             "dino_loss": dino_loss,
@@ -115,12 +120,12 @@ class DINOv2Module(DINOModule):
 
     def training_loss(self, batch: dict, generator: Optional[torch.Generator], step: int):
         x = as_float_image(batch["image"])
-        global_masks, local_masks = self.sample_masks(generator, x.shape[0])
+        global_masks, local_masks = self.own_masks(generator, x.shape[0])
         temp = self._temp_fn(step)
         loss, aux = self.forward_loss(x, global_masks, local_masks, temp)
-        aux["teacher_temp"] = torch.tensor(temp, dtype=torch.float32)
+        aux["teacher_temp"] = self.share(torch.tensor(temp, dtype=torch.float32, device=x.device))
         if self.recon_probe is not None:
-            aux["reconstruction_loss"] = probe = self.probe_loss(x)
+            aux["reconstruction_loss"] = probe = self.share(self.probe_loss(x))
             loss = loss + probe
         aux["loss"] = loss
         return loss, aux
@@ -134,13 +139,12 @@ class DINOv2Module(DINOModule):
     @torch.no_grad()
     def on_train_batch_end(self, aux: dict, step: int) -> None:
         """With centering: the CLS center's EMA and the patch center's, whose batch center is each
-        sample's mean over its kept tokens, then the mean over samples (momentum 0.9 both); then
-        the teachers' EMA."""
+        sample's mean over its kept tokens, then the mean over samples (momentum 0.9 both; under a
+        mesh the global batch's means); then the teachers' EMA."""
         if self.centering == "centering":
-            self.center.copy_(update_center(self.center, aux["teacher_logits"], momentum=0.9))
+            self.center.copy_(update_center(self.center, aux["teacher_logits"], momentum=0.9, mesh=self.mesh))
             t = aux["teacher_patch_logits"].float()
             w = aux["patch_keep"].float()
             per_sample = torch.einsum("bnk,bn->bk", t, w) / torch.clamp(w.sum(1), min=1.0)[:, None]
-            batch_center = per_sample.mean(0).reshape(self.ibot_center.shape)
-            self.ibot_center.copy_(self.ibot_center * 0.9 + batch_center * 0.1)
+            self.ibot_center.copy_(update_center(self.ibot_center, per_sample, momentum=0.9, mesh=self.mesh))
         self._teacher_ema(step)

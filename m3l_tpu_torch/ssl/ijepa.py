@@ -6,6 +6,9 @@ masks plus one context block with every target cut out, and a smooth-L1 loss aga
 layer-normed target latents, weighted by each target mask. The predictor runs pad-and-mask:
 full-length context tokens under an attention key mask plus a full bank of mask tokens, so every
 step has the same shapes whatever the blocks.
+
+On a mesh the masks are drawn for the global batch (each rank keeps its rows) and each target
+mask's weight is summed over the global batch, so the loss is this rank's share.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from torch import nn
 from ..models.vit import VisionTransformer, VisionTransformerPredictor
 from .dino import _first, _layer_norm, frozen_copy
 from .ema import ema_update
+from .losses import dp_sum
 from .masks import sample_block_masks
 from .module import SSLModule, as_float_image
 from .schedulers import linear_schedule
@@ -80,19 +84,21 @@ class IJEPAModule(SSLModule):
         ctx_tokens = self.context_encoder.forward_features(x, key_mask=ctx_mask)["x_norm_patchtokens"]  # (B, N, D)
         with torch.no_grad():
             h = _layer_norm(self.target_encoder.forward_features(x)["x_norm_patchtokens"])
+        # each mask's weight over the global batch (one collective under a mesh): whole numbers
+        counts = dp_sum(target_masks.float().sum(dim=(1, 2)), self.mesh)
         loss = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(self.num_target_masks):
             pred = self.predictor.predict_padded(ctx_tokens, ctx_mask, mask_index=i)
             diff = pred.float() - h
             per_token = torch.where(diff.abs() < 1.0, 0.5 * diff**2, diff.abs() - 0.5).mean(-1)  # smooth L1
             w = target_masks[i].float()
-            loss = loss + (per_token * w).sum() / torch.clamp(w.sum(), min=1.0)
+            loss = loss + (per_token * w).sum() / torch.clamp(counts[i], min=1.0)
         return loss / self.num_target_masks
 
     def training_loss(self, batch: dict, generator: Optional[torch.Generator], step: int):
         x = as_float_image(batch["image"])
-        ctx_mask, target_masks = self.sample_masks(generator, x.shape[0])
-        loss = self.forward_loss(x, ctx_mask, target_masks)
+        ctx_mask, target_masks = self.sample_masks(generator, self.global_rows(x.shape[0]))
+        loss = self.forward_loss(x, self.own_rows(ctx_mask), self.own_rows(target_masks, 1))
         return loss, {"ssl_loss": loss, "loss": loss}
 
     @torch.no_grad()

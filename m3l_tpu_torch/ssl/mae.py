@@ -58,19 +58,11 @@ class MAEModule(SSLModule):
             dtype=dtype,
         )
 
-    def use_mesh(self, mesh) -> None:
-        """Under a mesh the noise is drawn for the global batch, of which this rank keeps its dp
-        rows, and the loss is this rank's share: every row masks the same number of patches, so
-        the masked mean over the rank's rows times rows / batch is its part of the global mean."""
-        self.mesh = mesh
-
     def sample_noise(self, batch: int, generator: Optional[torch.Generator]) -> torch.Tensor:
         """(batch, num_patches) uniform noise on the module's device; ranks order the patches.
         Under a mesh ``batch`` is this rank's: the draw is the global batch's, sliced."""
-        mesh = getattr(self, "mesh", None)
-        total = batch if mesh is None else batch * mesh.dp
-        noise = torch.rand((total, self.num_patches), generator=generator, device=self.decoder.mask_token.device)
-        return noise if mesh is None else noise[mesh.rows(total)]
+        noise = torch.rand((self.global_rows(batch), self.num_patches), generator=generator, device=self.decoder.mask_token.device)
+        return self.own_rows(noise)
 
     def random_masking(self, noise: torch.Tensor):
         """(ids_keep, mask, ids_restore) from ``noise`` (B, N): the patches of the smallest
@@ -115,9 +107,8 @@ class MAEModule(SSLModule):
     def training_loss(self, batch: dict, generator: Optional[torch.Generator], step: int):
         x = as_float_image(batch["image"])
         pred, mask = self(x, generator)
-        loss = self.compute_loss(x, pred, mask)
-        if getattr(self, "mesh", None) is not None:
-            loss = loss / self.mesh.dp
+        # every row masks as many patches, so the masked mean over this rank's rows is its share
+        loss = self.share(self.compute_loss(x, pred, mask))
         return loss, {"loss": loss}
 
     @torch.no_grad()

@@ -3,6 +3,11 @@
 * :meth:`SSLModule.training_loss`: (batch, generator, step) -> (loss, aux); the Trainer
   differentiates it with respect to :meth:`SSLModule.trainable_parameters`.
 * :meth:`SSLModule.on_train_batch_end`: the post-update hook (EMA teachers, loss centers).
+* :meth:`SSLModule.use_mesh`: train on a dp x mp mesh (``train/mesh.py``). A module then draws its
+  masks or noise for the global batch (every rank the same bits, from the same generator) and
+  keeps this rank's rows (:meth:`SSLModule.own_rows`), takes every batch statistic over the dp
+  group, and returns its loss and every scalar of its aux as this rank's share of the global value
+  (:meth:`SSLModule.share`), which the Trainer sums over the ranks.
 * :meth:`SSLModule.configure_optimizer`: AdamW with the weight-decay split (>= 2-D parameters
   decayed) and the warm-up-cosine lr / cosine wd schedules; the flat-buffer AdamW
   (``train/optim.py`` :class:`FlatAdamW`) where a module sets ``_flat_optimizer``, as JAX's
@@ -24,7 +29,17 @@ from ..train.optim import FlatAdamW, GradientChain
 from .schedulers import cosine_wd_schedule, warmup_cosine_schedule
 
 
+# the modules that refuse a mesh (``SSLModule.mesh_refusal``)
+TASK_MESH_REFUSAL = (
+    "the downstream task modules (SLModuleBase and its probes, ForceFieldModule, GeometricForceFieldModule) do not train on "
+    "a mesh yet (ROADMAP Queue 1 item 11); the SSL families (MAE, DINO, DINOv2, I-JEPA, V-JEPA, VTDINO) do"
+)
+
+
 class SSLModule(nn.Module):
+    mesh = None  # the dp x mp mesh the module trains on (use_mesh), None for one process
+    mesh_refusal: Optional[str] = None  # why a module cannot take a mesh, where it cannot
+
     def trainable_parameters(self) -> dict[str, nn.Parameter]:
         """The parameters the optimizer moves, by name (all of them unless a module keeps a
         teacher)."""
@@ -41,13 +56,28 @@ class SSLModule(nn.Module):
 
     def use_mesh(self, mesh) -> None:
         """Train under ``mesh`` (``train/mesh.py``): the loss becomes this rank's share of the
-        global batch's. A module whose loss takes statistics over the whole batch needs global
-        reductions for that; this default raises, and a module that has them overrides it."""
-        raise NotImplementedError(
-            f"{type(self).__name__} under a mesh: its loss needs global reductions over the batch (the DINO center, "
-            "Sinkhorn-Knopp's sums, KoLeo's nearest neighbours, iBOT's masked counts) that the port does not have yet; "
-            "MAEModule trains on a mesh"
-        )
+        global batch's (see the module docstring). Raises for a module with a ``mesh_refusal``."""
+        if self.mesh_refusal is not None:
+            raise NotImplementedError(f"{type(self).__name__} under a mesh: {self.mesh_refusal}")
+        self.mesh = mesh
+
+    def global_rows(self, rows: int) -> int:
+        """The global batch of which this rank holds ``rows``: rows x dp under a mesh."""
+        return rows if self.mesh is None else rows * self.mesh.dp
+
+    def own_rows(self, t: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        """This rank's rows of ``t``, a global batch along ``axis`` (masks drawn for it); ``t``
+        itself without a mesh."""
+        if self.mesh is None:
+            return t
+        rows = self.mesh.rows(t.shape[axis])
+        return t.narrow(axis, rows.start, rows.stop - rows.start)
+
+    def share(self, value):
+        """This rank's share of a mean over the global batch, from the mean over its rows (every
+        rank holds as many): value / dp under a mesh, value itself without one. A value the same
+        on every rank (a temperature) is shared so too, so the Trainer's sum gives it back."""
+        return value if self.mesh is None else value / self.mesh.dp
 
     def configure_optimizer(self, steps_per_epoch: int, epochs: int) -> GradientChain:
         return default_wd_split_optimizer(

@@ -9,7 +9,9 @@ is |z - h|^p / p against the layer-normed target latents, averaged over the mask
 ``reg_coeff`` times mean(relu(1 - std over patches)) of the predictions.
 
 The masks come from :meth:`VJEPAModule.sample_masks` (a torch generator); a test replaces it to
-pass in what the JAX module drew.
+pass in what the JAX module drew. On a mesh they are drawn for the global batch and each rank keeps
+its rows; both losses are means over fixed shapes (the spread is per sample), so a rank's share is
+its mean / dp.
 """
 from __future__ import annotations
 
@@ -104,7 +106,8 @@ class VJEPAModule(SSLModule):
 
     def training_loss(self, batch: dict, generator: Optional[torch.Generator], step: int):
         x = as_float_image(batch["image"])  # (B, T, H, W, C)
-        loss_jepa, reg = self.forward_loss(x, self.sample_masks(generator, x.shape[0]))
+        keeps = self.own_rows(self.sample_masks(generator, self.global_rows(x.shape[0])), 1)
+        loss_jepa, reg = (self.share(v) for v in self.forward_loss(x, keeps))
         loss = loss_jepa + self.reg_coeff * reg
         return loss, {"loss": loss, "loss_jepa": loss_jepa, "loss_reg": reg}
 

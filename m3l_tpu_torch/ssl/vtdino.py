@@ -8,7 +8,8 @@ from the teacher's image patch tokens.
 
 The module does not run :class:`.dino.DINOModule`'s constructor (another backbone wiring) but
 builds the same state: the heads, the frozen teacher copies and the ``center`` buffer. The DINO
-loss, the mask sampling, the schedules and the post-update hook are DINOModule's.
+loss, the mask sampling, the schedules, the post-update hook and the mesh (the masks drawn for the
+global batch, the loss as this rank's share, the center's global mean) are DINOModule's.
 """
 from __future__ import annotations
 
@@ -104,14 +105,6 @@ class VTDINOModule(DINOModule):
         return torch.mean((pred.float() - target) ** 2)
 
     def training_loss(self, batch: dict, generator: Optional[torch.Generator], step: int):
+        # under a mesh the Trainer has already cut every modality to this rank's rows
         x = {k: v for k, v in batch.items() if k == "image" or k.startswith("tactile")}
-        global_masks, local_masks = self.sample_masks(generator, x["image"].shape[0])
-        temp = self._temp_fn(step)
-        ssl_loss, teacher_logits = self.forward_loss(x, global_masks, local_masks, temp)
-        aux = {"ssl_loss": ssl_loss, "teacher_logits": teacher_logits, "teacher_temp": torch.tensor(temp, dtype=torch.float32)}
-        loss = ssl_loss
-        if self.recon_probe is not None:
-            aux["reconstruction_loss"] = probe = self.probe_loss(x)
-            loss = loss + probe
-        aux["loss"] = loss
-        return loss, aux
+        return self._distill_loss(x, x["image"], generator, step)

@@ -27,7 +27,7 @@ from torch import nn
 
 from ..models.vit import resize
 from ..nn.layers import Conv2d, Linear
-from ..ssl.module import SSLModule
+from ..ssl.module import TASK_MESH_REFUSAL, SSLModule
 from .sl_module import load_encoder_from_checkpoint
 
 
@@ -191,6 +191,8 @@ class ForceFieldModule(SSLModule):
     """Supervised (``batch["forcefield"]``) or self-supervised (photometric flow) force-field
     training. The decoder owns the encoder, which is frozen unless ``train_encoder``: its
     parameters stay out of the optimizer and its hooks run without autograd."""
+
+    mesh_refusal = TASK_MESH_REFUSAL
 
     def __init__(
         self,

@@ -25,7 +25,7 @@ from torch import nn
 
 from ..models.baselines import ResNet18Encoder
 from ..nn.layers import Conv2d
-from ..ssl.module import SSLModule, as_float_image
+from ..ssl.module import TASK_MESH_REFUSAL, SSLModule, as_float_image
 from .forcefield import ForceFieldDecoder, _pixel_grid, bilinear_gather, ssim, warp
 from .sl_module import load_encoder_from_checkpoint
 
@@ -237,6 +237,8 @@ class GeometricForceFieldModule(SSLModule):
     relative pose to warp the source frame onto the target; SSIM + L1 reprojection and edge-aware
     disparity smoothness, x5. Shear branch: the shear channels (x ``scale_flow``) are an optical
     flow warping frame_{-1} -> frame_0; robust photometric + first-order smoothness losses."""
+
+    mesh_refusal = TASK_MESH_REFUSAL
 
     def __init__(
         self,

@@ -15,7 +15,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ssl.module import SSLModule, as_float_image
+from ..ssl.module import TASK_MESH_REFUSAL, SSLModule, as_float_image
 from ..train.checkpoint import load_checkpoint
 
 
@@ -59,6 +59,8 @@ def load_encoder_from_checkpoint(encoder: nn.Module, ckpt_path: str, encoder_typ
 
 
 class SLModuleBase(SSLModule):
+    mesh_refusal = TASK_MESH_REFUSAL
+
     def __init__(
         self,
         model_encoder: nn.Module,

@@ -27,7 +27,9 @@ so every batch statistic takes an explicit collective.
   ``P(None, "mp")`` is a contiguous cut that GSPMD reshards behind the scenes: the same function
   on a different physical shard.
 * :func:`put_batch`: this rank's rows of every leaf's leading axis. :func:`gather_state`: the
-  full state dict on rank 0. Every collective is an ``all_reduce`` or a ``broadcast``, the two
+  full state dict on rank 0 (buffers, such as the DINO centers, are replicated and pass as they
+  are). :func:`gather_dp`: the dp group's rows of a batch tensor on each rank, differentiably (the
+  KoLeo loss's neighbours). Every collective is an ``all_reduce`` or a ``broadcast``, the two
   that gloo also runs on CUDA tensors, so one code path serves nccl, gloo on the CPU and gloo on
   a shared card (a gather is the all-reduce of a zero-filled full buffer).
 
@@ -343,6 +345,35 @@ class _ReduceFromMP(torch.autograd.Function):
         return g, None
 
 
+class _GatherDP(torch.autograd.Function):
+    """The dp group's rows of ``x`` in one (B_global, ...) tensor: forward, this rank's rows written
+    into a zero-filled buffer and the buffer all-reduced over dp; backward, the gradient buffer
+    all-reduced over dp and this rank's rows of it kept."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        rows = mesh.rows(x.shape[0] * mesh.dp)
+        full = x.new_zeros((x.shape[0] * mesh.dp, *x.shape[1:]))
+        full[rows] = x
+        ctx.mesh, ctx.rows = mesh, rows
+        return mesh.all_reduce_dp(full)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce_dp(g.contiguous().clone())[ctx.rows], None
+
+
+def gather_dp(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """Every dp rank's rows of ``x`` (this rank's (B / dp, ...) share of a global batch), in the
+    global batch's order, on each rank (collective over the dp group; ``x`` itself without one).
+    Differentiable: a rank's gradient for its rows is the sum of every rank's gradient for them, so
+    with the optimizers' dp sum of the parameter gradients the total is the global loss's. A
+    gather is the all-reduce of a zero-filled buffer, as gloo on CUDA runs no ``all_gather``."""
+    if mesh is None or mesh.dp == 1:
+        return x
+    return _GatherDP.apply(x, mesh)
+
+
 def _take_shard(full: torch.Tensor, axis: int, parts: int, mp: int, j: int) -> torch.Tensor:
     """Rank j's share of ``full`` along ``axis``, cut as [parts][mp][chunk]."""
     return full.unflatten(axis, (parts, mp, -1)).select(axis + 1, j).flatten(axis, axis + 1).contiguous()
@@ -369,9 +400,10 @@ class _ShardedLinear(Linear):
             bias = None if full.bias is None else (_take_shard(full.bias, 0, parts, mp, j) if column else full.bias.clone())
         self.in_features, self.out_features = weight.shape[1], weight.shape[0]
         self.compute_dtype = full.compute_dtype
-        self.weight = nn.Parameter(weight)
+        # a frozen layer (an EMA teacher's) stays frozen
+        self.weight = nn.Parameter(weight, requires_grad=full.weight.requires_grad)
         self.weight._mesh_shard = (0 if column else 1, parts)
-        self.bias = None if bias is None else nn.Parameter(bias)
+        self.bias = None if bias is None else nn.Parameter(bias, requires_grad=full.bias.requires_grad)
         if bias is not None and column:
             self.bias._mesh_shard = (0, parts)
         self.mesh = mesh

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..kernels import BWD_BODY_LAUNCHES, FWD_BODY_LAUNCHES, LAUNCHES, reset_launches
+from ..kernels import BWD_BODY_LAUNCHES, FWD_BODY_LAUNCHES, LAUNCHES, MASKED_LAUNCHES, reset_launches
 from ..models import VTMAE, VTT, VTTConfig
 from ..nn import flash_attention as fa
 from ..ops.masking import mask_from_indices
@@ -48,8 +48,9 @@ class AttentionLog:
 
     @property
     def counts(self) -> dict:
-        """{"launches", "fwd_bodies", "bwd_bodies"}: the run's counts (zero on the CPU)."""
-        return {k: dict(c) for k, c in zip(("launches", "fwd_bodies", "bwd_bodies"), (LAUNCHES, FWD_BODY_LAUNCHES, BWD_BODY_LAUNCHES))}
+        """{"launches", "fwd_bodies", "bwd_bodies", "masked"}: the run's counts (zero on the CPU)."""
+        names = ("launches", "fwd_bodies", "bwd_bodies", "masked")
+        return {k: dict(c) for k, c in zip(names, (LAUNCHES, FWD_BODY_LAUNCHES, BWD_BODY_LAUNCHES, MASKED_LAUNCHES))}
 
     def __enter__(self):
         reset_launches()
@@ -182,9 +183,10 @@ def allreduce_rank(n_devices: int, sizes_mb: list, device: str, repeats: int = 3
 
 
 def replication_check(module: torch.nn.Module, mesh) -> bool:
-    """True if this rank's replicated parameters equal rank 0's bit for bit, and each sharded one
-    the first rank of its dp group's (collective)."""
+    """True if this rank's replicated parameters and buffers equal rank 0's bit for bit, and each
+    sharded parameter the first rank of its dp group's (collective)."""
     rep = [p.detach().reshape(-1) for p in module.parameters() if shard_spec(p) is None]
+    rep += [b.detach().reshape(-1) for b in module.buffers() if b.is_floating_point()]
     shards = [p.detach().reshape(-1) for p in module.parameters() if shard_spec(p) is not None]
     ok = True
     for flat, src, group, size in ((rep, 0, None, mesh.world), (shards, mesh.mp_index, mesh.dp_group, mesh.dp)):
@@ -376,13 +378,23 @@ def sac_rank(case: dict, n_devices: int, mp: int, device: str, warm_up: bool = F
 
 
 # --------------------------------------------------------------------------------------------- #
-# the SSL Trainer's MAE
+# the SSL Trainer's families
 # --------------------------------------------------------------------------------------------- #
-def mae_case(case: dict, mesh=None):
-    """The case's MAEModule (a ViT encoder and its decoder) with its full initial weights, its
-    masking noise injected: the global noise of each step, this rank's rows under a mesh."""
-    from ..models.vit import VisionTransformer
-    from ..ssl import MAEModule
+SSL_FAMILIES = {"mae": "MAEModule", "dino": "DINOModule", "dinov2": "DINOv2Module", "ijepa": "IJEPAModule", "vjepa": "VJEPAModule",
+                "vtdino": "VTDINOModule"}
+
+
+def ssl_module(case: dict):
+    """The case's SSL module (f32) with its full initial weights (``init``; its own where that is
+    None): from a pretraining config and its
+    overrides (``config``, ``overrides``), or from ``family`` (a key of SSL_FAMILIES) and the keyword
+    arguments of its ``encoder`` (a ViT, for VTDINO the multimodal VTT), its ``module`` and, for the
+    JEPAs, its ``predictor``. The module draws its masks (noise, for MAE) with the Trainer's
+    generator, or takes each step's global ones from the case (``masks``, ``noises``), keeping this
+    rank's rows under a mesh."""
+    from .. import ssl
+    from ..models import MultimodalVTT
+    from ..models.vit import VisionTransformer, vit_predictor
 
     if "config" in case:  # a config of the pretraining CLI, with its overrides
         from ..utils.config import instantiate, load_config
@@ -390,89 +402,234 @@ def mae_case(case: dict, mesh=None):
         cfg = load_config(case["config"], list(case.get("overrides", ())))
         module = instantiate(cfg["model"]["algorithm"])(instantiate(cfg["model"]["encoder"]))
     else:
-        dtype = DTYPES[case["dtype"]]
-        module = MAEModule(VisionTransformer(**case["vit"], dtype=dtype), **case["mae"], dtype=dtype)
-    module.load_state_dict(case["init"])
-    noises = [torch.from_numpy(n) for n in case["noises"]]
+        cls = getattr(ssl, SSL_FAMILIES[case["family"]])
+        encoder = (MultimodalVTT if case["family"] == "vtdino" else VisionTransformer)(**case["encoder"])
+        if "predictor" in case:
+            module = cls(encoder, vit_predictor(encoder.embed_dim, **case["predictor"]), **case["module"])
+        else:
+            module = cls(encoder, **case["module"])
+    if case.get("init") is not None:
+        module.load_state_dict(case["init"])
+    device = lambda: next(module.parameters()).device  # noqa: E731 -- where the Trainer moved it
+    if "noises" in case:
+        noises = [torch.from_numpy(n) for n in case["noises"]]
+        module.sample_noise = lambda batch, generator: module.own_rows(noises.pop(0).to(device()))
+    if "masks" in case:  # each step's global masks: a tuple of arrays, or one array
+        masks = list(case["masks"])
 
-    def sample_noise(batch, generator):
-        noise = noises.pop(0).to(module.decoder.mask_token.device)
-        return noise if mesh is None else noise[mesh.rows(noise.shape[0])]
+        def sample_masks(generator, batch):
+            m = masks.pop(0)
+            return tuple(torch.from_numpy(a).to(device()) for a in m) if isinstance(m, tuple) else torch.from_numpy(m).to(device())
 
-    module.sample_noise = sample_noise
+        module.sample_masks = sample_masks
     return module
 
 
-def mae_fit(case: dict, mesh=None, device: str | torch.device = "cpu", record: bool = True):
+def ssl_fit(case: dict, mesh=None, device: str | torch.device = "cpu", record: bool = True):
     """One ``Trainer.fit`` of the case's module over its batches; returns (history, module, the
-    optimizer's AdamW state after each step, gathered to the single-process layout; none without
-    ``record``)."""
+    global loss and logged scalars of every step, the optimizer's AdamW state after each step,
+    gathered to the single-process layout; no moments without ``record``)."""
     from .trainer import Trainer
 
-    module = mae_case(case, mesh)
+    module = ssl_module(case)
     trainer = Trainer(max_epochs=case["epochs"], verbose=0, mesh=mesh, device=device, ckpt_dir=case.get("ckpt_dir"))
     step_ms = timed(trainer, "train_step", torch.device(device))
-    moments, step = [], trainer.train_step
+    steps, moments, step = [], [], trainer.train_step
 
     def recorded_step(module, optimizer, batch):
-        out = step(module, optimizer, batch)
-        state = optimizer.state_dict()["adamw"]["state"]  # collective under a mesh
-        moments.append({i: {k: v.detach().clone() for k, v in st.items()} for i, st in state.items()})
-        return out
+        loss, scalars = step(module, optimizer, batch)
+        steps.append({"loss": float(loss), **{k: float(v) for k, v in scalars.items()}})
+        if record:
+            state = optimizer.state_dict()["adamw"]["state"]  # collective under a mesh
+            moments.append({i: {k: v.detach().clone() for k, v in st.items()} for i, st in state.items()})
+        return loss, scalars
 
-    if record:
-        trainer.train_step = recorded_step
-    history = trainer.fit(module, [{"image": b} for b in case["batches"]])
+    trainer.train_step = recorded_step
+    history = trainer.fit(module, case["batches"])
     history[-1]["step_ms"] = step_ms
-    return history, module, moments
+    return history, module, steps, moments
 
 
-def mae_readings(module, steps_per_epoch: int, epochs: int, moments: list, state: dict, ref_moments: list, ref_state: dict) -> dict:
-    """A mesh MAE run (its AdamW state after each step and its parameters, gathered) against the
-    single process's, for ``module``'s optimizer: ``moment_rel``, the largest distance of a
-    parameter's first or second moment after any step from the single process's, over the norm of
-    the single process's, and ``param_per_lr``, the largest parameter difference in base lr; each
-    with the parameter (``moment_worst``, ``param_worst``) that gave it."""
-    names = _names(module)
+def _groups(module) -> dict:
+    """{name: "trainable" | "teacher" | "buffer"} over the module's state dict."""
+    trainable = module.trainable_parameters()
+    out = {n: "trainable" if n in trainable else "teacher" for n, _ in module.named_parameters()}
+    return out | {n: "buffer" for n, _ in module.named_buffers()}
+
+
+def _worst(values: dict) -> tuple[float, str | None]:
+    """The largest of ``values`` ({name: reading}) and its name; (0, None) for none."""
+    worst = max(values, key=values.get) if values else None
+    return (values[worst] if worst else 0.0), worst
+
+
+def ssl_readings(module, steps_per_epoch: int, epochs: int, moments: list, state: dict, ref_moments: list, ref_state: dict,
+                 init: dict | None = None) -> dict:
+    """A mesh run of an SSL module (its AdamW state after each recorded step and its full state
+    dict, gathered) against the single process's, for ``module``'s optimizer: ``moment_rel``, the
+    largest distance of a parameter's first or second moment after any recorded step from the single
+    process's, over the norm of the single process's; ``param_per_lr``, the largest difference of a
+    trained parameter in base lr; given the initial state ``init``, ``update_rel``, the largest
+    distance of a trained parameter from the single process's over the norm of the single process's
+    update of it; ``teacher_per_lr``, of an EMA teacher's (0 without one); ``center_abs``, the largest
+    absolute difference of a buffer (the DINO centers); each with the tensor that gave it, under
+    the reading's key plus ``_worst``. The key third of a packed qkv bias is read apart, as ``key_bias_per_lr`` (student
+    or teacher): a key bias adds one constant to each query's scores, which the softmax cancels, so
+    its gradient is zero but for f32 noise, and Adam, dividing that noise by its own size, moves it
+    by up to lr a step in either run."""
+    groups = _groups(module)
+    names = {id(p): n for n, p in module.named_parameters()}
     order = [names[id(p)] for g in module.configure_optimizer(steps_per_epoch, epochs).adamw.param_groups for p in g["params"]]
     dev = next(iter(state.values())).device  # the mesh run's: on the card where it ran there
-    moment_rel, moment_worst = 0.0, None
+    moment_rel = {}
     for mine, theirs in zip(moments, ref_moments):
         for i, name in enumerate(order):
             for k in ("exp_avg", "exp_avg_sq"):
                 a, b = mine[i][k].to(dev), theirs[i][k].to(dev)
-                rel = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
-                if rel > moment_rel:
-                    moment_rel, moment_worst = rel, f"{name} {k}"
+                moment_rel[f"{name} {k}"] = max(moment_rel.get(f"{name} {k}", 0.0), ((a - b).norm() / b.norm().clamp_min(1e-30)).item())
     lr = module.base_lr
-    diffs = {n: (state[n] - w.to(dev)).abs().max().item() / lr for n, w in ref_state.items()}
-    param_worst = max(diffs, key=diffs.get)
-    return {"moment_rel": moment_rel, "moment_worst": moment_worst, "param_per_lr": diffs[param_worst], "param_worst": param_worst}
+    diffs = {"trainable": {}, "teacher": {}, "buffer": {}}
+    key_bias, update_rel = {}, {}
+    for n, w in ref_state.items():
+        group, w = groups[n], w.to(dev).float()
+        diff = (state[n].float() - w).abs()
+        moved = (w - init[n].to(dev).float()).abs() if init is not None and group == "trainable" else None
+        if group != "buffer" and n.endswith("qkv.bias"):  # the packed [q | k | v] bias
+            third = diff.shape[0] // 3
+            key_bias[n] = diff[third : 2 * third].max().item() / lr
+            diff, moved = (None if t is None else torch.cat([t[:third], t[2 * third :]]) for t in (diff, moved))
+        diffs[group][n] = diff.max().item() / (1.0 if group == "buffer" else lr)
+        if moved is not None:
+            update_rel[n] = (diff.norm() / moved.norm().clamp_min(1e-30)).item()
+    out = {}
+    for key, values in (("moment_rel", moment_rel), ("param_per_lr", diffs["trainable"]), ("update_rel", update_rel),
+                        ("teacher_per_lr", diffs["teacher"]), ("center_abs", diffs["buffer"]), ("key_bias_per_lr", key_bias)):
+        out[key], out[f"{key}_worst"] = _worst(values)
+    return out
 
 
-def _names(module) -> dict:
-    return {id(p): n for n, p in module.named_parameters()}
+def ssl_rank(case: dict, n_devices: int, mp: int, device: str, reference: str | None = None, warm_up: bool = False) -> dict:
+    """One rank of the case's SSL Trainer run on a dp x mp mesh. Every rank returns each step's
+    global loss and scalars, whether its replicated parameters and buffers equal rank 0's, and its
+    attention calls; rank 0 also the gathered state dict and AdamW moments, or, given the single
+    process's (``reference``, a saved {"moments", "state"}), only :func:`ssl_readings` against them
+    (the moments of a large model are too many bytes to send back). ``warm_up`` as
+    :func:`ppo_rank`'s."""
+    from .mesh import gather_state
 
-
-def mae_rank(case: dict, n_devices: int, mp: int, device: str, reference: str | None = None, warm_up: bool = False) -> dict:
-    """One rank of the case's MAE Trainer run on a dp x mp mesh. Rank 0 returns the gathered
-    parameters and AdamW moments of every step, or, given the single process's (``reference``, a
-    saved {"moments", "state"}), only :func:`mae_readings` against them (the moments of a large
-    model are too many bytes to send back). ``warm_up`` as :func:`ppo_rank`'s."""
     case = load_case(case)
     mesh = make_mesh(n_devices, mp=mp, device=device)
     if warm_up:
-        mae_fit(dict(case, ckpt_dir=None), mesh, mesh.device, record=False)
+        ssl_fit(dict(case, ckpt_dir=None), mesh, mesh.device, record=False)
     with AttentionLog(mesh.device) as log:
-        history, module, moments = mae_fit(case, mesh, mesh.device)
-    state = {k: gather_like(v.detach(), v, mesh) for k, v in module.named_parameters()}
-    out = {"history": history, "replicated": replication_check(module, mesh), "attention": dict(log.calls), "shapes": dict(log.shapes),
-           **log.counts}
+        history, module, steps, moments = ssl_fit(case, mesh, mesh.device)
+    state = gather_state(module, mesh)  # collective; None off rank 0
+    out = {"history": history, "steps": steps, "replicated": replication_check(module, mesh), "attention": dict(log.calls),
+           "shapes": dict(log.shapes), **log.counts}
     if mesh.is_main and reference is None:
         out.update(state=state, moments=moments)
     elif mesh.is_main:
         ref = torch.load(reference, map_location="cpu", weights_only=False)
-        out["readings"] = mae_readings(module, len(case["batches"]), case["epochs"], moments, state, ref["moments"], ref["state"])
+        out["readings"] = ssl_readings(module, len(case["batches"]), case["epochs"], moments, state, ref["moments"], ref["state"], case["init"])
+    return out
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max |b|."""
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def ssl_losses_rank(n_devices: int, mp: int, device: str, seed: int = 0) -> dict:
+    """The batch statistics of the SSL losses on a dp x mp mesh, each from this rank's rows of a
+    global batch (the same on every rank, from ``seed``) against the same function on the whole
+    global batch: {check: {"mesh": error, "local": error}}, errors relative to the largest value.
+    "mesh" is the function with the mesh (a loss: the dp sum of the ranks' shares; a gradient:
+    this rank's rows of it); "local" the same function without the mesh on this rank's rows alone
+    (a loss: the dp sum of its value / dp), which a mesh run must not compute."""
+    import copy as copy_module
+
+    from .. import ssl
+    from ..models.vit import VisionTransformer, vit_predictor
+    from ..ssl import losses
+
+    mesh = make_mesh(n_devices, mp=mp, device=device)
+    g = torch.Generator().manual_seed(seed)
+    dev = mesh.device
+    rand = lambda *shape: torch.randn(*shape, generator=g).to(dev)  # noqa: E731
+    rows = mesh.rows(8)
+    mine = lambda t, axis=0: t.narrow(axis, rows.start, rows.stop - rows.start)  # noqa: E731
+    dp_total = lambda t: mesh.all_reduce_dp(t.detach().clone().reshape(1))[0]  # noqa: E731
+    out = {}
+
+    def check(name, mesh_value, local_value, global_value):
+        out[name] = {"mesh": _rel(mesh_value, global_value), "local": _rel(local_value, global_value)}
+
+    center = rand(1, 16)
+    for kind, t in (("cls", rand(8, 16)), ("patch", rand(8, 5, 16))):
+        check(f"update_center {kind}", losses.update_center(center.reshape((1,) * (t.dim() - 1) + (16,)), mine(t), mesh=mesh),
+              losses.update_center(center.reshape((1,) * (t.dim() - 1) + (16,)), mine(t)),
+              losses.update_center(center.reshape((1,) * (t.dim() - 1) + (16,)), t))
+    logits = rand(8, 16)
+    check("sinkhorn_knopp cls", losses.sinkhorn_knopp_teacher(mine(logits), 0.1, mesh=mesh),
+          losses.sinkhorn_knopp_teacher(mine(logits), 0.1), mine(losses.sinkhorn_knopp_teacher(logits, 0.1)))
+    patches, keep = rand(8 * 5, 16), (torch.rand(8 * 5, generator=g) < 0.4).to(dev)
+    keep[::5] = True
+    ibot = lambda p, k, m=None: losses.sinkhorn_knopp_teacher(p, 0.1, n_samples=k.sum(), sample_mask=k, mesh=m)  # noqa: E731
+    part = slice(rows.start * 5, rows.stop * 5)
+    check("sinkhorn_knopp patches", ibot(patches[part], keep[part], mesh), ibot(patches[part], keep[part]), ibot(patches, keep)[part])
+    s, tp = rand(2, 8, 5, 16), torch.softmax(rand(2, 8, 5, 16), -1)
+    km = torch.rand(2, 8, 5, generator=g).to(dev) < torch.linspace(0.1, 0.9, 8, device=dev)[None, :, None]
+    check("ibot_patch_loss_all_pairs", dp_total(losses.ibot_patch_loss_all_pairs(mine(s, 1), mine(tp, 1), mine(km, 1), mesh=mesh)),
+          dp_total(losses.ibot_patch_loss_all_pairs(mine(s, 1), mine(tp, 1), mine(km, 1)) / mesh.dp),
+          losses.ibot_patch_loss_all_pairs(s, tp, km).reshape(1)[0])
+    x = rand(8, 12)
+    grads = {}
+    for key, fn in (("global", lambda v: losses.koleo_loss(v)), ("mesh", lambda v: losses.koleo_loss(v, mesh=mesh)),
+                    ("local", lambda v: losses.koleo_loss(v) / mesh.dp)):
+        v = (x if key == "global" else mine(x)).clone().requires_grad_(True)
+        value = fn(v)
+        value.backward()
+        grads[key] = (value.detach() if key == "global" else dp_total(value), v.grad if key != "global" else mine(v.grad))
+    check("koleo_loss", grads["mesh"][0], grads["local"][0], grads["global"][0])
+    check("koleo_loss gradient", grads["mesh"][1], grads["local"][1], grads["global"][1])
+
+    vit = dict(img_size=(16, 16), patch_size=4, in_chans=3, embed_dim=16, depth=1, num_heads=2, pos_embed_fn="sinusoidal")
+    images = torch.rand(8, 16, 16, 3, generator=g).to(dev)
+    torch.manual_seed(seed)
+    ijepa = ssl.IJEPAModule(VisionTransformer(**vit), vit_predictor(16, patch_size=4, img_size=(16, 16), in_chans=3, embed_dim=16, depth=1,
+                                                                    num_heads=2, num_mask_tokens=4)).to(dev)
+    # target blocks of one size share every sample's weight; a count that differs by sample tells a
+    # global normaliser from a rank's
+    targets = (torch.rand(4, 8, 16, generator=g) < torch.linspace(0.1, 0.6, 8)[None, :, None]).to(dev)
+    targets[:, :, 0] = True
+    ctx = ssl.ijepa.cut_context((torch.rand(8, 16, generator=g) < 0.9).to(dev), targets)
+    with torch.no_grad():
+        want = ijepa.forward_loss(images, ctx, targets)
+        local = dp_total(ijepa.forward_loss(mine(images), mine(ctx), mine(targets, 1)) / mesh.dp)
+        ijepa.mesh = mesh
+        check("ijepa smooth-L1 normaliser", dp_total(ijepa.forward_loss(mine(images), mine(ctx), mine(targets, 1))), local, want)
+
+    for centering in ("centering", "sinkhorn_knopp"):
+        torch.manual_seed(seed)
+        dino = ssl.DINOv2Module(VisionTransformer(**vit, num_register_tokens=1), centering=centering, dino_out_dim=16, dino_hidden_dim=16,
+                                dino_bottleneck_dim=8, num_local_masks=2, with_reconstruction_probe=False).to(dev)
+        dino.center.normal_(generator=torch.Generator(device=dev).manual_seed(seed))
+        gm, lm = dino.sample_masks(torch.Generator(device=dev).manual_seed(seed + 1), 8)
+        runs = {}
+        for key in ("global", "local", "mesh"):
+            m = copy_module.deepcopy(dino)
+            m.mesh = mesh if key == "mesh" else None
+            with torch.no_grad():
+                if key == "global":
+                    loss, aux = m.forward_loss(images, gm, lm, 0.05)
+                else:
+                    loss, aux = m.forward_loss(mine(images), mine(gm, 1), mine(lm, 1), 0.05)
+                    loss = dp_total(loss if key == "mesh" else loss / mesh.dp)
+                m.on_train_batch_end(aux, 0)
+            runs[key] = (loss, torch.cat([m.center.reshape(-1), m.ibot_center.reshape(-1)]))
+        check(f"dinov2 {centering} loss", runs["mesh"][0], runs["local"][0], runs["global"][0])
+        if centering == "centering":
+            check("dinov2 centering centers", runs["mesh"][1], runs["local"][1], runs["global"][1])
     return out
 
 

@@ -15,14 +15,15 @@ across epochs. A ``torch.profiler`` trace covers the steps of ``profile_steps`` 
 With ``mesh`` (``train/mesh.py``) :meth:`fit` computes the single-process result on the global
 batch, as JAX's GSPMD Trainer does: it shards the module (``shard_module``) before
 ``configure_optimizer``, every rank loads the same global batch and keeps its dp rows (JAX's
-``_place``), the module draws its noise for the global batch and keeps the same rows, each rank's
-loss is its share of the global one, the optimizer sums the gradients over the dp group, the
-logged losses are summed over the ranks, and rank 0 alone writes the checkpoints (in the
-single-process layout, so a mesh run resumes from a single-process one and the reverse). A module
-takes a mesh through :meth:`~..ssl.module.SSLModule.use_mesh`: ``MAEModule`` does; the modules
-whose losses need global reductions the port does not have yet raise there. Under a mesh no
-preemption handler is installed (a save is collective and cannot run inside a signal handler)
-and no reconstruction images are logged.
+``_place``), the module draws its noise or masks for the global batch and keeps the same rows,
+takes its batch statistics (centers, Sinkhorn-Knopp, KoLeo, masked counts) over the dp group, and
+returns its loss and every scalar of its aux as this rank's share of the global value; the
+optimizer sums the gradients over the dp group, the logged values are the shares summed over the
+ranks, and rank 0 alone writes the checkpoints (in the single-process layout, teachers and centers
+included, so a mesh run resumes from a single-process one and the reverse). A module takes a mesh
+through :meth:`~..ssl.module.SSLModule.use_mesh`: the SSL families do; the downstream task modules
+raise there. Under a mesh no preemption handler is installed (a save is collective and cannot run
+inside a signal handler) and no reconstruction images are logged.
 """
 from __future__ import annotations
 
@@ -136,7 +137,8 @@ class Trainer:
         return put_batch({k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}, self.mesh)
 
     def _global(self, loss: torch.Tensor, scalars: dict) -> tuple[torch.Tensor, dict]:
-        """Under a mesh, the global values of this rank's loss and scalar shares (one collective)."""
+        """Under a mesh, the global values of this rank's loss and scalar shares (one collective):
+        every scalar of a module's aux is a share, a temperature too."""
         if self.mesh is None:
             return loss, scalars
         vals = self.mesh.global_mean(torch.stack([loss, *scalars.values()]))
@@ -170,7 +172,7 @@ class Trainer:
     ):
         steps_per_epoch = steps_per_epoch or len(train_loader)
         if self.mesh is not None:
-            module.use_mesh(self.mesh)  # raises for a module whose loss the mesh cannot take yet
+            module.use_mesh(self.mesh)  # raises for a module that takes no mesh
         module.to(self.device)
         if hasattr(module, "setup_schedules"):
             module.setup_schedules(steps_per_epoch, self.max_epochs)

@@ -38,9 +38,8 @@ from m3l_tpu.ops.masking import ModalMask as JModalMask
 from m3l_tpu.rl import PPOMAE as JPPOMAE, SACMAE as JSACMAE
 from m3l_tpu.train.mesh import make_mesh as jmake_mesh, put_batch as jput_batch, shard_param_state
 from m3l_tpu_torch.cli import train as cli
-from m3l_tpu_torch.train import Trainer
 from m3l_tpu_torch.train import mesh_workers as mw
-from m3l_tpu_torch.train.mesh import Mesh, jax_path, launch, rule_matches
+from m3l_tpu_torch.train.mesh import jax_path, launch, rule_matches
 from m3l_tpu_torch.utils.convert import load_jax_params
 from jax_params import VIT, flat_params
 from test_torch_sac_mae import mask_realisation, port_env as sac_env, replay_batch
@@ -174,9 +173,9 @@ def mae_case(ckpt_dir: str) -> tuple:
     tm = MAEModule(VisionTransformer(**MAE_VIT), **MAE_KW)
     load_jax_params(tm, flat_params(j))
     rng = np.random.default_rng(0)
-    batches = [rng.random((8, 32, 32, 3), dtype=np.float32) for _ in range(2)]
-    return j, dict(vit=MAE_VIT, mae=MAE_KW, dtype="float32", init=tm.state_dict(), noises=jax_mae_noises(2, 8), batches=batches,
-                   epochs=1, ckpt_dir=ckpt_dir)
+    batches = [{"image": rng.random((8, 32, 32, 3), dtype=np.float32)} for _ in range(2)]
+    return j, dict(family="mae", encoder=MAE_VIT, module=MAE_KW, dtype="float32", init=tm.state_dict(), noises=jax_mae_noises(2, 8),
+                   batches=batches, epochs=1, ckpt_dir=ckpt_dir)
 
 
 # --------------------------------------------------------------------------------------------- #
@@ -198,7 +197,7 @@ def groups(tmp_path_factory):
         (mw.ppo_rank, (ppo_kl, 4, 2, "cpu")),
         (mw.sac_rank, (sac_update, 4, 2, "cpu")),
         (mw.sac_rank, (sac_steps, 4, 2, "cpu")),
-        (mw.mae_rank, (mae, 4, 2, "cpu")),
+        (mw.ssl_rank, (mae, 4, 2, "cpu")),
         (mw.cli_rank, ("train_sacmae", TINY_SAC + ["--mesh_devices", "4", "--mesh_mp", "2"], str(tmp / "sac_mesh.ckpt"))),
     ]
     ppo_sep = ppo_case(dict(batch_size=16, separate_optimizer=True, mae_batch_size=6), random_init(), seed=3)
@@ -440,13 +439,12 @@ def test_mae_trainer_epoch_matches_jax_on_the_mesh(groups):
     cases, refs, results = groups
     ranks = results("a")["mae"]
     assert all(r["replicated"] for r in ranks)
-    jhist = JTrainer(max_epochs=1, verbose=0, mesh=jmake_mesh(8, mp=2)).fit(refs["jmae"], [{"image": b} for b in cases["mae"]["batches"]])
+    jhist = JTrainer(max_epochs=1, verbose=0, mesh=jmake_mesh(8, mp=2)).fit(refs["jmae"], cases["mae"]["batches"])
     np.testing.assert_allclose(ranks[0]["history"][-1]["train_loss"], jhist[-1]["train_loss"], rtol=2e-4, atol=2e-5)
-    hist, module, moments = mw.mae_fit(dict(cases["mae"], ckpt_dir=None))
+    hist, module, _, moments = mw.ssl_fit(dict(cases["mae"], ckpt_dir=None))
     np.testing.assert_allclose(ranks[0]["history"][-1]["train_loss"], hist[-1]["train_loss"], rtol=2e-4, atol=2e-5)
-    single = {n: p.detach() for n, p in module.named_parameters()}
-    readings = mw.mae_readings(module, 2, 1, ranks[0]["moments"], ranks[0]["state"], moments, single)
-    assert readings["moment_rel"] <= 3e-5 and readings["param_per_lr"] <= 0.2, readings
+    readings = mw.ssl_readings(module, 2, 1, ranks[0]["moments"], ranks[0]["state"], moments, module.state_dict())
+    assert readings["moment_rel"] <= 3e-5 and max(readings["param_per_lr"], readings["key_bias_per_lr"]) <= 0.2, readings
     ckpt = load_checkpoint(os.path.join(cases["mae"]["ckpt_dir"], "last.ckpt"))
     assert ckpt["global_step"] == 2 and all(torch.equal(ckpt["model"][n], v) for n, v in ranks[0]["state"].items())
     calls = ranks[0]["attention"]  # two steps, each rank on its 4 rows and one head: encoder 2 layers
@@ -487,20 +485,6 @@ def test_sac_cli_inside_a_group_restores_into_one_process(groups):
     single.load(str(refs["tmp"] / "sac_mesh.ckpt"))
     assert single.num_timesteps == 24 and single.actor_optimizer.count > 0
     assert np.isfinite(single.predict(sac_env().reset(seed=0))).all()
-
-
-@pytest.mark.parametrize("name", ["DINOModule", "DINOv2Module", "IJEPAModule", "VJEPAModule", "VTDINOModule"])
-def test_other_ssl_modules_refuse_a_mesh(name):
-    """The families whose losses need global reductions raise under a mesh before any step, naming
-    the gap."""
-    from m3l_tpu_torch import ssl as tssl
-
-    mesh = Mesh(world=4, dp=2, mp=2, rank=0, dp_index=0, mp_index=0, dp_group=None, mp_group=None, backend="gloo",
-                device=torch.device("cpu"))
-    module = object.__new__(getattr(tssl, name))
-    torch.nn.Module.__init__(module)
-    with pytest.raises(NotImplementedError, match="global reductions"):
-        Trainer(max_epochs=1, verbose=0, mesh=mesh).fit(module, [{"image": np.zeros((4, 32, 32, 3), np.float32)}])
 
 
 def test_mesh_flags_are_checked_and_the_port_trains_on_one_process_without_them():
