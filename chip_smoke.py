@@ -173,9 +173,17 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    step's loss and scalars, AdamW's moments, the parameters, the teachers and the centers against the
    single process on the card on fixed bounds (MESH_SSL_TOL), every rank at the family's launches a
    step (MESH_SSL: DINO and DINOv2 50 + 26, 36 + 24 key-masked; I-JEPA 48 + 36, 36 + 36; V-JEPA 30 +
-   18; VTDINO 12 + 8, all key-masked); (e) a 1-rank nccl mesh through the same code, bit-equal
-   to no mesh (cuDNN deterministic for both). Every rank holds the replicated parameters (and, in (f),
-   buffers) bit-identical to rank 0's and makes the single process's attention calls at batch / dp and
+   18; VTDINO 12 + 8, all key-masked); (g) the downstream task modules through the Trainer at dp 2 x
+   mp 2, all four cases in one group of four ranks over mae_vit.yaml's ViT-small at full width (the
+   slip probe with the force input and class weights, frozen; the pose probe with class weights,
+   fine-tuned; the force probe, frozen; the geometric force field with SL supervision, frozen; the
+   probes' pooler 12 heads of 32; f32 with TF32 off, two steps on a global batch of 16): each step's
+   loss and scalars, AdamW's moments, the trained and the frozen parameters against the single
+   process on the card on fixed bounds (MESH_TASK_TOL), every rank at the case's launches a step
+   (MESH_TASKS: 12 + 0 frozen, 12 + 12 fine-tuned, 24 + 0 for the force field's two decoder passes);
+   (e) a 1-rank nccl mesh through the same code, bit-equal
+   to no mesh (cuDNN deterministic for both). Every rank holds the replicated parameters (and, in (f)
+   and (g), buffers) bit-identical to rank 0's and makes the single process's attention calls at batch / dp and
    heads / mp, each on its dtype's body, at shapes phase 3 held (MESH_SHAPES; the masked ones of (f)
    also under their key masks in 3c). Each rank warms up on a throwaway copy
    of its case before the timed run, and a 2-rank job shows where a dp 2 update's time goes (the
@@ -328,8 +336,9 @@ SSL_SHAPES = [(64, 49, 6, 64), (64, 196, 6, 64), (64, 196, 16, 32), (64, 197, 6,
 # local views at once, DINOv2's two global views at once, the probe decoder (196 tokens, 4 of 8
 # heads of 32); the I-JEPA context and target encoders (196 patches) and its predictor (196 context
 # + 196 mask tokens, 6 of 12 heads of 32); the V-JEPA context encoder (49 kept) and predictor (49 +
-# 147, 6 of 12 heads); VTDINO's global and four local views (1 + 3 x 25 tokens). Phase 16 fails if
-# a rank runs a shape that phase 3 did not hold (HELD_SHAPES)
+# 147, 6 of 12 heads); VTDINO's global and four local views (1 + 3 x 25 tokens). (g)'s task modules
+# run the ViT-small encoder on 8 rows a rank at 3 heads: (8, 196, 3, 64), the I-JEPA context
+# encoder's shape. Phase 16 fails if a rank runs a shape that phase 3 did not hold (HELD_SHAPES)
 MESH_SHAPES = [(256, 192, 4, 64), (256, 10, 4, 64), (512, 192, 2, 64), (512, 10, 2, 64), (8, 192, 2, 64), (256, 192, 2, 64),
                (256, 10, 2, 64), (128, 192, 2, 64), (128, 10, 2, 64), (64, 49, 3, 64),
                (8, 197, 3, 64), (32, 197, 3, 64), (16, 197, 3, 64), (8, 196, 4, 32), (8, 196, 3, 64), (8, 392, 6, 32), (8, 49, 3, 64),
@@ -2763,66 +2772,135 @@ def mesh_ssl_case(family: str, seed: int) -> dict:
     return dict(case, dtype="float32", init=module.state_dict(), batches=batches, epochs=1)
 
 
-def mesh_ssl(tmp: Path) -> tuple[dict, list]:
-    """Phase 16 (f): each family's single process on the card, then all five in one group of four
-    ranks (dp 2 x mp 2) held against them. Returns the readings by family and the ranks' attention
-    shapes."""
+def mesh_trainer_group(tag: str, cases: dict, fit, rank, tmp: Path) -> tuple[dict, list]:
+    """Phase 16 (f) and (g): each case's single process on the card, then all of them in one group
+    of four ranks (dp 2 x mp 2) held against them. ``cases``: {name: (a function that builds the
+    case, ((forward, backward) launches a step, (forward, backward) of them with a key mask), its
+    bounds)}; ``fit`` and ``rank`` are the mesh_workers functions of the module kind (``ssl_fit`` /
+    ``ssl_rank``, ``task_fit`` / ``task_rank``). Every case's readings are printed before a failure.
+    Returns the readings by case and the ranks' attention shapes."""
     from m3l_tpu_torch.train import mesh_workers as mw
     from m3l_tpu_torch.train.mesh import launch
 
+    names = list(cases)
     out, singles, jobs = {}, {}, []
     t0 = time.perf_counter()
-    for i, (family, (_, launches)) in enumerate(MESH_SSL.items()):
-        case = mesh_ssl_case(family, 60 + i)
-        torch.save(case, tmp / f"ssl_{family}.pt")
+    for name, (make_case, launches, _) in cases.items():
+        case = make_case()
+        steps_n = len(case["batches"]) * case["epochs"]
+        torch.save(case, tmp / f"{tag}_{name}.pt")
         with mw.AttentionLog(torch.device("cuda")) as log:
-            _, module, steps, moments = mw.ssl_fit(case, device="cuda")
+            _, module, steps, moments = fit(case, device="cuda")
         torch.cuda.synchronize()
         (fwd, bwd), (mfwd, mbwd) = launches
         counts = log.counts
-        want = ({KERNEL: fwd * MESH_SSL_STEPS, BWD_KERNEL: bwd * MESH_SSL_STEPS}, {KERNEL: mfwd * MESH_SSL_STEPS, BWD_KERNEL: mbwd * MESH_SSL_STEPS})
+        want = ({KERNEL: fwd * steps_n, BWD_KERNEL: bwd * steps_n}, {KERNEL: mfwd * steps_n, BWD_KERNEL: mbwd * steps_n})
         if ({k: counts["launches"].get(k, 0) for k in want[0]}, {k: counts["masked"].get(k, 0) for k in want[1]}) != want:
-            fail(f"mesh ssl {family}: the single process launched {counts['launches']} ({counts['masked']} with a key mask), expected {want}")
-        torch.save({"moments": moments, "state": {k: v.detach().cpu() for k, v in module.state_dict().items()}}, tmp / f"ssl_{family}_ref.pt")
-        singles[family] = dict(steps=steps, calls=dict(log.calls), want=want)
-        jobs.append((mw.ssl_rank, (str(tmp / f"ssl_{family}.pt"), 4, 2, "cuda", str(tmp / f"ssl_{family}_ref.pt"))))
+            fail(f"mesh {tag} {name}: the single process launched {counts['launches']} ({counts['masked']} with a key mask), expected {want}")
+        torch.save({"moments": moments, "state": {k: v.detach().cpu() for k, v in module.state_dict().items()}}, tmp / f"{tag}_{name}_ref.pt")
+        singles[name] = dict(steps=steps, calls=dict(log.calls), want=want, n=steps_n, batch=len(case["batches"][0]["image"]))
+        jobs.append((rank, (str(tmp / f"{tag}_{name}.pt"), 4, 2, "cuda", str(tmp / f"{tag}_{name}_ref.pt"))))
         del module, moments
         torch.cuda.empty_cache()
-    print(f"  (f) single-process references of {', '.join(MESH_SSL)} on the card: {time.perf_counter() - t0:.1f} s")
+    print(f"  ({tag}) single-process references of {', '.join(names)} on the card: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     group = launch(mw.jobs_rank, jobs, world=4, device="cuda", timeout=MESH_TIMEOUT)
     job_s = [max(r[i][1] for r in group) for i in range(len(jobs))]
-    print(f"  (f) 4 ranks on cuda:0 over gloo: {time.perf_counter() - t0:.1f} s, start-up included; each family "
-          f"{', '.join(f'{f} {t:.1f}' for f, t in zip(MESH_SSL, job_s))} s")
-    tol, shapes = MESH_SSL_TOL, []
-    for i, family in enumerate(MESH_SSL):
-        ranks, single = [r[i][0] for r in group], singles[family]
+    print(f"  ({tag}) 4 ranks on cuda:0 over gloo: {time.perf_counter() - t0:.1f} s, start-up included; each case "
+          f"{', '.join(f'{n} {t:.1f}' for n, t in zip(names, job_s))} s")
+    shapes, failed = [], []
+    for i, name in enumerate(names):
+        ranks, single, bounds = [r[i][0] for r in group], singles[name], cases[name][2]
         want_calls = expected_calls(single["calls"], 2, 2, None)
         for r, res in enumerate(ranks):
             if not res["replicated"] or res["steps"] != ranks[0]["steps"]:
-                fail(f"mesh ssl {family}: rank {r}'s replicated parameters, buffers or steps differ from rank 0's")
+                fail(f"mesh {tag} {name}: rank {r}'s replicated parameters, buffers or steps differ from rank 0's")
             fwd, bwd = res["launches"].get(KERNEL, 0), res["launches"].get(BWD_KERNEL, 0)
             if dict(res["attention"]) != want_calls or ({KERNEL: fwd, BWD_KERNEL: bwd}, {k: res["masked"].get(k, 0) for k in (KERNEL, BWD_KERNEL)}) != \
-                    single["want"] or res["fwd_bodies"] != {"tf32x3": fwd} or res["bwd_bodies"] != {"tf32x3": bwd}:
-                fail(f"mesh ssl {family}: rank {r} made attention calls {res['attention']} (expected {want_calls}), launches "
+                    single["want"] or res["fwd_bodies"] != {"tf32x3": fwd} or res["bwd_bodies"] != ({"tf32x3": bwd} if bwd else {}):
+                fail(f"mesh {tag} {name}: rank {r} made attention calls {res['attention']} (expected {want_calls}), launches "
                      f"{res['launches']} with {res['masked']} key-masked (expected {single['want']}) on {res['fwd_bodies']} / {res['bwd_bodies']}")
             shapes += list(res["shapes"])
         got, want = ranks[0]["steps"], single["steps"]
-        excess = max(abs(g[k] - v) - (tol["rtol"] * abs(v) + tol["atol"]) for g, w in zip(got, want) for k, v in w.items())
+        excess = max(abs(g[k] - v) - (bounds["rtol"] * abs(v) + bounds["atol"]) for g, w in zip(got, want) for k, v in w.items())
         step_rel = max(abs(g[k] - v) / max(abs(v), 1e-30) for g, w in zip(got, want) for k, v in w.items())
         readings = ranks[0]["readings"]
-        print(f"  (f) {family} at dp 2 x mp 2, {MESH_SSL_STEPS} steps of {MESH_SSL_BATCH}: replicated parameters and buffers bit-identical on "
-              f"every rank; per rank {ranks[0]['launches'].get(KERNEL, 0)} + {ranks[0]['launches'].get(BWD_KERNEL, 0)} launches "
+        print(f"  ({tag}) {name} at dp 2 x mp 2, {single['n']} steps of {single['batch']}: replicated parameters and buffers bit-identical "
+              f"on every rank; per rank {ranks[0]['launches'].get(KERNEL, 0)} + {ranks[0]['launches'].get(BWD_KERNEL, 0)} launches "
               f"({ranks[0]['masked'].get(KERNEL, 0)} + {ranks[0]['masked'].get(BWD_KERNEL, 0)} key-masked) on tf32x3; losses "
               f"{[round(st['loss'], 5) for st in got]}; steps' scalars largest relative error {step_rel:.3e} (excess over rtol "
-              f"{tol['rtol']} / atol {tol['atol']}: {excess:.3e}); " + ", ".join(
-                  f"{k} {readings[k]:.3e} ({readings[k + '_worst']}; tol {tol[k]})" for k in MESH_SSL_READINGS))
-        if excess > 0 or any(readings[k] > tol[k] for k in MESH_SSL_READINGS):
-            fail(f"mesh ssl {family}: the dp 2 x mp 2 run disagrees with the single process: steps {got} vs {want}; {readings}")
-        out[family] = dict(readings, tol=tol, steps=got, single_steps=want, step_rel_max=step_rel, step_excess=excess, seconds=job_s[i],
-                           launches_rank0=ranks[0]["launches"], masked_rank0=ranks[0]["masked"],
-                           launches_all_ranks=dict(sum((Counter(r["launches"]) for r in ranks), Counter())))
+              f"{bounds['rtol']} / atol {bounds['atol']}: {excess:.3e}); " + ", ".join(
+                  f"{k} {readings[k]:.3e} ({readings[k + '_worst']}; tol {bounds[k]})" for k in MESH_SSL_READINGS))
+        if excess > 0 or any(readings[k] > bounds[k] for k in MESH_SSL_READINGS):
+            failed.append(f"{name}: steps {got} vs {want}; {readings}")
+        out[name] = dict(readings, tol=bounds, steps=got, single_steps=want, step_rel_max=step_rel, step_excess=excess, seconds=job_s[i],
+                         launches_rank0=ranks[0]["launches"], masked_rank0=ranks[0]["masked"],
+                         launches_all_ranks=dict(sum((Counter(r["launches"]) for r in ranks), Counter())))
+    if failed:
+        fail(f"mesh {tag}: the dp 2 x mp 2 runs disagree with the single process: " + "; ".join(failed))
     return out, shapes
+
+
+# (g) the downstream task modules through the Trainer at dp 2 x mp 2, over mae_vit.yaml's ViT-small
+# (224 x 224 x 6, patch 16, dim 384, 12 blocks of 6 heads x 64) at full width with seeded weights:
+# the probes' attentive pooler at its 12 heads of 32, the force field's DPT decoder at its defaults
+# (hooks 2, 5, 8, 11, fusion 128) and the pose ResNet-18; warm-up 0, f32 with TF32 off, two Trainer
+# steps on a global batch of 16. Each step launches the case's single-process counts on every rank
+# (forward, backward): the encoder's 12 blocks once a step (frozen: no backward), the force field's
+# twice (forward_fields).
+MESH_TASK_BATCH, MESH_TASK_STEPS = 16, 2
+POSE_CLASS_WEIGHTS = {"x": list(np.linspace(0.5, 1.5, 10)), "y": list(np.linspace(2.0, 0.2, 10)), "theta": [1.0, 3.0] * 5}
+# case: (probe class and keyword arguments, or None for the force-field decoder; the module's class
+# and keyword arguments; launches a step)
+MESH_TASKS = {"slip_force_frozen": (("SlipForceProbe", {}), ("SlipSLModule", dict(class_weights=[1.0, 3.0], use_force=True)), (12, 0)),
+              "pose_finetuned": (("PoseLinearProbe", {}), ("PoseSLModule", dict(class_weights=POSE_CLASS_WEIGHTS, train_encoder=True)), (12, 12)),
+              "force_frozen": (("ForceLinearProbe", {}), ("ForceSLModule", {}), (12, 0)),
+              "geometric_sl_frozen": (None, ("GeometricForceFieldModule", dict(with_sl_supervision=True)), FF_LAUNCHES["frozen"])}
+# mesh against single process on the card, the readings of MESH_SSL_TOL (a frozen encoder, held as a
+# teacher, and the pose ResNet's BatchNorm statistics exactly). Set from a run on the H100 (NVIDIA
+# H100 80GB HBM3, 700.00 W; the largest reading of the three probes in brackets): steps 1.230e-7
+# relative, moments 7.735e-6 (the pooler's LayerNorm), parameters 0.1244 lr (an element of the
+# fine-tuned encoder's qkv weight: Adam divides a near-zero gradient's noise by its own size) and
+# 1.523e-4 of the single process's update of each, the key half of the pooler's kv bias 0.1052 lr;
+# each bound about 10x its reading, the parameters' ~2.5x. The geometric force field reads higher
+# everywhere: steps 8.572e-6 (the second step's rmse_fy), moments 1.487e-4 (a pose ResNet
+# convolution), parameters 1.725 lr (a decoder convolution) and 5.094e-3 of its update. Its SSIM (var
+# = E[x^2] - E[x]^2 over 3 x 3 windows) keeps ~1e-3 of f32 rounding in its map and gradient, and the
+# pose network's and the disparity's gradients reach the loss only through it: phase 12's card-vs-CPU
+# step reads 7.665e-5 on the gradients (FF_F32_TOL), the size of these moments; the rows summed in
+# another order over 8 rows a rank than over 16 are such a change.
+MESH_TASK_TOL = {"probe": dict(rtol=2e-6, atol=1e-7, moment_rel=8e-5, param_per_lr=0.3, update_rel=1.5e-3, teacher_per_lr=0.0, center_abs=0.0,
+                               key_bias_per_lr=0.4),
+                 "force_field": dict(rtol=8e-5, atol=1e-7, moment_rel=1.5e-3, param_per_lr=4.5, update_rel=5e-2, teacher_per_lr=0.0,
+                                     center_abs=0.0, key_bias_per_lr=0.4)}
+
+
+def mesh_task_case(name: str, seed: int) -> dict:
+    """Phase 16 (g)'s case ``name``: its module's seeded weights (built on the CPU) and two global
+    batches of MESH_TASK_BATCH from ``seed``: images, forces and labels for a probe; frame pairs,
+    their backgrounds, contact masks and forces for the force field."""
+    from m3l_tpu_torch.train import mesh_workers as mw
+
+    probe, (module, kw), _ = MESH_TASKS[name]
+    case = dict(encoder=load_config(SSL_CONFIG)["model"]["encoder"], module=(module, dict(kw, warmup_epochs=0)), dtype="float32", epochs=1)
+    if probe is None:
+        case["decoder"] = dict(hooks=(2, 5, 8, 11), fusion_ch=128)
+    else:
+        case["probe"] = probe
+    torch.manual_seed(seed)
+    case["init"] = mw.task_module(dict(case, init=None)).state_dict()
+    rng = np.random.default_rng(seed)
+    b, size = MESH_TASK_BATCH, (*case["encoder"]["img_size"], case["encoder"]["in_chans"])
+    batches = []
+    for _ in range(MESH_TASK_STEPS):  # uint8 frames, as the sensors give them (the modules scale them to [0, 1])
+        batch = {"image": rng.integers(0, 256, (b, *size), dtype=np.uint8), "force": rng.uniform(-1, 1, (b, 3)).astype(np.float32)}
+        if probe is None:
+            batch.update(image_bg=rng.integers(0, 256, (b, *size), dtype=np.uint8), mask=(rng.random((b, *size[:2])) > 0.5).astype(np.float32))
+        else:
+            batch.update(force_scale=np.tile(np.float32([[5.0, 5.0, 10.0]]), (b, 1)), slip=rng.integers(0, 2, b),
+                         **{f"pose_{h}": rng.integers(0, 10, b) for h in ("x", "y", "theta")})
+        batches.append(batch)
+    return dict(case, batches=batches)
 
 
 def mesh_phase() -> dict:
@@ -2992,15 +3070,23 @@ def mesh_phase() -> dict:
                   + ", ".join(f"{h['name']} {h['self_ms']:.2f} ms x{h['calls']:g}" for h in res["host_top"]))
         out["sharing_dp2"] = sharing
 
-        # (f) the SSL families through the Trainer at dp 2 x mp 2
-        t0 = time.perf_counter()
-        ssl_out, ssl_shapes = mesh_ssl(tmp)
-        unheld = sorted({s for s in ssl_shapes if tuple(s[1:]) not in HELD_SHAPES[s[0]]})
-        print(f"  (f) every rank's attention shapes, each held against its plain version in phase 3: {sorted(set(ssl_shapes))}; "
-              f"{time.perf_counter() - t0:.1f} s in all")
-        if unheld:
-            fail(f"mesh ssl: ranks ran the packed kernels at shapes phase 3 did not hold: {unheld}")
-        out["ssl"] = dict(ssl_out, rank_shapes=[list(s) for s in sorted(set(ssl_shapes))], seconds=time.perf_counter() - t0)
+        # (f) the SSL families and (g) the downstream task modules through the Trainer at dp 2 x mp 2
+        trainer_groups = {
+            "f": ("ssl", mw.ssl_fit, mw.ssl_rank, {f: (lambda f=f, i=i: mesh_ssl_case(f, 60 + i), launches, MESH_SSL_TOL)
+                                                  for i, (f, (_, launches)) in enumerate(MESH_SSL.items())}),
+            "g": ("task", mw.task_fit, mw.task_rank, {n: (lambda n=n, i=i: mesh_task_case(n, 70 + i), (launches, (0, 0)),
+                                                          MESH_TASK_TOL["probe" if probe else "force_field"])
+                                                     for i, (n, (probe, _, launches)) in enumerate(MESH_TASKS.items())}),
+        }
+        for tag, (key, fit, rank, group_cases) in trainer_groups.items():
+            t0 = time.perf_counter()
+            group_out, group_shapes = mesh_trainer_group(tag, group_cases, fit, rank, tmp)
+            unheld = sorted({s for s in group_shapes if tuple(s[1:]) not in HELD_SHAPES[s[0]]})
+            print(f"  ({tag}) every rank's attention shapes, each held against its plain version in phase 3: {sorted(set(group_shapes))}; "
+                  f"{time.perf_counter() - t0:.1f} s in all")
+            if unheld:
+                fail(f"mesh ({tag}): ranks ran the packed kernels at shapes phase 3 did not hold: {unheld}")
+            out[key] = dict(group_out, rank_shapes=[list(s) for s in sorted(set(group_shapes))], seconds=time.perf_counter() - t0)
 
         # (e) a 1-rank nccl mesh through the same code, bit-equal to no mesh (cuDNN deterministic for both)
         torch.backends.cudnn.deterministic = True
@@ -3132,7 +3218,8 @@ def main() -> int:
         print("[15] the flat-buffer AdamW against the default on MAE steps, and the Gumbel quantizer, card vs CPU")
         optim = optim_phase()
 
-        print("[16] the mesh: PPO+MAE, SAC and the MAE Trainer on dp x mp ranks sharing the card over gloo, the CLI, a 1-rank nccl mesh")
+        print("[16] the mesh: PPO+MAE, SAC, the SSL families and the downstream task modules on dp x mp ranks sharing the card over "
+              "gloo, the CLI, a 1-rank nccl mesh")
         meshed = mesh_phase()
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)  # MAE_CKPT and whatever a failed phase left
@@ -3160,6 +3247,7 @@ def main() -> int:
                        for run in ("bf16_dp2", "bf16_mp2", "bf16_dp2xmp2", "f32_dp2xmp2", "sac_dp2xmp2", "sac_f32_dp2xmp2", "mae_mp2",
                                "cli_mesh2x2")},
                     **{f"mesh_ssl_{family}": meshed["ssl"][family]["launches_all_ranks"].get(name, 0) for family in MESH_SSL},
+                    **{f"mesh_task_{case}": meshed["task"][case]["launches_all_ranks"].get(name, 0) for case in MESH_TASKS},
                     mesh_nccl_1rank=meshed["nccl_1rank"]["launches"].get(name, 0))
 
     def ssl_shapes(kind):

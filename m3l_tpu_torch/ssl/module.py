@@ -29,16 +29,9 @@ from ..train.optim import FlatAdamW, GradientChain
 from .schedulers import cosine_wd_schedule, warmup_cosine_schedule
 
 
-# the modules that refuse a mesh (``SSLModule.mesh_refusal``)
-TASK_MESH_REFUSAL = (
-    "the downstream task modules (SLModuleBase and its probes, ForceFieldModule, GeometricForceFieldModule) do not train on "
-    "a mesh yet (ROADMAP Queue 1 item 11); the SSL families (MAE, DINO, DINOv2, I-JEPA, V-JEPA, VTDINO) do"
-)
-
 
 class SSLModule(nn.Module):
     mesh = None  # the dp x mp mesh the module trains on (use_mesh), None for one process
-    mesh_refusal: Optional[str] = None  # why a module cannot take a mesh, where it cannot
 
     def trainable_parameters(self) -> dict[str, nn.Parameter]:
         """The parameters the optimizer moves, by name (all of them unless a module keeps a
@@ -56,9 +49,7 @@ class SSLModule(nn.Module):
 
     def use_mesh(self, mesh) -> None:
         """Train under ``mesh`` (``train/mesh.py``): the loss becomes this rank's share of the
-        global batch's (see the module docstring). Raises for a module with a ``mesh_refusal``."""
-        if self.mesh_refusal is not None:
-            raise NotImplementedError(f"{type(self).__name__} under a mesh: {self.mesh_refusal}")
+        global batch's (see the module docstring)."""
         self.mesh = mesh
 
     def global_rows(self, rows: int) -> int:

@@ -27,7 +27,7 @@ from torch import nn
 
 from ..models.vit import resize
 from ..nn.layers import Conv2d, Linear
-from ..ssl.module import TASK_MESH_REFUSAL, SSLModule
+from ..ssl.module import SSLModule
 from .sl_module import load_encoder_from_checkpoint
 
 
@@ -190,9 +190,9 @@ def photometric_loss(pred: torch.Tensor, target: torch.Tensor, alpha: float = 0.
 class ForceFieldModule(SSLModule):
     """Supervised (``batch["forcefield"]``) or self-supervised (photometric flow) force-field
     training. The decoder owns the encoder, which is frozen unless ``train_encoder``: its
-    parameters stay out of the optimizer and its hooks run without autograd."""
-
-    mesh_refusal = TASK_MESH_REFUSAL
+    parameters stay out of the optimizer and its hooks run without autograd. Every loss is a mean
+    over rows and pixels (``warp`` and ``ssim`` work pixel by pixel), so under a mesh each is this
+    rank's mean over dp: its share of the global batch's."""
 
     def __init__(
         self,
@@ -225,7 +225,7 @@ class ForceFieldModule(SSLModule):
         x = batch["image"]  # (B, H, W, C), two stacked frames for the self-supervised loss
         field = self.model_task(x)
         if "forcefield" in batch:  # supervised
-            loss = torch.mean((field - batch["forcefield"]) ** 2)
+            loss = self.share(torch.mean((field - batch["forcefield"]) ** 2))
             return loss, {"loss": loss}
         c = x.shape[-1] // 2
         frame_t, frame_t1 = x[..., :c], x[..., c:]
@@ -233,8 +233,8 @@ class ForceFieldModule(SSLModule):
         loss = photometric_loss(warp(frame_t.float(), flow), frame_t1.float())
         # a mild smoothness prior on the field
         smooth = torch.mean(torch.abs(torch.diff(field, dim=1))) + torch.mean(torch.abs(torch.diff(field, dim=2)))
-        total = loss + 0.1 * smooth
-        return total, {"loss": total, "photo_loss": loss, "smooth_loss": smooth}
+        total = self.share(loss + 0.1 * smooth)
+        return total, {"loss": total, "photo_loss": self.share(loss), "smooth_loss": self.share(smooth)}
 
     def encode(self, x):  # the decoder consumes raw images through the encoder's hooks
         return x

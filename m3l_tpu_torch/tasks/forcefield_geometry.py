@@ -25,8 +25,9 @@ from torch import nn
 
 from ..models.baselines import ResNet18Encoder
 from ..nn.layers import Conv2d
-from ..ssl.module import TASK_MESH_REFUSAL, SSLModule, as_float_image
+from ..ssl.module import SSLModule, as_float_image
 from .forcefield import ForceFieldDecoder, _pixel_grid, bilinear_gather, ssim, warp
+from .modules import batch_rmse
 from .sl_module import load_encoder_from_checkpoint
 
 
@@ -236,9 +237,12 @@ class GeometricForceFieldModule(SSLModule):
     depth, backprojected with the DIGIT inverse intrinsics, reprojected through the estimated
     relative pose to warp the source frame onto the target; SSIM + L1 reprojection and edge-aware
     disparity smoothness, x5. Shear branch: the shear channels (x ``scale_flow``) are an optical
-    flow warping frame_{-1} -> frame_0; robust photometric + first-order smoothness losses."""
+    flow warping frame_{-1} -> frame_0; robust photometric + first-order smoothness losses.
 
-    mesh_refusal = TASK_MESH_REFUSAL
+    Under a mesh every loss term is a mean over rows (the disparity's mean and the SL force are
+    per sample), so the loss and each loss scalar are this rank's mean over dp; the SL force's
+    RMSEs take their squared errors over the dp group first. The pose ResNet's BatchNorm reads
+    only its running statistics, as JAX's (``use_running_average=True``): no batch statistic."""
 
     def __init__(
         self,
@@ -323,15 +327,23 @@ class GeometricForceFieldModule(SSLModule):
             loss = loss + normal_m
             aux["normal_loss"] = aux["normal_loss"] + normal_m
 
+        rmse = {}
         if self.with_sl_supervision and "force" in batch:
-            y_pred = compute_sl_force(disp[..., 0], shear)
-            y_gt = batch["force"].float()
-            loss = loss + _smooth_l1(y_pred, y_gt)
-            mse_xyz = torch.mean((y_pred - y_gt) ** 2, dim=0)
-            aux["rmse_fx"], aux["rmse_fy"], aux["rmse_fz"] = (torch.sqrt(mse_xyz[i]) for i in range(3))
+            sl_loss, rmse = self.sl_force_terms(disp, shear, batch["force"])
+            loss = loss + sl_loss
 
-        aux["loss"] = loss
-        return loss, aux
+        # each loss is a mean over rows: this rank's share of it (the RMSEs are shares already)
+        aux = {k: v if k == "warped_color" else self.share(v) for k, v in aux.items()}
+        loss = self.share(loss)
+        return loss, {**aux, **rmse, "loss": loss}
+
+    def sl_force_terms(self, disp: torch.Tensor, shear: torch.Tensor, force: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        """The SL supervision on the integrated force: its smooth-L1 over the rows (a mean, shared
+        by the caller) and ``rmse_f{x,y,z}``, each this rank's share of the global batch's RMSE."""
+        y_pred = compute_sl_force(disp[..., 0], shear)
+        y_gt = force.float()
+        rmse = batch_rmse((y_pred - y_gt) ** 2, self.mesh)
+        return _smooth_l1(y_pred, y_gt), {f"rmse_f{a}": self.share(rmse[i]) for i, a in enumerate("xyz")}
 
     def encode(self, x):
         return x

@@ -7,6 +7,11 @@
 
 Class weights are non-persistent buffers: they follow the module to its device and stay out of
 its state dict, as the JAX modules keep them as plain arrays.
+
+On a mesh (``SSLModule.use_mesh``) every loss and scalar is this rank's share of the global
+batch's value, as JAX's GSPMD Trainer computes it: :func:`weighted_ce` divides by the class
+weights applied over the whole global batch, and :func:`batch_rmse` takes its squared errors and
+row count over the dp group before the square root.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from ..ssl.losses import dp_sum
 from .sl_module import SLModuleBase
 
 
@@ -22,15 +28,30 @@ def smooth_l1(pred: torch.Tensor, target: torch.Tensor, beta: float = 1.0) -> to
     return torch.where(diff < beta, 0.5 * diff**2 / beta, diff - 0.5 * beta)
 
 
-def weighted_ce(logits: torch.Tensor, labels: torch.Tensor, weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+def weighted_ce(logits: torch.Tensor, labels: torch.Tensor, weights: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
     """Per-sample weighted NLL over the sum of the applied weights (clipped at 1e-8), as
-    ``F.cross_entropy(weight=...)`` reduces it while any weight is non-zero."""
+    ``F.cross_entropy(weight=...)`` reduces it while any weight is non-zero. Under ``mesh`` this
+    rank's share of the global batch's value: its rows' weighted sum over the weights applied in
+    the whole global batch (summed over the dp group; a constant of the labels, so no gradient),
+    or its rows' mean over dp without weights."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.take_along_dim(logp, labels[:, None], dim=1)[:, 0]
     if weights is None:
-        return nll.mean()
+        return nll.mean() if mesh is None else nll.mean() / mesh.dp
     w = weights[labels]
-    return (nll * w).sum() / torch.clamp(w.sum(), min=1e-8)
+    if mesh is None:
+        return (nll * w).sum() / torch.clamp(w.sum(), min=1e-8)
+    return (nll * w).sum() / torch.clamp(dp_sum(w.sum().detach().reshape(1), mesh)[0], min=1e-8)
+
+
+def batch_rmse(sq_err: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The root of the batch mean of each column of squared errors (B, k), the same on every rank:
+    under ``mesh`` the sums and the row count are taken over the dp group first, since a square
+    root does not split into the ranks' shares."""
+    if mesh is None:
+        return torch.sqrt(torch.mean(sq_err, dim=0))
+    sums = dp_sum(torch.cat([sq_err.detach().sum(dim=0), sq_err.new_full((1,), sq_err.shape[0])]), mesh)
+    return torch.sqrt(sums[:-1] / sums[-1])
 
 
 def _weights(values) -> Optional[torch.Tensor]:
@@ -45,10 +66,10 @@ class ForceSLModule(SLModuleBase):
     def training_loss(self, batch: dict, generator: Optional[torch.Generator], step: int):
         x, y_gt = batch["image"], batch["force"]
         y_pred = self.model_task(self.encode(x))
-        loss = smooth_l1(y_pred, y_gt, beta=0.02).mean()
+        loss = self.share(smooth_l1(y_pred, y_gt, beta=0.02).mean())
         scale = batch.get("force_scale", torch.ones_like(y_gt))
-        mse_xyz = torch.mean((y_pred.detach() * scale - y_gt * scale) ** 2, dim=0)
-        return loss, {"loss": loss, "rmse_x": torch.sqrt(mse_xyz[0]), "rmse_y": torch.sqrt(mse_xyz[1]), "rmse_z": torch.sqrt(mse_xyz[2])}
+        rmse = batch_rmse((y_pred.detach() * scale - y_gt * scale) ** 2, self.mesh)
+        return loss, {"loss": loss, **{f"rmse_{a}": self.share(rmse[i]) for i, a in enumerate("xyz")}}
 
     def predict(self, x: torch.Tensor) -> torch.Tensor:
         return self.model_task(self.encode(x))
@@ -69,8 +90,8 @@ class _ClassSLModule(SLModuleBase):
     def training_loss(self, batch: dict, generator: Optional[torch.Generator], step: int):
         logits = self.logits(batch)
         labels = batch[self.label_key].long()
-        loss = weighted_ce(logits, labels, self.class_weights)
-        return loss, {"loss": loss, "accuracy": _accuracy(logits, labels)}
+        loss = weighted_ce(logits, labels, self.class_weights, self.mesh)
+        return loss, {"loss": loss, "accuracy": self.share(_accuracy(logits, labels))}
 
     def predict(self, x: torch.Tensor) -> torch.Tensor:
         return self.model_task(self.encode(x))
@@ -113,8 +134,8 @@ class PoseSLModule(SLModuleBase):
         losses, accs = {}, {}
         for head in self.HEADS:
             labels = batch[f"pose_{head}"].long()
-            losses[head] = weighted_ce(preds[head], labels, getattr(self, f"class_weights_{head}"))
-            accs[head] = _accuracy(preds[head], labels)
+            losses[head] = weighted_ce(preds[head], labels, getattr(self, f"class_weights_{head}"), self.mesh)
+            accs[head] = self.share(_accuracy(preds[head], labels))
         loss = sum(losses.values())
         aux = {"loss": loss}
         aux.update({f"loss_{k}": v for k, v in losses.items()})

@@ -7,6 +7,11 @@ target encoder, "dino" -> the teacher backbone or encoder, else the encoder; the
 ``backbone``). Unless ``train_encoder``, the encoder is frozen: it runs under ``torch.no_grad()``
 (no saved activations, no backward) and its parameters stay out of the optimizer, so weight decay
 cannot move them either.
+
+On a mesh (``Trainer(mesh=...)``) the encoder and the probe are sharded as every module is
+(``train/mesh.py`` :func:`shard_module`): a frozen encoder still runs its row-parallel sums under
+``torch.no_grad()``, and its shards stay out of the optimizer. The encoder is loaded from its
+checkpoint when the module is built, before the Trainer shards anything, as in JAX.
 """
 from __future__ import annotations
 
@@ -15,7 +20,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ssl.module import TASK_MESH_REFUSAL, SSLModule, as_float_image
+from ..ssl.module import SSLModule, as_float_image
 from ..train.checkpoint import load_checkpoint
 
 
@@ -59,8 +64,6 @@ def load_encoder_from_checkpoint(encoder: nn.Module, ckpt_path: str, encoder_typ
 
 
 class SLModuleBase(SSLModule):
-    mesh_refusal = TASK_MESH_REFUSAL
-
     def __init__(
         self,
         model_encoder: nn.Module,

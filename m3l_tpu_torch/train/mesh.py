@@ -17,8 +17,9 @@ so every batch statistic takes an explicit collective.
   a group already started) it joins that group instead.
 * :func:`shard_module`: Megatron's tensor parallelism over the rule pairs of ``_TP_RULES``
   (``to_qkv``/``to_out``, ``attn/qkv``/``attn/proj``, ``xattn/q``, ``xattn/kv``/``xattn/proj``,
-  ``fc1``/``fc2``, ``w12``/``w3``). A column-parallel layer keeps the output columns of its
-  share of the heads (of the hidden units), biases with them, behind ``f`` (identity forward,
+  ``fc1``/``fc2`` of the MLPs and of the slip-with-force probe, ``w12``/``w3``). A
+  column-parallel layer keeps the output columns of its share of the heads (of the hidden
+  units), biases with them, behind ``f`` (identity forward,
   all-reduce backward); a row-parallel layer keeps the matching input columns and adds its
   (replicated) bias once, after ``g`` (all-reduce forward, identity backward). The packed qkv
   is [3][H][Dh], so rank j's ``to_qkv`` rows are, for each of q, k and v, those of heads
@@ -84,6 +85,15 @@ _PAIRS = {
     vit_layers.Mlp: ((("fc1", 1),), "fc2", None),
     vit_layers.SwiGLUFFN: ((("w12", 2),), "w3", "hidden"),
 }
+
+
+def _pairs() -> dict:
+    """:data:`_PAIRS` and the slip-with-force probe's ``fc1`` / ``fc2`` (its input, the pooled token
+    beside the projected force, is replicated). The probe is imported here, not at the top: the
+    task package imports ``ssl``, which imports this module."""
+    from ..tasks.probes import SlipForceProbe
+
+    return {**_PAIRS, SlipForceProbe: ((("fc1", 1),), "fc2", None)}
 
 
 def jax_path(name: str) -> str:
@@ -452,9 +462,10 @@ def shard_module(module: nn.Module, mesh: Mesh) -> nn.Module:
     if mesh.mp == 1:
         return module
     matches = rule_matches(module)
+    pairs = _pairs()
     plan, covered = [], set()
     for name, sub in module.named_modules():
-        spec = _PAIRS.get(type(sub))
+        spec = pairs.get(type(sub))
         if spec is None:
             continue
         columns, row, count_attr = spec

@@ -142,6 +142,30 @@ def layers_rank(n_devices: int, mp: int, device: str = "cpu") -> dict:
     return out
 
 
+def slip_force_shard_rank(n_devices: int, mp: int, device: str = "cpu") -> dict:
+    """SlipForceProbe sharded over mp against its full twin on the same tokens, force and output
+    gradient: the class and width of each of its layers after ``shard_module`` ({name: (class,
+    in_features, out_features)}), and the errors of the output and of the gradients of the tokens,
+    the force and every weight (gathered), relative to the largest value."""
+    from ..tasks import SlipForceProbe
+
+    mesh = make_mesh(n_devices, mp=mp, device=device)
+    torch.manual_seed(0)
+    full = SlipForceProbe(32, num_heads=2).to(mesh.device)
+    twin = shard_module(copy.deepcopy(full), mesh)
+    tokens, force, g = torch.randn(4, 6, 32, device=mesh.device), torch.randn(4, 3, device=mesh.device), torch.randn(4, 2, device=mesh.device)
+    results = []
+    for module in (full, twin):
+        ins = [tokens.clone().requires_grad_(True), force.clone().requires_grad_(True)]
+        y = module(*ins)
+        y.backward(g)
+        results.append((y.detach(), [x.grad for x in ins], {n: gather_like(p.grad, p, mesh) for n, p in module.named_parameters()}))
+    (y0, gi0, gw0), (y1, gi1, gw1) = results
+    layers = {n: (type(m).__name__, m.in_features, m.out_features) for n, m in twin.named_children() if n in ("force_proj", "fc1", "fc2")}
+    return {"layers": layers, "out": _rel(y1, y0), "grad_in": max(_rel(a, b) for a, b in zip(gi1, gi0)),
+            "grad_w": max(_rel(gw1[n], gw0[n]) for n in gw0)}
+
+
 def timed(obj, method: str, device: torch.device) -> list:
     """Wrap ``obj.method`` to append each call's milliseconds (the card synchronised before and
     after) to the returned list."""
@@ -425,13 +449,14 @@ def ssl_module(case: dict):
     return module
 
 
-def ssl_fit(case: dict, mesh=None, device: str | torch.device = "cpu", record: bool = True):
-    """One ``Trainer.fit`` of the case's module over its batches; returns (history, module, the
-    global loss and logged scalars of every step, the optimizer's AdamW state after each step,
-    gathered to the single-process layout; no moments without ``record``)."""
+def ssl_fit(case: dict, mesh=None, device: str | torch.device = "cpu", record: bool = True, build=None):
+    """One ``Trainer.fit`` of the case's module (``build(case)``, :func:`ssl_module` by default) over
+    its batches; returns (history, module, the global loss and logged scalars of every step, the
+    optimizer's AdamW state after each step, gathered to the single-process layout; no moments
+    without ``record``)."""
     from .trainer import Trainer
 
-    module = ssl_module(case)
+    module = (build or ssl_module)(case)
     trainer = Trainer(max_epochs=case["epochs"], verbose=0, mesh=mesh, device=device, ckpt_dir=case.get("ckpt_dir"))
     step_ms = timed(trainer, "train_step", torch.device(device))
     steps, moments, step = [], [], trainer.train_step
@@ -463,6 +488,16 @@ def _worst(values: dict) -> tuple[float, str | None]:
     return (values[worst] if worst else 0.0), worst
 
 
+def _key_part(name: str, n: int) -> slice | None:
+    """The key's elements of a packed attention bias of ``n``: the middle third of a [q | k | v]
+    ``qkv.bias``, the first half of a cross-attention's [k | v] ``kv.bias``; None for another."""
+    if name.endswith("qkv.bias"):
+        return slice(n // 3, 2 * n // 3)
+    if name.endswith(".kv.bias"):
+        return slice(0, n // 2)
+    return None
+
+
 def ssl_readings(module, steps_per_epoch: int, epochs: int, moments: list, state: dict, ref_moments: list, ref_state: dict,
                  init: dict | None = None) -> dict:
     """A mesh run of an SSL module (its AdamW state after each recorded step and its full state
@@ -473,10 +508,10 @@ def ssl_readings(module, steps_per_epoch: int, epochs: int, moments: list, state
     distance of a trained parameter from the single process's over the norm of the single process's
     update of it; ``teacher_per_lr``, of an EMA teacher's (0 without one); ``center_abs``, the largest
     absolute difference of a buffer (the DINO centers); each with the tensor that gave it, under
-    the reading's key plus ``_worst``. The key third of a packed qkv bias is read apart, as ``key_bias_per_lr`` (student
-    or teacher): a key bias adds one constant to each query's scores, which the softmax cancels, so
-    its gradient is zero but for f32 noise, and Adam, dividing that noise by its own size, moves it
-    by up to lr a step in either run."""
+    the reading's key plus ``_worst``. The key part of a packed attention bias (:func:`_key_part`)
+    is read apart, as ``key_bias_per_lr`` (student or teacher): a key bias adds one constant to each
+    query's scores, which the softmax cancels, so its gradient is zero but for f32 noise, and Adam,
+    dividing that noise by its own size, moves it by up to lr a step in either run."""
     groups = _groups(module)
     names = {id(p): n for n, p in module.named_parameters()}
     order = [names[id(p)] for g in module.configure_optimizer(steps_per_epoch, epochs).adamw.param_groups for p in g["params"]]
@@ -494,10 +529,12 @@ def ssl_readings(module, steps_per_epoch: int, epochs: int, moments: list, state
         group, w = groups[n], w.to(dev).float()
         diff = (state[n].float() - w).abs()
         moved = (w - init[n].to(dev).float()).abs() if init is not None and group == "trainable" else None
-        if group != "buffer" and n.endswith("qkv.bias"):  # the packed [q | k | v] bias
-            third = diff.shape[0] // 3
-            key_bias[n] = diff[third : 2 * third].max().item() / lr
-            diff, moved = (None if t is None else torch.cat([t[:third], t[2 * third :]]) for t in (diff, moved))
+        key = _key_part(n, diff.shape[0]) if group != "buffer" else None
+        if key is not None:
+            key_bias[n] = diff[key].max().item() / lr
+            rest = torch.ones(diff.shape[0], dtype=torch.bool, device=diff.device)
+            rest[key] = False
+            diff, moved = (None if t is None else t[rest] for t in (diff, moved))
         diffs[group][n] = diff.max().item() / (1.0 if group == "buffer" else lr)
         if moved is not None:
             update_rel[n] = (diff.norm() / moved.norm().clamp_min(1e-30)).item()
@@ -508,21 +545,21 @@ def ssl_readings(module, steps_per_epoch: int, epochs: int, moments: list, state
     return out
 
 
-def ssl_rank(case: dict, n_devices: int, mp: int, device: str, reference: str | None = None, warm_up: bool = False) -> dict:
-    """One rank of the case's SSL Trainer run on a dp x mp mesh. Every rank returns each step's
-    global loss and scalars, whether its replicated parameters and buffers equal rank 0's, and its
-    attention calls; rank 0 also the gathered state dict and AdamW moments, or, given the single
-    process's (``reference``, a saved {"moments", "state"}), only :func:`ssl_readings` against them
-    (the moments of a large model are too many bytes to send back). ``warm_up`` as
-    :func:`ppo_rank`'s."""
+def ssl_rank(case: dict, n_devices: int, mp: int, device: str, reference: str | None = None, warm_up: bool = False, build=None) -> dict:
+    """One rank of the case's SSL Trainer run on a dp x mp mesh (the module from ``build``, as in
+    :func:`ssl_fit`). Every rank returns each step's global loss and scalars, whether its replicated
+    parameters and buffers equal rank 0's, and its attention calls; rank 0 also the gathered state
+    dict and AdamW moments, or, given the single process's (``reference``, a saved {"moments",
+    "state"}), only :func:`ssl_readings` against them (the moments of a large model are too many
+    bytes to send back). ``warm_up`` as :func:`ppo_rank`'s."""
     from .mesh import gather_state
 
     case = load_case(case)
     mesh = make_mesh(n_devices, mp=mp, device=device)
     if warm_up:
-        ssl_fit(dict(case, ckpt_dir=None), mesh, mesh.device, record=False)
+        ssl_fit(dict(case, ckpt_dir=None), mesh, mesh.device, record=False, build=build)
     with AttentionLog(mesh.device) as log:
-        history, module, steps, moments = ssl_fit(case, mesh, mesh.device)
+        history, module, steps, moments = ssl_fit(case, mesh, mesh.device, build=build)
     state = gather_state(module, mesh)  # collective; None off rank 0
     out = {"history": history, "steps": steps, "replicated": replication_check(module, mesh), "attention": dict(log.calls),
            "shapes": dict(log.shapes), **log.counts}
@@ -630,6 +667,107 @@ def ssl_losses_rank(n_devices: int, mp: int, device: str, seed: int = 0) -> dict
         check(f"dinov2 {centering} loss", runs["mesh"][0], runs["local"][0], runs["global"][0])
         if centering == "centering":
             check("dinov2 centering centers", runs["mesh"][1], runs["local"][1], runs["global"][1])
+    return out
+
+
+# --------------------------------------------------------------------------------------------- #
+# the downstream task modules on the SSL Trainer
+# --------------------------------------------------------------------------------------------- #
+def task_module(case: dict):
+    """The case's downstream task module (f32) with its full initial weights (``init``; its own
+    where that is None): the ViT ``encoder`` (a config block with its ``_target_``) under a
+    ``probe`` in an SL ``module``, or under a force-field ``decoder`` (ForceFieldDecoder's keyword
+    arguments) in ForceFieldModule or GeometricForceFieldModule; ``probe`` and ``module`` are (a
+    class of ``tasks``, its keyword arguments)."""
+    from .. import tasks
+    from ..utils.config import instantiate
+
+    encoder = instantiate(case["encoder"])
+    name, kw = case["module"]
+    if "probe" in case:
+        probe, probe_kw = case["probe"]
+        module = getattr(tasks, name)(encoder, getattr(tasks, probe)(encoder.embed_dim, **probe_kw), **kw)
+    else:
+        module = getattr(tasks, name)(tasks.ForceFieldDecoder(encoder, **case["decoder"]), **kw)
+    if case.get("init") is not None:
+        module.load_state_dict(case["init"])
+    return module
+
+
+def task_fit(case: dict, mesh=None, device: str | torch.device = "cpu", record: bool = True):
+    """:func:`ssl_fit` of the case's task module (:func:`task_module`)."""
+    return ssl_fit(case, mesh, device, record, build=task_module)
+
+
+def task_rank(case: dict, n_devices: int, mp: int, device: str, reference: str | None = None, warm_up: bool = False) -> dict:
+    """:func:`ssl_rank` of the case's task module (:func:`task_module`)."""
+    return ssl_rank(case, n_devices, mp, device, reference, warm_up, build=task_module)
+
+
+def task_stats_rank(n_devices: int, mp: int, device: str, seed: int = 0) -> dict:
+    """The task modules' batch statistics on a dp x mp mesh, as :func:`ssl_losses_rank` holds the
+    SSL losses': {check: {"mesh": error, "local": error}}, from this rank's rows of a global batch of
+    8 against the global batch. ``weighted_ce`` with class weights (the ranks' labels weigh
+    differently) and its gradient; the force probe's ``rmse_{x,y,z}`` (ForceSLModule over an
+    identity encoder and a linear head) and the geometric force field's SL ``rmse_f{x,y,z}``
+    (``sl_force_terms``), whose targets grow in size from row to row so each rank's RMSE differs."""
+    from torch import nn
+
+    from .. import tasks
+    from ..models.vit import VisionTransformer
+    from ..ssl.losses import dp_sum
+    from ..tasks.modules import weighted_ce
+
+    mesh = make_mesh(n_devices, mp=mp, device=device)
+    g = torch.Generator().manual_seed(seed)
+    dev = mesh.device
+    rand = lambda *shape: torch.randn(*shape, generator=g).to(dev)  # noqa: E731
+    rows = mesh.rows(8)
+    mine = lambda t: t[rows]  # noqa: E731
+    dp_total = lambda t: dp_sum(t.detach().clone().reshape(1), mesh)[0]  # noqa: E731
+    out = {}
+
+    def check(name, mesh_value, local_value, global_value):
+        out[name] = {"mesh": _rel(mesh_value, global_value), "local": _rel(local_value, global_value)}
+
+    weights = torch.tensor([1.0, 4.0, 0.5], device=dev)
+    labels = torch.tensor([1, 1, 1, 0, 2, 0, 0, 2], device=dev)  # weight sums 13 and 3 over the two halves
+    logits = rand(8, 3)
+    grads = {}
+    for key in ("global", "mesh", "local"):
+        x = (logits if key == "global" else mine(logits)).clone().requires_grad_(True)
+        lab = labels if key == "global" else mine(labels)
+        value = weighted_ce(x, lab, weights, mesh if key == "mesh" else None)
+        value = value / mesh.dp if key == "local" else value
+        value.backward()
+        grads[key] = (value.detach() if key == "global" else dp_total(value), mine(x.grad) if key == "global" else x.grad)
+    check("weighted_ce", grads["mesh"][0], grads["local"][0], grads["global"][0])
+    check("weighted_ce gradient", grads["mesh"][1], grads["local"][1], grads["global"][1])
+
+    torch.manual_seed(seed)
+    force = tasks.ForceSLModule(nn.Identity(), nn.Linear(6, 3)).to(dev)
+    spread = torch.linspace(0.2, 3.0, 8, device=dev)[:, None]
+    batch = {"image": rand(8, 6), "force": rand(8, 3).sign() * spread, "force_scale": torch.full((8, 3), 2.0, device=dev)}
+    with torch.no_grad():
+        want = force.training_loss(batch, None, 0)[1]
+        local = force.training_loss({k: mine(v) for k, v in batch.items()}, None, 0)[1]
+        force.use_mesh(mesh)
+        got = force.training_loss({k: mine(v) for k, v in batch.items()}, None, 0)[1]
+    for a in "xyz":
+        check(f"rmse_{a}", dp_total(got[f"rmse_{a}"]), dp_total(local[f"rmse_{a}"] / mesh.dp), want[f"rmse_{a}"])
+
+    torch.manual_seed(seed)
+    vit = VisionTransformer(img_size=(16, 16), patch_size=4, in_chans=6, embed_dim=16, depth=1, num_heads=2, pos_embed_fn="sinusoidal")
+    geo = tasks.GeometricForceFieldModule(tasks.ForceFieldDecoder(vit, hooks=(0,), fusion_ch=8), with_sl_supervision=True).to(dev)
+    disp, shear = torch.rand(8, 16, 16, 1, generator=g).to(dev), rand(8, 16, 16, 2) * spread[:, :, None, None]
+    target = rand(8, 3).sign() * spread
+    with torch.no_grad():
+        want = geo.sl_force_terms(disp, shear, target)[1]
+        local = geo.sl_force_terms(mine(disp), mine(shear), mine(target))[1]
+        geo.use_mesh(mesh)
+        got = geo.sl_force_terms(mine(disp), mine(shear), mine(target))[1]
+    for a in "xyz":
+        check(f"rmse_f{a}", dp_total(got[f"rmse_f{a}"]), dp_total(local[f"rmse_f{a}"] / mesh.dp), want[f"rmse_f{a}"])
     return out
 
 

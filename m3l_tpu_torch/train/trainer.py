@@ -21,8 +21,8 @@ returns its loss and every scalar of its aux as this rank's share of the global 
 optimizer sums the gradients over the dp group, the logged values are the shares summed over the
 ranks, and rank 0 alone writes the checkpoints (in the single-process layout, teachers and centers
 included, so a mesh run resumes from a single-process one and the reverse). A module takes a mesh
-through :meth:`~..ssl.module.SSLModule.use_mesh`: the SSL families do; the downstream task modules
-raise there. Under a mesh no preemption handler is installed (a save is collective and cannot run
+through :meth:`~..ssl.module.SSLModule.use_mesh`: every SSL family and every downstream task module
+(the probes, the force field, the geometric force field). Under a mesh no preemption handler is installed (a save is collective and cannot run
 inside a signal handler) and no reconstruction images are logged.
 """
 from __future__ import annotations
@@ -172,7 +172,7 @@ class Trainer:
     ):
         steps_per_epoch = steps_per_epoch or len(train_loader)
         if self.mesh is not None:
-            module.use_mesh(self.mesh)  # raises for a module that takes no mesh
+            module.use_mesh(self.mesh)
         module.to(self.device)
         if hasattr(module, "setup_schedules"):
             module.setup_schedules(steps_per_epoch, self.max_epochs)

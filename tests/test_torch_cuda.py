@@ -795,3 +795,43 @@ def test_export_policy_on_another_device_than_the_policys(card):
         got = program.module()({k: torch.as_tensor(v) for k, v in obs.items()}).numpy()
     cpu = serve.PolicyServer(copy.deepcopy(policy).to("cpu"))
     np.testing.assert_array_equal(got, cpu(obs))
+
+
+@pytest.mark.cuda
+def test_slip_force_probe_on_a_mesh_of_ranks_sharing_the_card(card, tmp_path, monkeypatch):
+    """The fine-tuned slip-with-force probe (class weights, a 64-wide ViT of depth 2 on 32 x 32) for
+    two Trainer steps on four ranks sharing the card over gloo (dp 2 x mp 2) against the single
+    process on the card, f32 with TF32 off: each step's loss and scalars (rtol 1e-5), each
+    parameter's AdamW moments (6e-5 of their norm), the parameters (0.02 lr per element, 2e-3 of the
+    single process's update of each; the key part of each attention bias 4 lr) as
+    tests/test_torch_mesh_tasks.py holds them on the CPU; every rank's attention calls at half the
+    rows and heads and its launches the single process's."""
+    import numpy as np
+
+    from m3l_tpu_torch.train import mesh_workers as mw
+    from m3l_tpu_torch.train.mesh import launch
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    vit = dict(_target_="m3l_tpu_torch.models.vit.VisionTransformer", img_size=(32, 32), patch_size=8, in_chans=3, embed_dim=64, depth=2,
+               num_heads=2, pos_embed_fn="sinusoidal")
+    rng = np.random.default_rng(0)
+    batches = [{"image": rng.random((8, 32, 32, 3), dtype=np.float32), "force": rng.uniform(-1, 1, (8, 3)).astype(np.float32),
+                "slip": rng.integers(0, 2, 8)} for _ in range(2)]
+    case = dict(encoder=vit, probe=("SlipForceProbe", dict(num_heads=2)), dtype="float32", batches=batches, epochs=1,
+                module=("SlipSLModule", dict(class_weights=[1.0, 3.0], use_force=True, train_encoder=True, base_lr=1e-3, warmup_epochs=0)))
+    torch.manual_seed(0)
+    case["init"] = mw.task_module(dict(case, init=None)).state_dict()
+    ranks = [r[0][0] for r in launch(mw.jobs_rank, [(mw.task_rank, (case, 4, 2, "cuda"))], world=4, device="cuda", timeout=300)]
+    with mw.AttentionLog(card) as log:
+        _, module, steps, moments = mw.task_fit(case, device=card)
+    torch.cuda.synchronize()
+    assert all(r["replicated"] and r["steps"] == ranks[0]["steps"] for r in ranks)
+    for got, want in zip(ranks[0]["steps"], steps):
+        for k, v in want.items():
+            np.testing.assert_allclose(got[k], v, rtol=1e-5, atol=1e-6, err_msg=k)
+    readings = mw.ssl_readings(module, 2, 1, ranks[0]["moments"], ranks[0]["state"], moments, module.state_dict(), case["init"])
+    tol = dict(moment_rel=6e-5, param_per_lr=0.02, update_rel=2e-3, key_bias_per_lr=4.0)
+    assert all(readings[k] <= bound for k, bound in tol.items()), readings
+    want_calls = {(kind, b // 2, h // 2): n for (kind, b, h), n in log.calls.items()}
+    assert all(r["attention"] == want_calls and r["launches"] == log.counts["launches"] for r in ranks), (ranks[0], log.counts)
+

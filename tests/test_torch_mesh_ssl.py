@@ -48,7 +48,7 @@ from jax_params import flat_variables
 from m3l_tpu_torch.train import Trainer
 from m3l_tpu_torch.train import mesh_workers as mw
 from m3l_tpu_torch.train.checkpoint import load_checkpoint
-from m3l_tpu_torch.train.mesh import Mesh, launch
+from m3l_tpu_torch.train.mesh import launch
 from m3l_tpu_torch.utils.convert import load_jax_params
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -224,15 +224,3 @@ def test_batch_statistic_is_the_global_batchs(group, check):
     for r in ranks:
         assert r[check]["mesh"] <= STAT_TOL and r[check]["local"] > LOCAL_FLOOR, r[check]
 
-
-def test_task_modules_refuse_a_mesh():
-    """The downstream task modules (SLModuleBase and its subclasses, the force-field modules) raise
-    under a mesh before any step, naming the queued item."""
-    from m3l_tpu_torch import tasks
-
-    mesh = Mesh(world=4, dp=2, mp=2, rank=0, dp_index=0, mp_index=0, dp_group=None, mp_group=None, backend="gloo",
-                device=torch.device("cpu"))
-    module = object.__new__(tasks.ForceSLModule)
-    torch.nn.Module.__init__(module)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Trainer(max_epochs=1, verbose=0, mesh=mesh).fit(module, [{"image": np.zeros((4, 32, 32, 3), np.float32)}])
