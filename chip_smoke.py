@@ -270,6 +270,7 @@ from m3l_tpu_torch.ssl.ijepa import cut_context
 from m3l_tpu_torch.eval import TestTaskSL
 from m3l_tpu_torch.train import Trainer, load_checkpoint
 from m3l_tpu_torch.train.builders import _seeded, build_task_module
+from m3l_tpu_torch.utils import trace
 from m3l_tpu_torch.utils.config import instantiate, load_config
 from m3l_tpu_torch.utils.obs import vt_load
 
@@ -740,6 +741,14 @@ def update_errors(a: PPOMAE, b: PPOMAE, batch: int, seed: int = 0) -> dict:
                 losses=mb_, grad_norm=gb.norm().item())
 
 
+def learn_iterations(spans: list) -> list[dict]:
+    """Host seconds of each ``learn`` iteration's collect and train, from the spans ``ppo.collect``
+    and ``ppo.train`` (their ident the iteration)."""
+    seconds = {(s.name, s.ident): (s.end_ns - s.start_ns) * 1e-9 for s in spans if s.name in ("ppo.collect", "ppo.train")}
+    return [dict(collect_s=seconds[("ppo.collect", i)], train_s=seconds[("ppo.train", i)])
+            for i in sorted(i for name, i in seconds if name == "ppo.train")]
+
+
 def train_slice() -> dict:
     lr = 1e-4
     # (a) one f32 update at full width, card vs CPU
@@ -774,7 +783,9 @@ def train_slice() -> dict:
 
     model.train = counted_train
     reset_launches()
+    trace.start()
     model.learn(total_timesteps=2 * TRAIN_STEPS * TRAIN_ENVS)
+    iterations = learn_iterations(trace.stop())
     torch.cuda.synchronize()
     launches = {k: LAUNCHES[k] for k in (KERNEL, BWD_KERNEL)}
     learn_bodies = tensor_core_only("bf16 learn")
@@ -806,7 +817,7 @@ def train_slice() -> dict:
     tensor_core_only("timed bf16 updates")
     return dict(
         f32_check=dict(errs, tol=TRAIN_F32_TOL, minibatch=CHECK_BATCH),
-        iterations=[dict(collect_s=s["collect"], train_s=s["train"]) for s in model.iteration_seconds],
+        iterations=iterations,
         updates_per_train=updates, launches=launches, launches_per_train=per_train, bodies=learn_bodies,
         update_ms=update_s * 1e3, update_obs_frames_per_s=TRAIN_BATCH * FRAME_STACK / update_s,
         last_metrics=metrics, max_param_move=moved,
@@ -869,7 +880,9 @@ def cli_phase() -> dict:
         per_train.clear()
         reset_launches()
         t0 = time.perf_counter()
+        trace.start()
         model = train_cli.main(base + argv)
+        its = learn_iterations(trace.stop())
         seconds = time.perf_counter() - t0
         torch.cuda.synchronize()
         u, expect = model.n_epochs * model.n_minibatches, layers[mode]
@@ -883,7 +896,6 @@ def cli_phase() -> dict:
         finite = all(np.isfinite(m[k]) for k in m if k != "explained_variance") and all(torch.isfinite(p).all() for p in model.policy.parameters())
         if model.iteration != iterations or not finite or not moved > 0 or (m["mae_loss"] == 0) != (mode == "plain"):
             fail(f"{mode}: {model.iteration} iterations, metrics {m}, max parameter move {moved}")
-        its = [dict(collect_s=t["collect"], train_s=t["train"]) for t in model.iteration_seconds]
         split = "; ".join(f"collect {i['collect_s']:.2f} s, train {i['train_s']:.2f} s" for i in its)
         print(f"  {mode}: {split}; main() {seconds:.1f} s; launches per train() {per_train[0]}")
         return model, dict(iterations=its, main_s=seconds, launches_per_train=list(per_train), updates_per_train=u,
@@ -2206,10 +2218,12 @@ def variant_cli(name: str) -> tuple[PPOMAE, dict]:
     try:
         reset_launches()
         t0 = time.perf_counter()
+        trace.start()
         model = cli.main(argv)
         seconds = time.perf_counter() - t0
         torch.cuda.synchronize()
     finally:
+        spans = trace.stop()
         PPOMAE.collect_rollouts, PPOMAE.train, PPOMAE.learn = collect, train, learn
     updates = model.n_epochs * model.n_minibatches
     want_collect = {KERNEL: step * model.n_steps, BWD_KERNEL: 0, V1_KERNEL: 0, V1_BWD_KERNEL: 0}
@@ -2238,7 +2252,7 @@ def variant_cli(name: str) -> tuple[PPOMAE, dict]:
         model.minibatch_update(mb["data"], idx, mb["advantages"], mb["returns"], mask)
     torch.cuda.synchronize()
     update_ms = (time.perf_counter() - t0) / VARIANT_TIMED_UPDATES * 1e3
-    its = [dict(collect_s=t["collect"], train_s=t["train"]) for t in model.iteration_seconds]
+    its = learn_iterations(spans)
     samples = model.n_steps * model.n_envs
     steps_per_s = samples / its[-1]["collect_s"]
     print(f"  {name}: " + "; ".join(f"collect {i['collect_s']:.2f} s, train {i['train_s']:.2f} s" for i in its)

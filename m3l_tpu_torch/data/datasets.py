@@ -14,6 +14,8 @@ from typing import Callable, Iterator, Optional
 
 import numpy as np
 
+from ..utils import trace
+
 
 def load_pickle_dataset(path: str) -> dict:
     """Load a pickled sensor buffer {key: np.ndarray}."""
@@ -98,7 +100,8 @@ class VisionTactileDataset:
 
 
 class DataLoader:
-    """Epoch-shuffled minibatch iterator yielding stacked dict batches."""
+    """Epoch-shuffled minibatch iterator yielding stacked dict batches; each batch's assembly is
+    span ``data.batch`` (``utils/trace.py``)."""
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = True, drop_last: bool = True, seed: int = 0):
         self.dataset = dataset
@@ -116,9 +119,11 @@ class DataLoader:
         order = self._rng.permutation(n) if self.shuffle else np.arange(n)
         end = n - (n % self.batch_size) if self.drop_last else n
         for start in range(0, end, self.batch_size):
-            idx = order[start : start + self.batch_size]
-            items = [self.dataset[int(i)] for i in idx]
-            yield {k: np.stack([it[k] for it in items]) for k in items[0]}
+            with trace.span("data.batch"):  # the batch's assembly, closed before the caller resumes
+                idx = order[start : start + self.batch_size]
+                items = [self.dataset[int(i)] for i in idx]
+                batch = {k: np.stack([it[k] for it in items]) for k in items[0]}
+            yield batch
 
 
 # ---------------------------------------------------------------------- #

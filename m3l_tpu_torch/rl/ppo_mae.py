@@ -18,6 +18,12 @@ MAE chunks of the stopping minibatch are applied, and so they are here). Metrics
 over the executed updates. The JAX package fuses the phase into one jitted ``lax.scan``; here it
 is an eager loop, and the gate reads ``approx_kl`` on the host once per minibatch.
 
+Spans (``utils/trace.py``, recorded only while a caller records): ``ppo.collect`` and
+``ppo.train`` for each iteration of :meth:`learn`, ``ppo.update`` for each minibatch update of the
+phase (its index in the phase) with its children ``ppo.update.load`` (indexing, ``vt_load``),
+``.forward`` (the losses, the separate mode's MAE chunks and the gate), ``.backward`` (the
+gradients cleared, then taken) and ``.step`` (the Adam step).
+
 SB3 semantics kept: advantages normalized per minibatch with the ddof=1 std; unclipped actions
 stored; the truncated-episode value bootstrap applied to normalized rewards; rewards normalized
 by the running-return std.
@@ -58,6 +64,7 @@ from ..ops.masking import ModalMask
 from ..train.checkpoint import load_checkpoint, save_checkpoint
 from ..train.mesh import Mesh, env_spec, gather_state, is_main, on_main, shard_module, shard_state, tree_map
 from ..train.optim import FlatAdam
+from ..utils import trace
 from ..utils.device import resolve_device
 from ..utils.obs import vt_load
 from .buffer import RolloutBuffer
@@ -144,7 +151,6 @@ class PPOMAE:
         self.num_timesteps = 0
         self.iteration = 0
         self.ep_info_buffer: deque = deque(maxlen=100)
-        self.iteration_seconds: list[dict] = []  # {"collect": s, "train": s} per learn iteration
         self._last_obs = None
         self._last_episode_starts = np.ones(self.n_envs, np.float32)
 
@@ -205,36 +211,40 @@ class PPOMAE:
         plain PPO. Returns the step's metrics as detached device scalars, or None when the
         ``target_kl`` gate stops it (then no PPO update is applied). Under a mesh ``idx`` and
         ``mask`` are the global ones; this rank takes its rows."""
-        n = idx.shape[0]
-        rows = self.mesh.rows(n) if self.mesh is not None else slice(0, n)
-        adv = advantages[idx]
-        if self.normalize_advantage:  # over the whole minibatch, ddof=1
-            adv = (adv - adv.mean()) / (adv.std(correction=1) + 1e-8)
-        idx, adv = idx[rows], adv[rows]
-        x = vt_load({k: v[idx] for k, v in data["obs"].items()}, frame_stack=self.frame_stack)
-        actions = data["actions"][idx]
+        with trace.span("ppo.update.load"):
+            n = idx.shape[0]
+            rows = self.mesh.rows(n) if self.mesh is not None else slice(0, n)
+            adv = advantages[idx]
+            if self.normalize_advantage:  # over the whole minibatch, ddof=1
+                adv = (adv - adv.mean()) / (adv.std(correction=1) + 1e-8)
+            idx, adv = idx[rows], adv[rows]
+            x = vt_load({k: v[idx] for k, v in data["obs"].items()}, frame_stack=self.frame_stack)
+            actions = data["actions"][idx]
         joint = self.train_mae and not self.separate_optimizer
-        if self.separate_optimizer:
-            mae_loss = self._mae_chunk_updates(x, mask, rows)
-        if joint:
-            values, log_prob, entropy, mae_loss = self.policy.evaluate_actions_packed_with_mae(x, actions, tree_map(lambda t: t[rows], mask))
-        else:
-            values, log_prob, entropy = self.policy.evaluate_actions_packed(x, actions)
-        if not self.train_mae:
-            mae_loss = torch.zeros((), device=self.device)
-        total, metrics = self._ppo_losses(values, log_prob, entropy, data["values"][idx], data["log_probs"][idx], adv, returns[idx])
-        loss = total + mae_loss if joint else total
-        metrics["mae_loss"] = mae_loss
-        if self.mesh is not None:  # this rank's shares (the separate mode's MAE loss is one already), summed over the ranks
-            scale = (rows.stop - rows.start) / n
-            loss = loss * scale
-            shares = torch.stack([metrics[k] * (1.0 if k == "mae_loss" and self.separate_optimizer else scale) for k in METRICS])
-            metrics = dict(zip(METRICS, self.mesh.global_mean(shares)))
-        if self.target_kl is not None and not bool(metrics["approx_kl"] <= 1.5 * self.target_kl):
-            return None
-        self.optimizer.zero_grad()
-        loss.backward()
-        self.optimizer.step()
+        with trace.span("ppo.update.forward"):
+            if self.separate_optimizer:
+                mae_loss = self._mae_chunk_updates(x, mask, rows)
+            if joint:
+                values, log_prob, entropy, mae_loss = self.policy.evaluate_actions_packed_with_mae(x, actions, tree_map(lambda t: t[rows], mask))
+            else:
+                values, log_prob, entropy = self.policy.evaluate_actions_packed(x, actions)
+            if not self.train_mae:
+                mae_loss = torch.zeros((), device=self.device)
+            total, metrics = self._ppo_losses(values, log_prob, entropy, data["values"][idx], data["log_probs"][idx], adv, returns[idx])
+            loss = total + mae_loss if joint else total
+            metrics["mae_loss"] = mae_loss
+            if self.mesh is not None:  # this rank's shares (the separate mode's MAE loss is one already), summed over the ranks
+                scale = (rows.stop - rows.start) / n
+                loss = loss * scale
+                shares = torch.stack([metrics[k] * (1.0 if k == "mae_loss" and self.separate_optimizer else scale) for k in METRICS])
+                metrics = dict(zip(METRICS, self.mesh.global_mean(shares)))
+            if self.target_kl is not None and not bool(metrics["approx_kl"] <= 1.5 * self.target_kl):
+                return None
+        with trace.span("ppo.update.backward"):  # cleared first: the separate mode's MAE chunks left theirs
+            self.optimizer.zero_grad()
+            loss.backward()
+        with trace.span("ppo.update.step"):
+            self.optimizer.step()
         return {k: v.detach() for k, v in metrics.items()}
 
     def train_phase(
@@ -256,8 +266,9 @@ class PPOMAE:
                                self.gamma, self.gae_lambda)
         advantages_all, returns_all = adv.reshape(-1), ret.reshape(-1)
         steps = []
-        for i, m in zip(idx, masks):
-            metrics = self.minibatch_update(data, i, advantages_all, returns_all, m)
+        for n, (i, m) in enumerate(zip(idx, masks)):
+            with trace.span("ppo.update", n):
+                metrics = self.minibatch_update(data, i, advantages_all, returns_all, m)
             if metrics is None:
                 break
             steps.append(metrics)
@@ -350,15 +361,16 @@ class PPOMAE:
         t_start = time.time()
         while self.num_timesteps < total_timesteps:
             t0 = time.time()
-            self.collect_rollouts()
+            with trace.span("ppo.collect", self.iteration):
+                self.collect_rollouts()
             t_collect = time.time() - t0
             if callback is not None and callback(self) is False:
                 break
             t0 = time.time()
-            metrics = self.train()
+            with trace.span("ppo.train", self.iteration):
+                metrics = self.train()
             t_train = time.time() - t0
             self.iteration += 1
-            self.iteration_seconds.append({"collect": t_collect, "train": t_train})
             if self.verbose and self._is_main and self.iteration % log_interval == 0:
                 ep_rew = np.mean([e["r"] for e in self.ep_info_buffer]) if self.ep_info_buffer else float("nan")
                 ep_len = np.mean([e["l"] for e in self.ep_info_buffer]) if self.ep_info_buffer else float("nan")

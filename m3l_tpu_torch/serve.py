@@ -39,6 +39,7 @@ from torch import nn
 
 from .models import VTMAE, VTT, VTTConfig
 from .rl import ActorCritic, MAEFeatures
+from .utils import trace
 from .utils.device import resolve_device
 
 __all__ = [
@@ -97,11 +98,17 @@ def random_obs(rng: np.random.Generator, batch: int, frame_stack: int = 4, image
 
 
 class PolicyServer:
-    """Maps raw numpy observations to numpy actions with ``policy`` on its own device."""
+    """Maps raw numpy observations to numpy actions with ``policy`` on its own device.
+
+    Each request is span ``serve.request`` (``utils/trace.py``; its ident is the count of requests
+    served before it), with the children ``serve.h2d`` (the obs to the device), ``serve.forward``
+    (the policy's launches) and ``serve.readback`` (the clip and the copy back, where the host
+    waits for the device)."""
 
     def __init__(self, policy: ActorCritic, action_low=None, action_high=None):
         self.policy = policy.eval()
         self.device = policy.log_std.device
+        self.requests = 0
         self.bounds = None
         if action_low is not None and action_high is not None:
             self.bounds = tuple(torch.as_tensor(b, dtype=torch.float32, device=self.device) for b in (action_low, action_high))
@@ -116,17 +123,29 @@ class PolicyServer:
             actions = torch.clamp(actions, *self.bounds)
         return actions.cpu().numpy()
 
+    def _request(self):
+        self.requests += 1
+        return trace.span("serve.request", self.requests - 1)
+
     def __call__(self, obs: dict) -> np.ndarray:
         """Deterministic actions: the Gaussian mean, clipped to the bounds."""
-        with torch.inference_mode():
-            mean, _, _ = self.policy._dist_params(self.to_device(obs))
-            return self._clip(mean)
+        with self._request(), torch.inference_mode():
+            with trace.span("serve.h2d"):
+                x = self.to_device(obs)
+            with trace.span("serve.forward"):
+                mean, _, _ = self.policy._dist_params(x)
+            with trace.span("serve.readback"):
+                return self._clip(mean)
 
     def sample(self, obs: dict, generator: torch.Generator) -> np.ndarray:
         """Stochastic actions drawn with ``generator`` (on the policy's device), clipped."""
-        with torch.inference_mode():
-            actions, _, _ = self.policy.step(self.to_device(obs), generator)
-            return self._clip(actions)
+        with self._request(), torch.inference_mode():
+            with trace.span("serve.h2d"):
+                x = self.to_device(obs)
+            with trace.span("serve.forward"):
+                actions, _, _ = self.policy.step(x, generator)
+            with trace.span("serve.readback"):
+                return self._clip(actions)
 
 
 def _on(device: torch.device, obs: dict) -> dict:

@@ -10,7 +10,10 @@ optimizer step and the module's post-update hook, on an explicit device (the car
 Randomness comes from a ``torch.Generator`` on that device, seeded from ``seed``; validation
 batch i always uses the generator seeded from (seed, i), so validation numbers are comparable
 across epochs. A ``torch.profiler`` trace covers the steps of ``profile_steps`` when
-``profile_dir`` is set.
+``profile_dir`` is set, with the program's spans (``utils/trace.py``) of the same steps on a
+track of their own: ``trainer.place`` (the batch to the device), ``trainer.step`` (its ident the
+global step) and its children ``trainer.forward``, ``trainer.backward``, ``trainer.optimizer``
+and ``trainer.post`` (the module's post-update hook), and the loader's ``data.batch``.
 
 With ``mesh`` (``train/mesh.py``) :meth:`fit` computes the single-process result on the global
 batch, as JAX's GSPMD Trainer does: it shards the module (``shard_module``) before
@@ -35,6 +38,7 @@ from typing import TYPE_CHECKING, Iterable, Optional
 import numpy as np
 import torch
 
+from ..utils import trace
 from ..utils.device import resolve_device
 from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from .mesh import gather_state, is_main, put_batch, shard_module, shard_state
@@ -134,7 +138,8 @@ class Trainer:
 
     def _place(self, batch: dict) -> dict:
         """The batch on the device; under a mesh this rank's dp rows of it."""
-        return put_batch({k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}, self.mesh)
+        with trace.span("trainer.place"):
+            return put_batch({k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}, self.mesh)
 
     def _global(self, loss: torch.Tensor, scalars: dict) -> tuple[torch.Tensor, dict]:
         """Under a mesh, the global values of this rank's loss and scalar shares (one collective):
@@ -155,12 +160,17 @@ class Trainer:
     def train_step(self, module: SSLModule, optimizer, batch: dict) -> tuple[torch.Tensor, dict]:
         """Loss, gradients, one optimizer call and the module's post-update hook for one batch
         already on the device; returns the loss and the scalar aux values, on the device."""
-        loss, aux = module.training_loss(batch, self.generator, self.global_step)
-        loss.backward()
-        optimizer.step()
-        optimizer.zero_grad()
-        module.on_train_batch_end(aux, self.global_step)
-        return self._global(loss.detach(), self._scalars(aux))
+        with trace.span("trainer.step", self.global_step):
+            with trace.span("trainer.forward"):
+                loss, aux = module.training_loss(batch, self.generator, self.global_step)
+            with trace.span("trainer.backward"):
+                loss.backward()
+            with trace.span("trainer.optimizer"):
+                optimizer.step()
+                optimizer.zero_grad()
+            with trace.span("trainer.post"):
+                module.on_train_batch_end(aux, self.global_step)
+            return self._global(loss.detach(), self._scalars(aux))
 
     # ------------------------------------------------------------------ #
     def fit(
@@ -276,11 +286,15 @@ class Trainer:
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         profiler = torch.profiler.profile(activities=activities)
         profiler.start()
+        trace.start()
         return profiler
 
     def _stop_profiler(self, profiler) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        spans = trace.stop()
         profiler.stop()
         os.makedirs(self.profile_dir, exist_ok=True)
-        profiler.export_chrome_trace(os.path.join(self.profile_dir, f"trace_step{self.global_step}.json"))
+        path = os.path.join(self.profile_dir, f"trace_step{self.global_step}.json")
+        profiler.export_chrome_trace(path)
+        trace.add_to_chrome_trace(path, spans)

@@ -8,6 +8,7 @@ same seed) through MAEModule.sample_noise and DINOModule.sample_masks. f32 with 
 the path: rtol 2e-4.
 """
 import importlib
+import json
 import pathlib
 import subprocess
 import sys
@@ -386,6 +387,13 @@ def test_profiler_window_writes_a_trace(tmp_path):
     trainer = Trainer(max_epochs=1, verbose=0, profile_dir=str(tmp_path), profile_steps=(1, 2), device="cpu")
     trainer.fit(tiny_mae(), batches)
     assert [f.name for f in tmp_path.iterdir()] == ["trace_step2.json"]
+    with open(tmp_path / "trace_step2.json") as f:
+        events = json.load(f)["traceEvents"]
+    steps = [e for e in events if e.get("ph") == "X" and e["name"] == "trainer.step"]
+    assert [e["args"]["ident"] for e in steps] == [1, 2] and all(e["pid"] == "program spans" and e["dur"] > 0 for e in steps)
+    # on the profiler's clock: the step encloses the operators it ran
+    ops = [e for e in events if e.get("ph") == "X" and e.get("cat") == "cpu_op"]
+    assert any(steps[0]["ts"] <= e["ts"] and e["ts"] + e["dur"] <= steps[0]["ts"] + steps[0]["dur"] for e in ops)
 
 
 def test_validation_is_deterministic_and_images_are_logged():

@@ -27,6 +27,7 @@ from m3l_tpu_torch.models import VTTConfig
 from m3l_tpu_torch.ops.masking import mask_from_indices
 from m3l_tpu_torch.rl import PPOMAE
 from m3l_tpu_torch.serve import build_policy
+from m3l_tpu_torch.utils import trace
 from m3l_tpu_torch.utils.convert import load_jax_params
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -133,8 +134,12 @@ def test_learn_on_the_cpu_and_unported_options_raise():
     policy = port_policy()
     before = [p.detach().clone() for p in policy.parameters()]
     model = PPOMAE(policy, port_env(), n_steps=8, batch_size=8, n_epochs=1, frame_stack=FS, device="cpu", seed=1)
+    trace.start()
     model.learn(total_timesteps=32)
-    assert model.num_timesteps == 32 and model.iteration == 2 and len(model.iteration_seconds) == 2
+    spans = trace.stop()
+    assert model.num_timesteps == 32 and model.iteration == 2
+    phases = [(s.name, s.ident) for s in spans if s.name in ("ppo.collect", "ppo.train")]
+    assert phases == [("ppo.collect", 0), ("ppo.train", 0), ("ppo.collect", 1), ("ppo.train", 1)]
     m = model.last_metrics
     assert m["n_updates_executed"] == model.n_epochs * model.n_minibatches == 2
     for k in ("policy_loss", "value_loss", "entropy_loss", "approx_kl", "clip_fraction", "loss", "mae_loss"):
