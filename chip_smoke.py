@@ -16,8 +16,10 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    backward) and fails on another;
 4. the serving slice: the full-width PPO+MAE policy (dim 256, 4 encoder layers + 1 post layer,
    bf16 compute, random weights from a seed) serves 8 requests of batch 8 and one of batch 512
-   through PolicyServer; every forward must launch the attention kernel 5 times, and the
-   batch-8 actions and values, in bf16 and in f32 on the card, must match the same weights
+   through PolicyServer; every request of a batch size after its first must replay the server's
+   CUDA graph; the wrapper must count 5 attention launches in each batch size's eager forward and
+   5 in its capture, and a device trace of 8 more batch-8 replays must hold 5 attention kernels a
+   replay (a replay launches through no wrapper); and the batch-8 actions and values, in bf16 and in f32 on the card, must match the same weights
    run in f32 on the CPU;
 5. the training slice at full width (dim 256, 4 encoder layers, 192 tokens, 10 kept at mask
    ratio 0.95, decoder depth 3, 4 heads): (a) one joint PPO+MAE minibatch update in f32 on
@@ -148,7 +150,9 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    and moved to the card by ``load_artifact(device="cuda")``; the stochastic artifact against
    ``PolicyServer.sample`` with the same noise, the encoder artifact against ``policy.features``;
    ``cli.export_policy.main`` on FakeInsertion at its defaults, batch 8; the artifact's p50 request
-   latency beside PolicyServer's at batch 8 and 512, in turns.
+   latency beside PolicyServer's at batch 8 and 512, in turns, PolicyServer replaying its CUDA
+   graph for every request of a batch size after the first, and a device trace of 3 more of its
+   requests at each batch size holding 5 attention kernels a replay.
 15. the flat-buffer AdamW: three MAE steps at config/experiment/mae_vit.yaml's defaults (f32, batch
    64, warm-up 0) from one set of weights, batches and masking noise, with ``FlatAdamW`` (the
    module's ``_flat_optimizer`` opt-in) and with the default ``WDSplitAdamW``, the same gradients
@@ -240,7 +244,7 @@ from m3l_tpu_torch.cli import train as train_cli
 from m3l_tpu_torch.cli import train_sacmae as sac_cli_module
 from m3l_tpu_torch.data import ArrayDataset, DataLoader, forcefield_windows, synth_digit_trajectories
 from m3l_tpu_torch.envs import SyncVecEnv, make_env
-from m3l_tpu_torch.kernels import BWD_BODY_LAUNCHES, FWD_BODY_LAUNCHES, LAUNCHES, MASKED_LAUNCHES, reset_launches
+from m3l_tpu_torch.kernels import BWD_BODY_LAUNCHES, FWD_BODY_LAUNCHES, LAUNCHES, MASKED_LAUNCHES, device_kernels, reset_launches
 from m3l_tpu_torch.kernels.build import build_all
 from m3l_tpu_torch.nn import flash_attention as fa
 from m3l_tpu_torch.nn.flash_attention import (
@@ -307,6 +311,7 @@ TRAIN_F32_TOL = dict(loss_rel=2e-6, grad_rel=2e-6, param_per_lr=3e-3)
 FRAME_STACK = 4
 ACTION_DIM = 3
 SERVE_B, SERVE_N, SERVE_H, SERVE_DH = 512, 192, 4, 64  # attention at the batch-512 forward
+BODY_KERNEL = "fwd_mma_kernel"  # the bf16 attention forward's kernel (csrc/flash_attention_fwd_mma.cuh), as a device trace names it
 TRAIN_N_KEPT = 10  # the MAE encoder's tokens at mask ratio 0.95
 TRAIN_ENVS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_EPOCHS, CHECK_BATCH = 8, 128, 512, 2, 64
 TRAIN_TIMED_UPDATES = 5
@@ -642,25 +647,32 @@ def serve_slice() -> dict:
     large = random_obs(rng, 512, FRAME_STACK)
 
     reset_launches()
-    forwards = 0
-    server(small[0])  # warm-up: cuBLAS/cuDNN handles and algorithm choice
-    forwards += 1
+    server(small[0])  # warm-up: cuBLAS/cuDNN handles and algorithm choice, then the batch-8 graph's capture
     latencies, actions = [], []
     for obs in small:
         t0 = time.perf_counter()
         actions.append(server(obs))  # returns host numpy: the request's end is synchronous
         latencies.append(time.perf_counter() - t0)
-        forwards += 1
+    if (server.graph_captures, server.graph_replays) != (1, len(small)):
+        fail(f"batch-8 requests after the first: {server.graph_replays} graph replays of {len(small)} "
+             f"({server.graph_captures} captures, {server.eager_requests} eager)")
     server(large)
-    forwards += 1
     t0 = time.perf_counter()
     large_actions = server(large)
     t_large = time.perf_counter() - t0
-    forwards += 1
-    launches = LAUNCHES[KERNEL]
+    launches, eager, captures, replays = LAUNCHES[KERNEL], server.eager_requests, server.graph_captures, server.graph_replays
+    if (eager, captures, replays) != (2, 2, len(small) + 1):
+        fail(f"batch 8 and 512: {eager} eager requests, {captures} graph captures and {replays} replays, expected 2, 2 and {len(small) + 1}")
+    forwards = eager + captures  # the forwards that went through the wrappers: a replay launches through none
     if launches != 5 * forwards or any(LAUNCHES[k] for k in (BWD_KERNEL, V1_KERNEL, V1_BWD_KERNEL)):
-        fail(f"serving launched the attention kernels {dict(LAUNCHES)} in {forwards} forwards, expected 5 forward launches per forward")
+        fail(f"serving launched the attention kernels {dict(LAUNCHES)} in {eager} eager forwards and {captures} captures, "
+             "expected 5 forward launches in each")
     bodies = tensor_core_only("serving")
+    traced = device_kernels(lambda: [server(obs) for obs in small], BODY_KERNEL)
+    traced_replays = server.graph_replays - replays
+    if traced_replays != len(small) or traced != 5 * traced_replays or LAUNCHES[KERNEL] != launches:
+        fail(f"{traced_replays} traced batch-8 requests (of {len(small)} expected replays) ran {traced} attention kernels on the card, "
+             f"expected 5 a replay; the wrappers counted {LAUNCHES[KERNEL] - launches} launches, expected none")
 
     if large_actions.shape != (512, ACTION_DIM) or not np.isfinite(large_actions).all():
         fail("batch-512 actions malformed")
@@ -692,7 +704,8 @@ def serve_slice() -> dict:
     return dict(
         batch8_latency_ms_p50=statistics.median(lat_ms), batch8_latency_ms=lat_ms,
         batch512_ms=t_large * 1e3, batch512_obs_frames_per_s=512 * FRAME_STACK / t_large,
-        forwards=forwards, attention_launches=launches, bodies=bodies, **errs, **scale,
+        forwards=forwards, attention_launches=launches, bodies=bodies, graph_captures=captures, graph_replays=replays,
+        traced_replays=traced_replays, traced_replay_kernels=traced, **errs, **scale,
     )
 
 
@@ -2394,6 +2407,7 @@ def export_phase() -> dict:
     rng = np.random.default_rng(14)
     out, launches = {}, Counter()
     for b in EXPORT_BATCHES:
+        requests, replays = server.requests, server.graph_replays
         batches = [random_obs(rng, b, FRAME_STACK) for _ in range(3)]
         t0 = time.perf_counter()
         program = serve.export_policy(policy, serve.example_obs_for(env, batch=b, frame_stack=FRAME_STACK), **bounds)
@@ -2426,12 +2440,24 @@ def export_phase() -> dict:
                 t0 = time.perf_counter()
                 fn()
                 lat[name].append((time.perf_counter() - t0) * 1e3)
-        if dict(LAUNCHES) != {KERNEL: 5 * 2 * EXPORT_TIMED[b]}:
-            fail(f"batch {b}: the timed requests launched {dict(LAUNCHES)}, expected 5 a request")
+        if dict(LAUNCHES) != {KERNEL: 5 * EXPORT_TIMED[b]}:  # PolicyServer's replays launch through no wrapper
+            fail(f"batch {b}: the timed requests launched {dict(LAUNCHES)}, expected 5 an artifact request")
         launches.update(dict(LAUNCHES))
-        row.update({f"{k}_p50_ms": statistics.median(v) for k, v in lat.items()}, latencies_ms=lat)
+        replays_timed = server.graph_replays - replays
+        traced = device_kernels(lambda: [server(obs) for obs in batches], BODY_KERNEL)
+        traced_replays = server.graph_replays - replays - replays_timed
+        if traced_replays != len(batches) or traced != 5 * traced_replays:
+            fail(f"batch {b}: {traced_replays} traced PolicyServer requests (of {len(batches)} expected replays) ran {traced} attention "
+                 "kernels on the card, expected 5 a replay")
+        served_b, replays_b = server.requests - requests, server.graph_replays - replays
+        if replays_b != served_b - 1:  # the first request of a batch size captures its graph, every later one replays it
+            fail(f"batch {b}: PolicyServer replayed its graph for {replays_b} of {served_b} requests, expected all but the first")
+        row.update({f"{k}_p50_ms": statistics.median(v) for k, v in lat.items()}, latencies_ms=lat, graph_replays=replays_b,
+                   traced_replays=traced_replays, traced_replay_kernels=traced)
         print(f"  batch {b}: exported in {export_s:.2f} s ({row['bytes'] / 1e6:.1f} MB); p50 request ms artifact "
-              f"{row['artifact_p50_ms']:.3f}, PolicyServer {row['policy_server_p50_ms']:.3f} ({EXPORT_TIMED[b]} each, in turns)")
+              f"{row['artifact_p50_ms']:.3f}, PolicyServer {row['policy_server_p50_ms']:.3f} ({EXPORT_TIMED[b]} each, in turns); "
+              f"PolicyServer {server.graph_captures} graph captures, {replays_b} replays of {served_b} requests, "
+              f"{traced} attention kernels on the card in {traced_replays} traced replays")
         out[f"batch{b}"] = row
 
     # the stochastic artifact against PolicyServer.sample under one generator; the encoder artifact
@@ -2462,8 +2488,9 @@ def export_phase() -> dict:
     reset_launches()
     cli_err = export_cli.main(["--env", "FakeInsertion", "--out", str(EXPORT_DIR / "cli_policy.pt2"), "--serve_batch", "8"])
     torch.cuda.synchronize()
-    if not cli_err <= EXPORT_TOL or dict(LAUNCHES) != {KERNEL: 10}:
-        fail(f"cli.export_policy: max|served-direct| {cli_err:.3e}, launches {dict(LAUNCHES)} (expected 5 + 5)")
+    if not cli_err <= EXPORT_TOL or dict(LAUNCHES) != {KERNEL: 15}:
+        fail(f"cli.export_policy: max|served-direct| {cli_err:.3e}, launches {dict(LAUNCHES)} (expected 5 + 5 + 5: the artifact, "
+             "PolicyServer's eager forward and its graph's capture)")
     tensor_core_only("cli.export_policy")
     launches.update(dict(LAUNCHES))
     out.update(cli_max_abs_err=cli_err, launches=dict(launches))
@@ -3191,7 +3218,9 @@ def main() -> int:
     print("[4] serving slice")
     sl = serve_slice()
     print(f"  batch 8: p50 {sl['batch8_latency_ms_p50']:.3f} ms per request; batch 512: {sl['batch512_ms']:.3f} ms, "
-          f"{sl['batch512_obs_frames_per_s']:.1f} obs-frames/s; {sl['attention_launches']} attention launches in {sl['forwards']} forwards")
+          f"{sl['batch512_obs_frames_per_s']:.1f} obs-frames/s; {sl['attention_launches']} attention launches counted by the wrapper in "
+          f"{sl['forwards']} forwards ({sl['graph_captures']} of them graph captures), {sl['graph_replays']} graph replays; "
+          f"{sl['traced_replay_kernels']} attention kernels on the card in {sl['traced_replays']} traced replays")
 
     print("[5] training slice")
     tr = train_slice()

@@ -26,8 +26,9 @@ Package layout:
             pretraining (python -m m3l_tpu_torch.cli.pretrain)
   kernels/  nvcc build + ctypes loading, launch counts
   csrc/     CUDA C++ sources (sm_90a)
-  serve.py  build_policy + PolicyServer: raw obs -> actions on the card; torch.export artifacts
-            of the policy and the encoder (cli/export_policy.py)
+  serve.py  build_policy + PolicyServer: raw obs -> actions on the card, one CUDA graph replay
+            per request signature; torch.export artifacts of the policy and the encoder
+            (cli/export_policy.py)
   bench_attention.py  one attention layer fwd+bwd on the card: einsum vs v1 vs v2
   profile_paths.py  torch.profiler breakdown of serving and training on the card
   bench_host.py  host cost of the attention wrapper, batch-8 serving and the PPO update
