@@ -237,7 +237,7 @@ def run(workload: str, seed: int, seconds: float, window_spans: bool, device, t0
         overrides: dict | None = None) -> dict:
     """One run of the cell as ``harness.run_cell`` makes it, its traced windows recording the
     program's spans (``--trace 1``), or its measured window (``window_spans``, ``--trace 0``)."""
-    bench = bench or harness.load_benchmark()
+    bench = bench or harness.load_benchmark(prepared=True)
     cell = harness.cell_spec(bench, workload)
     traffic = harness._merge(harness.load_json(harness.HERE / "traffic" / f"{cell['traffic']}.json"), (overrides or {}).get("traffic"))
     runner = importlib.import_module(f"benchmark.drivers.{traffic['driver']}")

@@ -20,14 +20,22 @@ def need_card():
         pytest.skip("needs a CUDA device")
 
 
-@pytest.mark.parametrize("workload", ["vits-dino-pretrain", "vits-force-probe"])
+def float32_cells() -> list[str]:
+    """The cells (prepared ones too) whose configuration computes in float32."""
+    bench = harness.load_benchmark(prepared=True)
+    return sorted(w["name"] for w in bench["workloads"]
+                  if harness.load_json(harness.HERE / "configs" / f"{w['config']}.json")["compute_dtype"] == "float32")
+
+
+@pytest.mark.parametrize("workload", float32_cells())
 def test_tf32_control_fails_the_limits(workload):
-    """The float32 cells' control (TF32 on) at a small size on the card is not correct."""
+    """The float32 cells' control (TF32 on) at a small size on the card (the ``card_control`` sizes
+    of the cell's ``rehearsal/<workload>.json``) is not correct."""
     need_card()
     cell = harness.cell_spec(harness.load_benchmark(prepared=True), workload)
-    config = {**harness.load_json(harness.HERE / "configs" / f"{cell['config']}.json"), "img_size": 64, "depth": 4, "dino_out_dim": 4096,
-              "batch_size": 16}
-    traffic = {**harness.load_json(harness.HERE / "traffic" / f"{cell['traffic']}.json"), "epoch_batches": 4}
+    small = harness.load_json(harness.HERE / "rehearsal" / f"{workload}.json")["card_control"]
+    config = {**harness.load_json(harness.HERE / "configs" / f"{cell['config']}.json"), **small["config"]}
+    traffic = {**harness.load_json(harness.HERE / "traffic" / f"{cell['traffic']}.json"), **small["traffic"]}
     limits = harness.load_json(harness.HERE / "limits" / f"{workload}.json")
     driver = importlib.import_module(f"benchmark.drivers.{traffic['driver']}")
     ctx = harness.Context(workload, config, traffic, 2**31 + 7, torch.device("cuda"), False)

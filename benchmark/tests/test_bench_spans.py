@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from benchmark import devtrace, spans
-from benchmark.tests.test_bench_rehearsal import SEED, TINY, TRAFFIC
+from benchmark.tests.test_bench_rehearsal import SEED, overrides, rehearsal
 from m3l_tpu_torch.utils.trace import Span
 
 MAIN = threading.main_thread().ident
@@ -94,7 +94,8 @@ WANT = {"vtt-ppo-train": {"update_host_ms.update"}, "vtt-serve-b8": {"dispatch_m
 @pytest.mark.parametrize("workload", sorted(WANT))
 def test_cell_records_the_programs_spans(workload, few_threads):
     # three traced updates: the first's span opens before the window, the last's closes after it
-    over = {"config": TINY[workload], "traffic": {**TRAFFIC, "trace_updates": 3}}
+    tiny = rehearsal(workload)
+    over = {"config": tiny["config"], "traffic": {**tiny["traffic"], "trace_updates": 3}}
     result = spans.run(workload, SEED, 0.2, False, "cpu", time.perf_counter(), overrides=over)
     got = result["program_spans"]
     assert set(got["metrics"]) == WANT[workload]  # off the card no device time: no idle share
@@ -103,6 +104,5 @@ def test_cell_records_the_programs_spans(workload, few_threads):
 
 
 def test_window_spans_run_reports_the_end_to_end_metric(few_threads):
-    over = {"config": TINY["vtt-serve-b8"], "traffic": TRAFFIC}
-    result = spans.run("vtt-serve-b8", SEED, 0.2, True, "cpu", time.perf_counter(), overrides=over)
+    result = spans.run("vtt-serve-b8", SEED, 0.2, True, "cpu", time.perf_counter(), overrides=overrides("vtt-serve-b8"))
     assert "serve_p95_ms" in result["metrics"] and "program_spans" not in result and result["correct"]

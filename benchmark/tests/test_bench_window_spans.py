@@ -7,7 +7,7 @@ import torch
 
 from benchmark import window_spans
 from benchmark.drivers import serve_closed_loop
-from benchmark.tests.test_bench_rehearsal import SEED, TINY, TRAFFIC
+from benchmark.tests.test_bench_rehearsal import SEED, overrides
 
 
 @pytest.fixture
@@ -20,8 +20,7 @@ def few_threads():
 
 def test_the_serving_windows_spans_and_counters(few_threads):
     window = serve_closed_loop.window
-    over = {"config": TINY["vtt-serve-b8"], "traffic": TRAFFIC}
-    result = window_spans.run("vtt-serve-b8", SEED, 0.2, "cpu", time.perf_counter(), overrides=over)
+    result = window_spans.run("vtt-serve-b8", SEED, 0.2, "cpu", time.perf_counter(), overrides=overrides("vtt-serve-b8"))
     assert serve_closed_loop.window is window  # put back
     n = result["attempted"]
     spans = result["window_spans"]
@@ -33,6 +32,5 @@ def test_the_serving_windows_spans_and_counters(few_threads):
 
 
 def test_a_cell_without_a_server_has_no_counters(few_threads):
-    over = {"config": TINY["vtt-ppo-train"], "traffic": TRAFFIC}
-    result = window_spans.run("vtt-ppo-train", SEED, 0.2, "cpu", time.perf_counter(), overrides=over)
+    result = window_spans.run("vtt-ppo-train", SEED, 0.2, "cpu", time.perf_counter(), overrides=overrides("vtt-ppo-train"))
     assert "server" not in result and result["window_spans"]["ppo.update"]["n"] == result["attempted"]

@@ -37,7 +37,7 @@ def run(workload: str, seed: int, seconds: float, device, t0: float, *, bench: d
     in its measured window."""
     from m3l_tpu_torch.utils import trace
 
-    bench = bench or harness.load_benchmark()
+    bench = bench or harness.load_benchmark(prepared=True)
     cell = harness.cell_spec(bench, workload)
     traffic = harness._merge(harness.load_json(harness.HERE / "traffic" / f"{cell['traffic']}.json"), (overrides or {}).get("traffic"))
     runner = importlib.import_module(f"benchmark.drivers.{traffic['driver']}")
