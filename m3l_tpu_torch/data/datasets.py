@@ -3,7 +3,8 @@
 
 Pickled sensor buffers with background removal, and the frame-window dataset: a sliding window
 of ``num_frames`` frames ``frame_stride`` apart, emitted as ``concat_ch_img`` (channels
-concatenated), ``single_image`` or ``video`` (T-major stack). An epoch-shuffled batching
+concatenated) or ``single_image`` in f32 over [0, 1], or ``video`` (T-major stack) as the uint8 clip
+itself, which the consumers' ``as_float_image`` scales on the device. An epoch-shuffled batching
 DataLoader over in-memory numpy arrays; the Trainer moves batches to the device. Augmentations
 (flip, crop-resize) are numpy transforms.
 """
@@ -90,9 +91,9 @@ class VisionTactileDataset:
         elif self.out_format == "concat_ch_img":
             t, h, w, c = window.shape
             img = window.transpose(1, 2, 0, 3).reshape(h, w, t * c)
-        else:  # video
+        else:  # video: the uint8 clip as it is, a quarter of the f32 clip's bytes to stack and copy
             img = window
-        item = {"image": img.astype(np.float32) / 255.0 if img.dtype == np.uint8 else img}
+        item = {"image": img.astype(np.float32) / 255.0 if img.dtype == np.uint8 and self.out_format != "video" else img}
         anchor = sel[-1]
         for k, v in self.labels.items():
             item[k] = v[anchor]

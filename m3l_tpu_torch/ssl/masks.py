@@ -6,17 +6,26 @@ Masks are boolean (M, B, N) keep-arrays under the JAX package's distribution fam
 * block top-left corners uniform per (mask, sample);
 * global masks optionally constrained to the complement of the local masks, falling back to the
   unconstrained block for a sample whose constrained block keeps ``min_keep`` patches or fewer;
-* tube masks: a spatial keep-set of static size extruded through time.
+* tube masks: a spatial keep-set of static size extruded through time;
+* V-JEPA's multi-block 3-D masks (:class:`MultiBlock3D`): blocks of one size a batch, placed per
+  clip, the context the tokens outside every block and the targets those inside, each index list
+  cut to the batch's smallest count. They are drawn on the CPU (as the published collator does),
+  so their lengths are known on the host without waiting for the card; the uniforms come from a
+  torch generator and the rest is single-threaded numpy, a few milliseconds a batch.
 
-Every draw comes from a ``torch.Generator`` on the target device. The samplers draw their
-uniforms and hand them to helpers that take the uniforms as tensors (``block_masks_from_uniforms``,
-``tube_masks_from_noise``), so a test can feed in the uniforms JAX drew and require equal masks.
-Consumers run the encoder at full length with attention key-masking.
+Every draw comes from a ``torch.Generator`` on the target device (the multi-block masks': on the
+CPU). The samplers draw their uniforms and hand them to helpers that take the uniforms as tensors
+(``block_masks_from_uniforms``, ``tube_masks_from_noise``, ``multiblock_masks_from_uniforms``), so
+a test can feed in the uniforms JAX (or a reference) drew and require equal masks. Consumers of the
+keep-arrays run the encoder at full length with attention key-masking; those of index lists gather.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from dataclasses import dataclass
+from typing import NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 
@@ -107,3 +116,104 @@ def random_tube_masks(
     t, h, w = grid_thw
     noise = torch.rand((n_masks, batch, h * w), generator=generator, device=_device(generator, device))
     return tube_masks_from_noise(noise, t, ratio)
+
+
+# ---------------------------------------------------------------------- #
+# V-JEPA's multi-block 3-D masks (src/masks/multiblock3d.py)
+# ---------------------------------------------------------------------- #
+@dataclass(frozen=True)
+class MultiBlock3D:
+    """One mask generator of V-JEPA's multi-block 3-D masks: ``num_blocks`` blocks a clip, all of
+    one size a batch, drawn from its ``spatial_scale``, ``aspect_ratio`` and ``temporal_scale``
+    ranges. The targets are the tokens inside any block; the context is every other token."""
+
+    num_blocks: int
+    spatial_scale: Sequence[float]
+    aspect_ratio: Sequence[float] = (0.3, 3.0)
+    temporal_scale: Sequence[float] = (1.0, 1.0)
+
+
+class MultiBlockDraw(NamedTuple):
+    """One generator's masks for a batch: the index lists, ascending over the flattened (t, h, w)
+    order and cut to the batch's smallest count, the clips drawn again for an empty context, and
+    the uniforms they came from (``size`` (3,); ``start``, ``top``, ``left`` (R, B, num_blocks))."""
+
+    context: torch.Tensor  # (B, Kc) int64
+    target: torch.Tensor  # (B, Kt) int64
+    redraws: int
+    uniforms: dict
+
+
+MAX_MASK_ROUNDS = 1000  # draws of a clip before a generator whose blocks always cover the grid is refused
+
+
+def multiblock_size(u_size: torch.Tensor, grid_thw: tuple[int, int, int], spec: MultiBlock3D) -> tuple[int, int, int]:
+    """The batch's block size (t, h, w) from three uniforms (temporal, spatial, aspect ratio), in
+    Python floats as the published sampler computes it: t = max(1, int(T' tau)); keep =
+    int(H' W' s); h = min(round(sqrt(keep ar)), H'), w = min(round(sqrt(keep / ar)), W')."""
+    t_, h_, w_ = grid_thw
+    ut, us, ua = (float(u) for u in u_size)
+    tau = spec.temporal_scale[0] + ut * (spec.temporal_scale[1] - spec.temporal_scale[0])
+    scale = spec.spatial_scale[0] + us * (spec.spatial_scale[1] - spec.spatial_scale[0])
+    ar = spec.aspect_ratio[0] + ua * (spec.aspect_ratio[1] - spec.aspect_ratio[0])
+    keep = int(h_ * w_ * scale)
+    return max(1, int(t_ * tau)), min(int(round(math.sqrt(keep * ar))), h_), min(int(round(math.sqrt(keep / ar))), w_)
+
+
+def _multiblock_targets(u_start, u_top, u_left, grid_thw, size) -> np.ndarray:
+    """(R, B, T'*H'*W') bool: the union of each round's blocks for each clip. A block starts at
+    floor(u * room) in float64 on each axis and is the outer product of its three intervals."""
+    (t_, h_, w_), (t, h, w) = grid_thw, size
+
+    def inside(u, extent, length):
+        first = np.floor(np.asarray(u, dtype=np.float64) * (length - extent + 1)).astype(np.int64)
+        ax = np.arange(length)
+        return (ax >= first[..., None]) & (ax < first[..., None] + extent)
+
+    blocks = (inside(u_start, t, t_)[..., :, None, None] & inside(u_top, h, h_)[..., None, :, None]
+              & inside(u_left, w, w_)[..., None, None, :])  # (R, B, n, T', H', W')
+    return blocks.any(axis=2).reshape(*blocks.shape[:2], -1)
+
+
+def _ascending(mask: np.ndarray) -> torch.Tensor:
+    """(B, N) bool -> (B, K) int64, K the smallest row count: each row's first K True positions in
+    ascending order (``nonzero`` lists them row by row)."""
+    count = int(mask.sum(axis=-1).min())
+    kept = mask & (np.cumsum(mask, axis=-1) <= count)
+    return torch.from_numpy(np.nonzero(kept)[1].reshape(mask.shape[0], count))
+
+
+def _first_rounds(u_size, rounds: torch.Tensor, targets: np.ndarray) -> MultiBlockDraw:
+    """The draw from ``rounds`` (3, R, B, n) of uniforms and their ``targets`` (R, B, N): each clip
+    takes its first round that leaves it a context."""
+    full = targets.all(axis=-1)  # (R, B): no context left
+    if full.all(axis=0).any():
+        raise ValueError("multi-block masks: a clip's context is empty in every round drawn")
+    first = np.argmax(~full, axis=0)
+    target = targets[first, np.arange(targets.shape[1])]
+    uniforms = {"size": u_size, "start": rounds[0], "top": rounds[1], "left": rounds[2]}
+    return MultiBlockDraw(_ascending(~target), _ascending(target), int(first.sum()), uniforms)
+
+
+def multiblock_masks_from_uniforms(u_size, u_start, u_top, u_left, grid_thw: tuple[int, int, int], spec: MultiBlock3D) -> MultiBlockDraw:
+    """One generator's masks from its uniforms: ``u_size`` (3,) sets the batch's block size
+    (:func:`multiblock_size`); ``u_start``, ``u_top``, ``u_left`` (R, B, num_blocks) place each
+    clip's blocks, round r standing for a clip only where every earlier round left its context
+    empty. A block starts at floor(u * (T' - t + 1)) in time, its top and left likewise."""
+    size = multiblock_size(u_size, grid_thw, spec)
+    return _first_rounds(u_size, torch.stack([u_start, u_top, u_left]), _multiblock_targets(u_start, u_top, u_left, grid_thw, size))
+
+
+def sample_multiblock_masks(generator: Optional[torch.Generator], batch: int, grid_thw: tuple[int, int, int], spec: MultiBlock3D) -> MultiBlockDraw:
+    """One generator's masks for ``batch`` clips, drawn on the CPU from ``generator`` (a CPU
+    generator, or torch's default one): the size's uniforms, then rounds of the blocks' uniforms
+    until every clip has a context in some round."""
+    u_size = torch.rand(3, generator=generator)
+    size = multiblock_size(u_size, grid_thw, spec)
+    rounds, targets = [], []
+    while len(rounds) < MAX_MASK_ROUNDS:
+        rounds.append(torch.rand((3, 1, batch, spec.num_blocks), generator=generator))
+        targets.append(_multiblock_targets(*rounds[-1].numpy(), grid_thw, size))
+        if not np.concatenate(targets).all(axis=-1).all(axis=0).any():
+            return _first_rounds(u_size, torch.cat(rounds, dim=1), np.concatenate(targets))
+    raise ValueError(f"multi-block masks: blocks of size {size} leave no context on the grid {grid_thw}")

@@ -32,9 +32,12 @@ def build_vit(
     num_frames: int = 1,
     tubelet_size: int = 2,
     depth: Optional[int] = None,
+    init_values: Optional[float] = 1.0,
     compute_dtype: str = "float32",
     seed: int = 0,
 ):
+    """The ViT of ``size``; ``init_values`` is each LayerScale's initial gamma, None for blocks
+    without LayerScale (V-JEPA's ViTs)."""
     factory = getattr(vit_zoo, f"vit_{size}")
     kwargs = dict(
         img_size=tuple(img_size),
@@ -42,6 +45,7 @@ def build_vit(
         pos_embed_fn=pos_embed_fn,
         num_frames=num_frames,
         tubelet_size=tubelet_size,
+        init_values=init_values,
         dtype=_DTYPES[compute_dtype],
     )
     if depth is not None:
@@ -49,7 +53,21 @@ def build_vit(
     return _seeded(seed, lambda: factory(patch_size=patch_size, num_register_tokens=num_register_tokens, **kwargs))
 
 
-def build_predictor(encoder, *, embed_dim: int = 384, depth: int = 6, num_heads: int = 12, num_mask_tokens: int = 1, seed: int = 1):
+def build_predictor(
+    encoder,
+    *,
+    embed_dim: int = 384,
+    depth: int = 6,
+    num_heads: int = 12,
+    num_mask_tokens: int = 1,
+    zero_init_mask_tokens: bool = False,
+    init_values: Optional[float] = 1.0,
+    compute_dtype: str = "float32",
+    seed: int = 1,
+):
+    """The predictor over ``encoder``'s latents: ``depth`` blocks ``embed_dim`` wide with
+    ``num_heads`` heads, ``num_mask_tokens`` mask tokens (zeros with ``zero_init_mask_tokens``),
+    LayerScale as :func:`build_vit` sets it, products in ``compute_dtype``."""
     return _seeded(
         seed,
         lambda: vit_zoo.vit_predictor(
@@ -63,6 +81,9 @@ def build_predictor(encoder, *, embed_dim: int = 384, depth: int = 6, num_heads:
             num_frames=encoder.num_frames,
             tubelet_size=encoder.tubelet_size,
             num_mask_tokens=num_mask_tokens,
+            zero_init_mask_tokens=zero_init_mask_tokens,
+            init_values=init_values,
+            dtype=_DTYPES[compute_dtype],
         ),
     )
 
@@ -92,11 +113,28 @@ def build_ijepa(encoder, *, predictor_depth: int = 6, predictor_dim: int = 384, 
     return _seeded(seed, lambda: IJEPAModule(encoder, predictor, num_target_masks=num_target_masks, **kwargs))
 
 
-def build_vjepa(encoder, *, predictor_depth: int = 6, predictor_dim: int = 384, seed: int = 1, **kwargs):
+def build_vjepa(
+    encoder,
+    *,
+    predictor_depth: int = 6,
+    predictor_dim: int = 384,
+    predictor_num_heads: int = 12,
+    predictor_init_values: Optional[float] = 1.0,
+    predictor_compute_dtype: str = "float32",
+    zero_init_mask_tokens: bool = False,
+    mask_generators: Optional[Sequence[dict]] = None,
+    seed: int = 1,
+    **kwargs,
+):
+    """V-JEPA over ``encoder``: the predictor (:func:`build_predictor`, one mask token for each of
+    ``mask_generators``, else one) and the module, whose multi-block masks are seeded from ``seed``."""
     from ..ssl import VJEPAModule
 
-    predictor = build_predictor(encoder, embed_dim=predictor_dim, depth=predictor_depth, seed=seed + 1)
-    return _seeded(seed, lambda: VJEPAModule(encoder, predictor, **kwargs))
+    predictor = build_predictor(encoder, embed_dim=predictor_dim, depth=predictor_depth, num_heads=predictor_num_heads,
+                                num_mask_tokens=len(mask_generators) if mask_generators else 1, zero_init_mask_tokens=zero_init_mask_tokens,
+                                init_values=predictor_init_values, compute_dtype=predictor_compute_dtype, seed=seed + 1)
+    kwargs.setdefault("mask_seed", seed)
+    return _seeded(seed, lambda: VJEPAModule(encoder, predictor, mask_generators=mask_generators, **kwargs))
 
 
 _PROBES = {

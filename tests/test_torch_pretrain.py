@@ -25,7 +25,7 @@ from m3l_tpu.utils.config import load_config as jload_config
 from m3l_tpu_torch.cli import pretrain
 from m3l_tpu_torch.data import DataLoader, VisionTactileDataset, background_difference, random_flip
 from m3l_tpu_torch.models.vit import VisionTransformer
-from m3l_tpu_torch.ssl import MAEModule
+from m3l_tpu_torch.ssl import MAEModule, as_float_image
 from m3l_tpu_torch.train import Trainer
 from m3l_tpu_torch.utils.convert import load_jax_params
 from m3l_tpu_torch.train.checkpoint import load_checkpoint
@@ -145,8 +145,9 @@ def test_datasets_equal_jax(out_format, remove_background):
     batches = list(DataLoader(ds, batch_size=4, seed=3))
     want = list(jdata.DataLoader(ref, batch_size=4, seed=3))
     assert len(batches) == len(want) == 4
-    for a, b in zip(batches, want):
-        np.testing.assert_array_equal(a["image"], b["image"])
+    for a, b in zip(batches, want):  # the video format yields uint8 clips, scaled on the device as the consumers do
+        assert a["image"].dtype == (np.uint8 if out_format == "video" else np.float32)
+        np.testing.assert_array_equal(as_float_image(torch.from_numpy(a["image"])).numpy(), b["image"])
     np.testing.assert_array_equal(background_difference(frames), jdata.background_difference(frames))
     item = ds[0]
     np.testing.assert_array_equal(random_flip(item, np.random.default_rng(1), p=1.0)["image"],
