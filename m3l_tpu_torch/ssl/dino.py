@@ -203,7 +203,7 @@ class DINOModule(SSLModule):
         temp = self._temp_fn(step)
         ssl_loss, teacher_logits = self.forward_loss(x, global_masks, local_masks, temp)
         ssl_loss = self.share(ssl_loss)
-        temp_share = self.share(torch.tensor(temp, dtype=torch.float32, device=image.device))
+        temp_share = self.share(torch.full((), temp, dtype=torch.float32, device=image.device))
         aux = {"ssl_loss": ssl_loss, "teacher_logits": teacher_logits, "teacher_temp": temp_share}
         loss = ssl_loss
         if self.recon_probe is not None:

@@ -123,7 +123,7 @@ class DINOv2Module(DINOModule):
         global_masks, local_masks = self.own_masks(generator, x.shape[0])
         temp = self._temp_fn(step)
         loss, aux = self.forward_loss(x, global_masks, local_masks, temp)
-        aux["teacher_temp"] = self.share(torch.tensor(temp, dtype=torch.float32, device=x.device))
+        aux["teacher_temp"] = self.share(torch.full((), temp, dtype=torch.float32, device=x.device))
         if self.recon_probe is not None:
             aux["reconstruction_loss"] = probe = self.share(self.probe_loss(x))
             loss = loss + probe

@@ -63,7 +63,10 @@ def sinkhorn_knopp_teacher(
     q = torch.exp(t / teacher_temp).T  # (K, B)
     if sample_mask is not None:
         q = q * sample_mask.float()[None, :]
-    b_total = torch.as_tensor(q.shape[1] if n_samples is None else n_samples, dtype=torch.float32, device=q.device)
+    if torch.is_tensor(n_samples):
+        b_total = n_samples.to(q.device, torch.float32)
+    else:  # a fill on the card, not a copy the host waits for
+        b_total = torch.full((), q.shape[1] if n_samples is None else n_samples, dtype=torch.float32, device=q.device)
     k = q.shape[0]
     if mesh is None:
         q = q / torch.sum(q)

@@ -835,3 +835,54 @@ def test_slip_force_probe_on_a_mesh_of_ranks_sharing_the_card(card, tmp_path, mo
     want_calls = {(kind, b // 2, h // 2): n for (kind, b, h), n in log.calls.items()}
     assert all(r["attention"] == want_calls and r["launches"] == log.counts["launches"] for r in ranks), (ranks[0], log.counts)
 
+
+def _dino_on_the_card():
+    from m3l_tpu_torch.models.vit import VisionTransformer
+    from m3l_tpu_torch.ssl import DINOModule
+
+    vit = VisionTransformer(img_size=(64, 64), patch_size=8, in_chans=6, embed_dim=128, depth=2, num_heads=2, pos_embed_fn="sinusoidal",
+                            num_register_tokens=1)
+    module = DINOModule(vit, dino_out_dim=256, dino_hidden_dim=128, dino_bottleneck_dim=64, moving_average_decay=(0.99, 1.0))
+    return module, {"image": torch.randint(0, 255, (4, 64, 64, 6), dtype=torch.uint8).numpy()}, None
+
+
+def _vjepa_on_the_card():
+    from m3l_tpu_torch.train.builders import build_vit, build_vjepa
+
+    vit = build_vit("tiny", patch_size=8, img_size=(32, 32), in_chans=3, num_register_tokens=0, num_frames=4, depth=2, init_values=None,
+                    compute_dtype="bfloat16")
+    generators = [dict(num_blocks=8, spatial_scale=(0.15, 0.15), aspect_ratio=(0.75, 1.5)),
+                  dict(num_blocks=2, spatial_scale=(0.7, 0.7), aspect_ratio=(0.75, 1.5))]
+    module = build_vjepa(vit, predictor_depth=2, predictor_dim=48, predictor_num_heads=2, predictor_init_values=None,
+                         predictor_compute_dtype="bfloat16", zero_init_mask_tokens=True, mask_generators=generators,
+                         moving_average_decay=(0.998, 1.0), loss_exp=1.0, reg_coeff=0.0)
+    return module, {"image": torch.randint(0, 255, (4, 4, 32, 32, 3), dtype=torch.uint8).numpy()}, 10.0
+
+
+@pytest.mark.parametrize("build", [_dino_on_the_card, _vjepa_on_the_card], ids=["dino", "vjepa_multiblock"])
+def test_ssl_train_step_never_waits_for_the_card(card, build):
+    """A Trainer step of DINO (the probe on, block key masks) and of V-JEPA (two multi-block mask
+    generators, bf16, the clip) makes no call that synchronises the host with the card: the second
+    step, after a warm-up step on the same placed batch, runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises at any such call."""
+    from m3l_tpu_torch.train import Trainer
+
+    torch.manual_seed(0)
+    module, batch, clip = build()
+    trainer = Trainer(max_epochs=1, verbose=0, device=card)
+    module.to(card)
+    module.setup_schedules(2, 1)
+    optimizer = module.configure_optimizer(2, 1)
+    if clip is not None:
+        optimizer.clip_norms = (clip, *optimizer.clip_norms)
+    placed = trainer._place(batch)
+    trainer.train_step(module, optimizer, placed)
+    trainer.global_step += 1
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, _ = trainer.train_step(module, optimizer, placed)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert torch.isfinite(loss)

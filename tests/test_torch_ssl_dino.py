@@ -77,6 +77,12 @@ def assert_grads_equal(p, j, jgrads, name, kw):
             assert n.startswith("teacher_") and q.grad is None and not q.requires_grad, n
 
 
+def assert_temp_equal(aux, jaux):
+    """The ``teacher_temp`` aux is JAX's f32 scalar, bit for bit."""
+    assert aux["teacher_temp"].dtype == torch.float32 and aux["teacher_temp"].shape == ()
+    np.testing.assert_array_equal(aux["teacher_temp"].numpy(), np.asarray(jaux["teacher_temp"]))
+
+
 @pytest.mark.parametrize("probe,regs", [(True, 1), (False, 2)], ids=["probe", "no_probe_two_registers"])
 def test_dino_training_loss_and_gradients(probe, regs):
     kw = dict(with_reconstruction_probe=probe, vit_kw=dict(num_register_tokens=regs))
@@ -91,6 +97,7 @@ def test_dino_training_loss_and_gradients(probe, regs):
     close(aux["ssl_loss"], jaux["ssl_loss"])
     close(aux["teacher_logits"], jaux["teacher_logits"])
     assert float(aux["teacher_temp"]) == pytest.approx(0.04) and aux["loss"] is loss
+    assert_temp_equal(aux, jaux)
     if probe:
         close(aux["reconstruction_loss"], jaux["reconstruction_loss"])
     assert_grads_equal(p, j, jgrads, "DINOModule", kw)
@@ -131,6 +138,7 @@ def batch_end(name, kw, seed):
     _, jaux = j.training_loss({"image": jnp.asarray(x)}, key, jnp.asarray(7))
     p.on_train_batch_end(aux, 7)
     j.on_train_batch_end(jaux, jnp.asarray(7))
+    assert_temp_equal(aux, jaux)
     assert_module_equals(p, j, name, kw, CONV_TOL)
     return j, p
 
@@ -154,6 +162,7 @@ def test_dinov2_training_loss_and_gradients(kw):
     for k in ("dino_loss", "ibot_loss", "koleo_loss", "reconstruction_loss", "teacher_logits", "teacher_patch_logits"):
         close(aux[k], jaux[k], name=k)
     np.testing.assert_array_equal(aux["patch_keep"].numpy(), np.asarray(jaux["patch_keep"]))
+    assert_temp_equal(aux, jaux)
     assert_grads_equal(p, j, jgrads, "DINOv2Module", kw)
 
 

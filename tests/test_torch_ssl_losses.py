@@ -40,14 +40,16 @@ def test_softmax_center_and_update_center(shape):
     close(new, ref)
 
 
-@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("masked", [False, True, "int"])
 def test_sinkhorn_knopp(masked):
+    """Unmasked, or masked with the kept count as a tensor (iBOT's) or as a Python int."""
     logits = normal((24, 10), 2, 0.2)
     kw, tkw = {}, {}
     if masked:
         keep = np.random.default_rng(3).random(24) > 0.4
-        kw = dict(n_samples=jnp.asarray(keep.sum()), sample_mask=jnp.asarray(keep))
-        tkw = dict(n_samples=t(keep).sum(), sample_mask=t(keep))
+        count = int(keep.sum()) if masked == "int" else None
+        kw = dict(n_samples=jnp.asarray(keep.sum()) if count is None else count, sample_mask=jnp.asarray(keep))
+        tkw = dict(n_samples=t(keep).sum() if count is None else count, sample_mask=t(keep))
     out = tl.sinkhorn_knopp_teacher(t(logits), 0.05, **tkw)
     close(out, jl.sinkhorn_knopp_teacher(jnp.asarray(logits), 0.05, **kw))
     if masked:
@@ -105,15 +107,29 @@ def test_koleo_gradient_is_finite_with_duplicate_and_zero_rows():
     close(loss, jl.koleo_loss(jnp.asarray(x)))
 
 
-@pytest.mark.parametrize("decay", [0.99, 0.9964999556541443, 0.5])
-def test_ema_update_equals_jax(decay):
-    teacher = [normal((5, 3), 13), normal((4,), 14)]
-    student = [normal((5, 3), 15), normal((4,), 16)]
-    params = [t(a) for a in teacher]
+EMA_DECAYS = [0.99, 0.9964999556541443, 0.5, 0.998, 0.9995, 1.0]
+EMA_CASES = [("float32", d) for d in EMA_DECAYS] + [("bfloat16", d) for d in (0.99, 0.998, 0.9995, 1.0)]
+
+
+@pytest.mark.parametrize("dtype,decay", EMA_CASES, ids=[str(d) if dt == "float32" else f"{dt}-{d}" for dt, d in EMA_CASES])
+def test_ema_update_equals_jax(dtype, decay):
+    """f32 teachers: JAX's bits. bf16 teachers stay bf16 in the port, which rounds ``decay * t``,
+    ``(1 - decay) * s`` and their sum to bf16 (unit roundoff 2^-8 each); JAX promotes to f32 and
+    rounds once, so the two differ by at most 2^-7 of ``decay |t| + (1 - decay) |s|``."""
+    teacher = [normal((5, 3), 13), normal((4,), 14), normal((64, 33), 17)]
+    student = [normal((5, 3), 15), normal((4,), 16), normal((64, 33), 18)]
+    params = [t(a).to(getattr(torch, dtype)) for a in teacher]
     tema.ema_update(params, [t(a) for a in student], decay)
-    ref = jema.ema_update([jnp.asarray(a) for a in teacher], [jnp.asarray(a) for a in student], jnp.asarray(decay, jnp.float32))
-    for p, r in zip(params, ref):
-        np.testing.assert_array_equal(p.numpy(), np.asarray(r))
+    jteacher = [jnp.asarray(a, dtype) for a in teacher]
+    ref = jema.ema_update(jteacher, [jnp.asarray(a) for a in student], jnp.asarray(decay, jnp.float32))
+    for p, r, a, s in zip(params, ref, jteacher, student):
+        assert p.dtype == getattr(torch, dtype)
+        if dtype == "float32":
+            np.testing.assert_array_equal(p.numpy(), np.asarray(r))
+        else:
+            a, s = np.asarray(a, np.float32), np.asarray(jnp.asarray(s, jnp.bfloat16), np.float32)
+            bound = 2.0**-7 * (decay * np.abs(a) + (1 - decay) * np.abs(s))
+            assert (np.abs(p.float().numpy() - np.asarray(r)) <= bound).all()
 
 
 def test_ema_update_rejects_unmatched_lists():
